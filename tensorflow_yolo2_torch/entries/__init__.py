@@ -1,0 +1,1 @@
+"""entries of the PyTorch port; see the package docstring."""
