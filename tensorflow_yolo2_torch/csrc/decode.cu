@@ -1,16 +1,21 @@
-// YOLOv1 grid decode and decode + greedy NMS, written for Hopper (sm_90a).
+// YOLO grid decode and decode + greedy NMS, written for Hopper (sm_90a).
 //
-// Replaces the two v1 Pallas kernels of tensorflow_yolo2_tpu/ops/pallas_decode.py:
-//   tfy2_decode_grid  <- decode_grid_pallas / _decode_kernel
-//   tfy2_decode_nms   <- decode_nms_pallas / _decode_nms_kernel + _nms_sweep
+// Replaces the three decode kernels of tensorflow_yolo2_tpu/ops/pallas_decode.py:
+//   tfy2_decode_grid    <- decode_grid_pallas / _decode_kernel (v1)
+//   tfy2_decode_nms     <- decode_nms_pallas / _decode_nms_kernel + _nms_sweep (v1)
+//   tfy2_decode_nms_v2  <- decode_nms_pallas / _decode_nms_v2_kernel + _nms_sweep
+//                          (YOLOv2 anchor head, per-slot classes)
 //
-// Input is the head's NHWC grid, (N, S, S, C + 5B) float32, contiguous; each
-// cell is [C class scores | B confidences | B * (x, y, w, h)]. The TPU
-// kernels transpose it to channels-major rows for the lane layout; here a
-// thread owns a cell (or a slot) and reads the cell's channels itself.
+// Input is the head's NHWC grid, (N, S, S, CC) float32, contiguous. A v1
+// cell is [C class scores | B confidences | B * (x, y, w, h)], CC = C + 5B;
+// an anchor cell is B slots of (x, y, w, h, conf, C class logits),
+// CC = B * (5 + C). The TPU kernels transpose the grid to channels-major
+// rows for the lane layout; here a thread owns a cell (or a slot) and
+// reads its channels itself.
 //
 // Every arithmetic step uses the round-to-nearest intrinsics so that nvcc
-// contracts nothing into an FMA and the division by S is the IEEE quotient:
+// contracts nothing into an FMA and each division is the IEEE quotient,
+// and exp is the CUDA library's expf, which torch.exp's kernel also calls:
 // the results are bit-equal to the plain PyTorch versions of the same
 // formulas (ops/cuda_decode.py), which the NMS survivor set depends on.
 //
@@ -28,15 +33,9 @@ struct Box {
   float x1, y1, x2, y2, area;
 };
 
-// Corners of box slot b of one cell: ((tx+col)/S, (ty+row)/S, tw^2, th^2)
-// -> (x -+ w/2, y -+ h/2); area = w*h from the decode, as the TPU kernel keeps it.
-__device__ __forceinline__ Box decode_box(const float* cell, int C, int B, int b,
-                                          int row, int col, float fS) {
-  const float* raw = cell + C + B + 4 * b;
-  const float x = __fdiv_rn(__fadd_rn(raw[0], (float)col), fS);
-  const float y = __fdiv_rn(__fadd_rn(raw[1], (float)row), fS);
-  const float w = __fmul_rn(raw[2], raw[2]);
-  const float h = __fmul_rn(raw[3], raw[3]);
+// Corners of the box (x, y, w, h): (x -+ w/2, y -+ h/2); area = w*h from
+// the decode, as the TPU kernels keep it.
+__device__ __forceinline__ Box corners(float x, float y, float w, float h) {
   const float hw = __fmul_rn(w, 0.5f);  // exact, equals w / 2
   const float hh = __fmul_rn(h, 0.5f);
   Box box;
@@ -46,6 +45,29 @@ __device__ __forceinline__ Box decode_box(const float* cell, int C, int B, int b
   box.y2 = __fadd_rn(y, hh);
   box.area = __fmul_rn(w, h);
   return box;
+}
+
+// v1 box slot b of one cell: ((tx+col)/S, (ty+row)/S, tw^2, th^2).
+__device__ __forceinline__ Box decode_box(const float* cell, int C, int B, int b,
+                                          int row, int col, float fS) {
+  const float* raw = cell + C + B + 4 * b;
+  return corners(__fdiv_rn(__fadd_rn(raw[0], (float)col), fS),
+                 __fdiv_rn(__fadd_rn(raw[1], (float)row), fS),
+                 __fmul_rn(raw[2], raw[2]), __fmul_rn(raw[3], raw[3]));
+}
+
+// 1 / (1 + exp(-x)), as ops.boxes.sigmoid writes it.
+__device__ __forceinline__ float sigmoid(float x) {
+  return __fdiv_rn(1.0f, __fadd_rn(1.0f, expf(-x)));
+}
+
+// Maximum of v over the warp, in every lane.
+__device__ __forceinline__ unsigned long long warp_max(unsigned long long v) {
+  for (int off = 16; off > 0; off >>= 1) {
+    const unsigned long long other = __shfl_xor_sync(0xFFFFFFFFu, v, off);
+    v = other > v ? other : v;
+  }
+  return v;
 }
 
 // Strict '>' sweep from class 0: the first maximum wins.
@@ -93,38 +115,107 @@ __global__ void decode_grid_kernel(const float* __restrict__ net,
   }
 }
 
-// Decode + greedy NMS. One block per image; thread t owns the slots with
-// key t, t + blockDim, ... (key = b*S*S + cell, the TPU kernel's order) and
-// keeps their corners, area, score, class and alive flag in registers.
+// One decoded slot: corners and area, thresholded score, class.
+struct Slot {
+  Box box;
+  float score;
+  int cls;
+};
+
+struct DecodeArgs {
+  const float* net;      // (N, S, S, CC)
+  const float* anchors;  // (B, 2) float32 priors in cell units; anchor head only
+  int S, B, C;
+  float thresh;
+};
+
+// v1 decode: bare-confidence threshold, one argmax per cell for its B
+// slots. The B slots of a cell read the same class scores, so the image's
+// grid is staged in shared memory first.
+struct GridDecode {
+  static constexpr bool kStage = true;
+  __host__ __device__ static int channels(int B, int C) { return C + 5 * B; }
+  __device__ static Slot slot(const float* grid, const DecodeArgs& a, int b,
+                              int cell_idx) {
+    const float* cell = grid + cell_idx * channels(a.B, a.C);
+    Slot s;
+    s.box = decode_box(cell, a.C, a.B, b, cell_idx / a.S, cell_idx % a.S, (float)a.S);
+    s.cls = class_argmax(cell, a.C);
+    const float conf = cell[a.C + b];
+    s.score = conf > a.thresh ? conf : 0.0f;
+    return s;
+  }
+};
+
+// Anchor decode (_decode_nms_v2_kernel): sigmoid xy + offsets,
+// (anchor * exp(clip(t, -8, 8))) / S wh, per-slot argmax, score
+// sigmoid(conf) / sum_c exp(l_c - l_max) summed from c = 0. Each slot owns
+// its 5 + C channels, so a thread reads them from global memory itself
+// and shared memory holds only the decoded slots: every grid of at most
+// 4096 slots runs (S <= 28 at B = 5; 608² is S = 19).
+struct AnchorDecode {
+  static constexpr bool kStage = false;
+  __host__ __device__ static int channels(int B, int C) { return B * (5 + C); }
+  __device__ static Slot slot(const float* grid, const DecodeArgs& a, int b,
+                              int cell_idx) {
+    const float* raw = grid + (size_t)cell_idx * channels(a.B, a.C) + b * (5 + a.C);
+    const float fS = (float)a.S;
+    const float tw = fminf(fmaxf(raw[2], -8.0f), 8.0f);
+    const float th = fminf(fmaxf(raw[3], -8.0f), 8.0f);
+    Slot s;
+    s.box = corners(__fdiv_rn(__fadd_rn(sigmoid(raw[0]), (float)(cell_idx % a.S)), fS),
+                    __fdiv_rn(__fadd_rn(sigmoid(raw[1]), (float)(cell_idx / a.S)), fS),
+                    __fdiv_rn(__fmul_rn(a.anchors[2 * b], expf(tw)), fS),
+                    __fdiv_rn(__fmul_rn(a.anchors[2 * b + 1], expf(th)), fS));
+    const float* logits = raw + 5;
+    s.cls = class_argmax(logits, a.C);
+    const float best = logits[s.cls];
+    float denom = 0.0f;
+    for (int c = 0; c < a.C; ++c) denom = __fadd_rn(denom, expf(__fsub_rn(logits[c], best)));
+    const float score = __fdiv_rn(sigmoid(raw[4]), denom);
+    s.score = score > a.thresh ? score : 0.0f;
+    return s;
+  }
+};
+
+// Decode + greedy NMS, for either decode. One block per image; thread t
+// owns the slots with key t, t + blockDim, ... (key = b*S*S + cell, the TPU
+// kernel's order) and keeps their corners, area, score, class and alive
+// flag in registers.
 //
 // Each of the K steps is one block-wide max of the packed 64-bit key
 // (float bits of the score << 32) | (0xFFFFFFFF - key): alive scores are
 // > 0, so their bit patterns order like the floats and the maximum is
 // "highest score, then lowest key". The per-warp maxima go through a
-// double-buffered shared array, so a step costs one __syncthreads. The
-// picked box is read back from the decoded slots in shared memory.
+// double-buffered shared array, so a step costs one __syncthreads, and
+// each warp reduces them with shuffles rather than every thread reading
+// all of them in turn.
+// The picked box is read back from the decoded slots in shared memory.
+// The sweep, not the decode or the bytes, bounds the kernel.
 // __launch_bounds__ caps registers at 64 a thread so that 1024 threads
 // fit on an SM: without it the 4-slot variant does not launch.
-template <int SPT>
+template <class Decode, int SPT>
 __global__ void __launch_bounds__(kMaxBlockThreads)
-    decode_nms_kernel(const float* __restrict__ net, float* __restrict__ out_boxes,
+    decode_nms_kernel(DecodeArgs a, float* __restrict__ out_boxes,
                       float* __restrict__ out_scores, int* __restrict__ out_classes,
-                      int S, int B, int C, float thresh, float iou_thresh, int K,
-                      int class_aware) {
+                      float iou_thresh, int K, int class_aware) {
   extern __shared__ unsigned long long smem[];
-  const int SS = S * S, CC = C + 5 * B, n = SS * B;
+  const int SS = a.S * a.S, CC = Decode::channels(a.B, a.C), n = SS * a.B;
   unsigned long long* warp_best = smem;  // 2 x 32
-  float* grid = reinterpret_cast<float*>(smem + 64);
-  float* sx1 = grid + SS * CC;
+  float* staged = reinterpret_cast<float*>(smem + 64);
+  float* sx1 = staged + (Decode::kStage ? SS * CC : 0);
   float* sy1 = sx1 + n;
   float* sx2 = sy1 + n;
   float* sy2 = sx2 + n;
   int* scls = reinterpret_cast<int*>(sy2 + n);
 
   const int img = blockIdx.x;
-  const float* src = net + (size_t)img * SS * CC;
-  for (int i = threadIdx.x; i < SS * CC; i += blockDim.x) grid[i] = src[i];
-  __syncthreads();
+  const float* grid = a.net + (size_t)img * SS * CC;
+  if (Decode::kStage) {
+    for (int i = threadIdx.x; i < SS * CC; i += blockDim.x) staged[i] = grid[i];
+    grid = staged;
+    __syncthreads();
+  }
 
   float x1[SPT], y1[SPT], x2[SPT], y2[SPT], area[SPT], score[SPT];
   int cls[SPT];
@@ -137,23 +228,20 @@ __global__ void __launch_bounds__(kMaxBlockThreads)
     x1[j] = y1[j] = x2[j] = y2[j] = area[j] = 0.0f;
     cls[j] = 0;
     if (key < n) {
-      const int b = key / SS, cell_idx = key % SS;
-      const float* cell = grid + cell_idx * CC;
-      const Box box = decode_box(cell, C, B, b, cell_idx / S, cell_idx % S, (float)S);
-      x1[j] = box.x1;
-      y1[j] = box.y1;
-      x2[j] = box.x2;
-      y2[j] = box.y2;
-      area[j] = box.area;
-      cls[j] = class_argmax(cell, C);
-      const float conf = cell[C + b];
-      score[j] = conf > thresh ? conf : 0.0f;
-      alive[j] = score[j] > 0.0f;
-      sx1[key] = box.x1;
-      sy1[key] = box.y1;
-      sx2[key] = box.x2;
-      sy2[key] = box.y2;
-      scls[key] = cls[j];
+      const Slot s = Decode::slot(grid, a, key / SS, key % SS);
+      x1[j] = s.box.x1;
+      y1[j] = s.box.y1;
+      x2[j] = s.box.x2;
+      y2[j] = s.box.y2;
+      area[j] = s.box.area;
+      cls[j] = s.cls;
+      score[j] = s.score;
+      alive[j] = s.score > 0.0f;
+      sx1[key] = s.box.x1;
+      sy1[key] = s.box.y1;
+      sx2[key] = s.box.x2;
+      sy2[key] = s.box.y2;
+      scls[key] = s.cls;
     }
   }
   __syncthreads();
@@ -175,15 +263,11 @@ __global__ void __launch_bounds__(kMaxBlockThreads)
         best = packed > best ? packed : best;
       }
     }
-    for (int off = 16; off > 0; off >>= 1) {
-      const unsigned long long other = __shfl_xor_sync(0xFFFFFFFFu, best, off);
-      best = other > best ? other : best;
-    }
+    best = warp_max(best);
     unsigned long long* buf = warp_best + (k & 1) * 32;
     if (lane == 0) buf[warp] = best;
     __syncthreads();
-    best = 0;
-    for (int w = 0; w < nwarps; ++w) best = buf[w] > best ? buf[w] : best;
+    best = warp_max(lane < nwarps ? buf[lane] : 0ull);
 
     if (best == 0) {  // nothing alive: this and every later slot stays empty
       for (int i = k + threadIdx.x; i < K; i += blockDim.x) {
@@ -220,19 +304,51 @@ __global__ void __launch_bounds__(kMaxBlockThreads)
   }
 }
 
-template <int SPT>
-cudaError_t launch_nms(const float* net, float* boxes, float* scores, int* classes,
-                       int batch, int S, int B, int C, float thresh, float iou_thresh,
-                       int K, int class_aware, int threads, size_t smem,
-                       cudaStream_t stream) {
+template <class Decode, int SPT>
+cudaError_t launch_nms(const DecodeArgs& a, float* boxes, float* scores, int* classes,
+                       int batch, float iou_thresh, int K, int class_aware, int threads,
+                       size_t smem, cudaStream_t stream) {
   if (smem > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        decode_nms_kernel<SPT>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    const cudaError_t err =
+        cudaFuncSetAttribute(decode_nms_kernel<Decode, SPT>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return err;
   }
-  decode_nms_kernel<SPT><<<batch, threads, smem, stream>>>(
-      net, boxes, scores, classes, S, B, C, thresh, iou_thresh, K, class_aware);
+  decode_nms_kernel<Decode, SPT><<<batch, threads, smem, stream>>>(
+      a, boxes, scores, classes, iou_thresh, K, class_aware);
   return cudaGetLastError();
+}
+
+// Block size, slots a thread and shared memory for one image, then the
+// launch. cudaErrorInvalidValue for an empty problem, more than 4096 slots
+// an image, or more shared memory than a block may have.
+template <class Decode>
+cudaError_t decode_nms(const DecodeArgs& a, float* boxes, float* scores, int* classes,
+                       int batch, float iou_thresh, int K, int class_aware,
+                       cudaStream_t stream) {
+  const int SS = a.S * a.S, n = SS * a.B;
+  if (batch <= 0 || K <= 0 || n <= 0) return cudaErrorInvalidValue;
+  const int whole_warps = (n + 31) / 32 * 32;
+  const int threads = whole_warps < kMaxBlockThreads ? whole_warps : kMaxBlockThreads;
+  const int spt = (n + threads - 1) / threads;
+  const size_t staged = Decode::kStage ? (size_t)SS * Decode::channels(a.B, a.C) : 0;
+  const size_t smem =
+      64 * sizeof(unsigned long long) + (staged + (size_t)n * 5) * sizeof(float);
+  if (smem > kMaxSharedBytes) return cudaErrorInvalidValue;
+  switch (spt) {
+    case 1:
+      return launch_nms<Decode, 1>(a, boxes, scores, classes, batch, iou_thresh, K,
+                                   class_aware, threads, smem, stream);
+    case 2:
+      return launch_nms<Decode, 2>(a, boxes, scores, classes, batch, iou_thresh, K,
+                                   class_aware, threads, smem, stream);
+    case 3:
+    case 4:
+      return launch_nms<Decode, 4>(a, boxes, scores, classes, batch, iou_thresh, K,
+                                   class_aware, threads, smem, stream);
+    default:
+      return cudaErrorInvalidValue;  // more than 4096 slots per image
+  }
 }
 
 }  // namespace
@@ -256,26 +372,18 @@ extern "C" cudaError_t tfy2_decode_nms(const float* net, float* boxes, float* sc
                                        int* classes, int batch, int S, int B, int C,
                                        float thresh, float iou_thresh, int K,
                                        int class_aware, cudaStream_t stream) {
-  const int CC = C + 5 * B, n = S * S * B;
-  if (batch <= 0 || K <= 0 || n <= 0) return cudaErrorInvalidValue;
-  const int whole_warps = (n + 31) / 32 * 32;
-  const int threads = whole_warps < kMaxBlockThreads ? whole_warps : kMaxBlockThreads;
-  const int spt = (n + threads - 1) / threads;
-  const size_t smem = 64 * sizeof(unsigned long long) +
-                      (size_t)S * S * CC * sizeof(float) + (size_t)n * 5 * sizeof(float);
-  if (smem > kMaxSharedBytes) return cudaErrorInvalidValue;
-  switch (spt) {
-    case 1:
-      return launch_nms<1>(net, boxes, scores, classes, batch, S, B, C, thresh,
-                           iou_thresh, K, class_aware, threads, smem, stream);
-    case 2:
-      return launch_nms<2>(net, boxes, scores, classes, batch, S, B, C, thresh,
-                           iou_thresh, K, class_aware, threads, smem, stream);
-    case 3:
-    case 4:
-      return launch_nms<4>(net, boxes, scores, classes, batch, S, B, C, thresh,
-                           iou_thresh, K, class_aware, threads, smem, stream);
-    default:
-      return cudaErrorInvalidValue;  // more than 4096 slots per image
-  }
+  const DecodeArgs a{net, nullptr, S, B, C, thresh};
+  return decode_nms<GridDecode>(a, boxes, scores, classes, batch, iou_thresh, K,
+                                class_aware, stream);
+}
+
+// anchors: (B, 2) float32 on the device, (w, h) in cell units.
+extern "C" cudaError_t tfy2_decode_nms_v2(const float* net, const float* anchors,
+                                          float* boxes, float* scores, int* classes,
+                                          int batch, int S, int B, int C, float thresh,
+                                          float iou_thresh, int K, int class_aware,
+                                          cudaStream_t stream) {
+  const DecodeArgs a{net, anchors, S, B, C, thresh};
+  return decode_nms<AnchorDecode>(a, boxes, scores, classes, batch, iou_thresh, K,
+                                  class_aware, stream);
 }

@@ -1,22 +1,35 @@
 """Darknet19 YOLO detection (port of
-tensorflow_yolo2_tpu/entries/pascal_detect_darknet.py, v1 head).
+tensorflow_yolo2_tpu/entries/pascal_detect_darknet.py).
 
-The serving path: a batch of NHWC images → the BN-folded
-``Darknet19Detector`` (bf16 by default) → the CUDA decode+NMS kernel
-(``ops.cuda_decode.decode_nms_fused``, K=32 kept slots per image) or, with
-NMS off, the CUDA dense decode (``decode_grid_fused``).
+The serving path: a batch of NHWC images → the BN-folded detector (bf16
+by default) → with NMS, the CUDA decode+NMS kernel
+(``ops.cuda_decode.decode_nms_fused``, K=32 kept slots per image), else
+the dense decode. Three heads:
+
+- v1 (default): ``Darknet19Detector`` with the reference's BN + leaky on
+  the output conv; dense decode by the CUDA kernel ``decode_grid_fused``.
+- ``--v2``: the same trunk and head with a linear output conv and the
+  YOLOv2 anchor layout (``per_slot_classes``); dense decode by
+  ``ops.boxes.decode_grid_v2`` (plain PyTorch, as in the JAX package).
+- ``--v2 --passthrough``: ``Darknet19DetectorV2``, the YOLOv2
+  architecture with the reorg route.
 
 Weights come from a ``.npz`` written by ``convert.save_npz`` (a flax
 params / batch_stats pair); reading Orbax snapshots or TF checkpoints
-needs JAX or TensorFlow and is not part of this package.
+needs JAX or TensorFlow and is not part of this package. An anchor head
+decodes with the priors of an ``anchors.json`` beside the ``.npz``, else
+with the classic VOC priors.
 
     python -m tensorflow_yolo2_torch.entries.pascal_detect_darknet \\
         image.jpg --weights darknet19.npz --image-size 448 --nms
+    python -m tensorflow_yolo2_torch.entries.pascal_detect_darknet \\
+        image.jpg --weights v2p.npz --image-size 416 --nms --v2 --passthrough
 """
 
 from __future__ import annotations
 
 import argparse
+import os
 from typing import Any, Mapping
 
 import numpy as np
@@ -24,9 +37,16 @@ import torch
 
 from tensorflow_yolo2_torch.config import VOC_CLASSES, YoloConfig
 from tensorflow_yolo2_torch.convert import load_npz, state_dict_from_flax
-from tensorflow_yolo2_torch.models.darknet import Darknet19Detector
+from tensorflow_yolo2_torch.data.anchors import (
+    ANCHORS_FILE,
+    v2_config_for_snapshot,
+)
+from tensorflow_yolo2_torch.models.darknet import (
+    Darknet19Detector,
+    Darknet19DetectorV2,
+)
 from tensorflow_yolo2_torch.models.fold import fold_params
-from tensorflow_yolo2_torch.ops.boxes import Detections
+from tensorflow_yolo2_torch.ops.boxes import Detections, decode_grid_v2
 from tensorflow_yolo2_torch.ops.cuda_decode import (
     decode_grid_fused,
     decode_nms_fused,
@@ -46,9 +66,13 @@ def as_state_dict(params_or_state_dict: Mapping[str, Any],
 
 def build_detector(yolo: YoloConfig, state_dict: Mapping[str, torch.Tensor],
                    fold_bn: bool = True, dtype: torch.dtype = torch.bfloat16,
-                   device: str | torch.device | None = None
-                   ) -> Darknet19Detector:
-    """The v1 ``Darknet19Detector`` in eval mode on ``device`` in ``dtype``.
+                   device: str | torch.device | None = None,
+                   v2: bool = False, passthrough: bool = False,
+                   downsample: str = "pool") -> torch.nn.Module:
+    """The detector in eval mode on ``device`` in ``dtype``:
+    ``Darknet19DetectorV2`` with ``passthrough``, else
+    ``Darknet19Detector`` with a linear output conv for ``v2`` and the
+    reference's BN + leaky output otherwise.
 
     With ``fold_bn`` and BN entries in the state dict, BN is folded (in
     float32) before the cast; a state dict without BN entries is taken
@@ -58,9 +82,14 @@ def build_detector(yolo: YoloConfig, state_dict: Mapping[str, torch.Tensor],
     has_bn = any(".bn." in k for k in state_dict)
     if fold_bn and has_bn:
         state_dict = fold_params(state_dict)
-    model = Darknet19Detector(output_channels=yolo.cell_channels,
-                              bn_on_output=True,
-                              fold_bn=not has_bn or fold_bn)
+    folded = not has_bn or fold_bn
+    if passthrough:
+        model = Darknet19DetectorV2(output_channels=yolo.cell_channels,
+                                    fold_bn=folded, downsample=downsample)
+    else:
+        model = Darknet19Detector(output_channels=yolo.cell_channels,
+                                  bn_on_output=not v2, fold_bn=folded,
+                                  downsample=downsample)
     model.load_state_dict(state_dict)
     model.eval().requires_grad_(False)
     return model.to(device=device, dtype=dtype,
@@ -74,26 +103,36 @@ def make_detect_fn(yolo: YoloConfig, params_or_state_dict, batch_stats=None,
                    v2: bool = False, passthrough: bool = False,
                    int8: bool = False, pallas_stem: bool = False,
                    downsample: str = "pool"):
-    """Build the batched images → detections function of the v1 head.
+    """Build the batched images → detections function.
 
-    ``params_or_state_dict`` is a flax params tree (with ``batch_stats``)
-    or a port state dict. The weights move to ``device`` (default
-    ``cuda``; raises without a card) once. The returned function takes
-    an NHWC (N, H, W, 3) batch, float in [-1, 1] or raw uint8 (normalized
-    on the device as x/255·2−1), as a tensor or numpy array, and returns
-    ``Detections`` on the device: K=32 kept slots per image with
-    ``use_nms``, else the dense S·S·B slots.
+    ``v2`` selects the anchor head (linear output, ``per_slot_classes``
+    layout; ``yolo`` from ``config.yolo_v2_config``), ``passthrough``
+    with it the YOLOv2 reorg head. ``params_or_state_dict`` is a flax
+    params tree (with ``batch_stats``) or a port state dict. The weights
+    move to ``device`` (default ``cuda``; raises without a card) once.
+    The returned function takes an NHWC (N, H, W, 3) batch, float in
+    [-1, 1] or raw uint8 (normalized on the device as x/255·2−1), as a
+    tensor or numpy array, and returns ``Detections`` on the device: K=32
+    kept slots per image with ``use_nms``, else the dense S·S·B slots.
     """
-    for name, flag in (("v2", v2), ("passthrough", passthrough),
-                       ("int8", int8), ("pallas_stem", pallas_stem),
-                       ("downsample='stride'", downsample != "pool"),
-                       ("the per_slot_classes head", yolo.per_slot_classes)):
+    if v2 != yolo.per_slot_classes:
+        raise ValueError(
+            f"v2={v2} disagrees with yolo.per_slot_classes="
+            f"{yolo.per_slot_classes}: the anchor head needs a per-slot "
+            "config (config.yolo_v2_config), the v1 head a plain "
+            "YoloConfig; a mismatch would decode with the wrong kernel")
+    if passthrough and not v2:
+        raise ValueError("passthrough is the YOLOv2 reorg head; it "
+                         "requires v2=True (the anchor layout)")
+    for name, flag in (("pallas_stem", pallas_stem), ("int8", int8)):
         if flag:
             raise NotImplementedError(f"{name} serving is not ported yet")
     device = resolve_device(device)
     model = build_detector(yolo, as_state_dict(params_or_state_dict,
                                                batch_stats),
-                           fold_bn=fold_bn, dtype=dtype, device=device)
+                           fold_bn=fold_bn, dtype=dtype, device=device,
+                           v2=v2, passthrough=passthrough,
+                           downsample=downsample)
 
     @torch.inference_mode()
     def detect(images) -> Detections:
@@ -104,6 +143,8 @@ def make_detect_fn(yolo: YoloConfig, params_or_state_dict, batch_stats=None,
         if use_nms:
             return decode_nms_fused(grid, yolo, object_thresh, nms_iou,
                                     max_outputs=32)
+        if v2:
+            return decode_grid_v2(grid, yolo, object_thresh)
         return decode_grid_fused(grid, yolo, object_thresh)
 
     return detect
@@ -159,17 +200,38 @@ def main(argv: list[str] | None = None) -> int:
                         "the Darknet19-448 config)")
     p.add_argument("--out", default=None)
     p.add_argument("--no-fold-bn", action="store_true")
+    p.add_argument("--v2", action="store_true",
+                   help="anchor-head weights (pascal_train_darknet --v2)")
+    p.add_argument("--passthrough", action="store_true",
+                   help="the YOLOv2 reorg head (pascal_train_darknet --v2 "
+                        "--passthrough); requires --v2")
+    p.add_argument("--downsample", default="pool", choices=["pool", "stride"],
+                   help="'stride' serves weights trained with "
+                        "pascal_train_darknet --downsample stride")
     p.add_argument("--device", default=None,
                    help="torch device (default: cuda)")
     args = p.parse_args(argv)
     if args.image_size % 32:
         p.error("--image-size must be a multiple of 32")
+    if args.passthrough and not args.v2:
+        p.error("--passthrough is the YOLOv2 reorg head; it requires --v2")
 
-    yolo = YoloConfig(S=args.image_size // 32, image_size=args.image_size)
+    if args.v2:
+        weights_dir = os.path.dirname(os.path.abspath(args.weights))
+        yolo = v2_config_for_snapshot(weights_dir, args.image_size)
+        stored = os.path.join(weights_dir, ANCHORS_FILE)
+        print("anchors: " + (stored if os.path.isfile(stored) else
+                             f"the classic VOC priors (no {ANCHORS_FILE} "
+                             "beside the weights)"))
+    else:
+        yolo = YoloConfig(S=args.image_size // 32,
+                          image_size=args.image_size)
     params, stats = load_npz(args.weights)
     detect = make_detect_fn(yolo, params, stats, args.threshold,
                             use_nms=args.nms, fold_bn=not args.no_fold_bn,
-                            device=args.device)
+                            device=args.device, v2=args.v2,
+                            passthrough=args.passthrough,
+                            downsample=args.downsample)
     dets = detect(image_read(args.image, yolo.image_size)[None])
     boxes, scores, classes = (t[0].cpu().numpy() for t in dets)
     out = draw_detections(args.image, boxes, scores, classes,

@@ -1,5 +1,5 @@
-"""Darknet19 trunk + v1 detection head (port of
-tensorflow_yolo2_tpu/models/darknet.py).
+"""Darknet19 trunk, the v1 detection head and the YOLOv2 passthrough head
+(port of tensorflow_yolo2_tpu/models/darknet.py).
 
 Module attribute names follow the flax parameter names
 (``backbone.conv1.conv``, ``detection.output.bn``, …), so the weight
@@ -15,7 +15,11 @@ from __future__ import annotations
 import torch
 from torch import nn
 
-from tensorflow_yolo2_torch.models.layers import ConvBN, max_pool
+from tensorflow_yolo2_torch.models.layers import (
+    ConvBN,
+    max_pool,
+    space_to_depth,
+)
 
 # (kernel_size, features) per conv, with "M" = 2×2/2 maxpool between stages.
 # Like the reference, conv4 is a 3×3, not the YOLO9000 paper's 1×1.
@@ -30,35 +34,52 @@ _DARKNET19_SCHEDULE = (
 
 
 class Darknet19Backbone(nn.Module):
-    """18-conv Darknet19 trunk: NCHW (N, 3, H, W) → (N, 1024, H/32, W/32)."""
+    """18-conv Darknet19 trunk: NCHW (N, 3, H, W) → (N, 1024, H/32, W/32).
 
-    def __init__(self, fold_bn: bool = False):
+    ``downsample="pool"`` is the reference's 2×2/2 max pool between
+    stages; ``"stride"`` instead gives the 3×3 conv after each "M" stride
+    2 (the JAX package's pool-free training variant; same parameters).
+    """
+
+    def __init__(self, fold_bn: bool = False, downsample: str = "pool"):
         super().__init__()
-        in_ch, conv_i = 3, 0
+        if downsample not in ("pool", "stride"):
+            raise ValueError(f"downsample must be 'pool' or 'stride', got "
+                             f"{downsample!r}")
+        self.downsample = downsample
+        in_ch, conv_i, stride = 3, 0, 1
         for item in _DARKNET19_SCHEDULE:
             if item == "M":
+                stride = 2 if downsample == "stride" else 1
                 continue
             k, f = item
             conv_i += 1
             self.add_module(f"conv{conv_i}",
-                            ConvBN(in_ch, f, k, use_bn=not fold_bn))
-            in_ch = f
+                            ConvBN(in_ch, f, k, use_bn=not fold_bn,
+                                   stride=stride))
+            in_ch, stride = f, 1
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        conv_i = 0
+    def forward(self, x: torch.Tensor, return_mid: bool = False):
+        """``return_mid=True`` also returns ``mid``, the (N, 512, H/16,
+        W/16) map that feeds the last downsample: the YOLOv2
+        passthrough source."""
+        conv_i, mid = 0, None
         for item in _DARKNET19_SCHEDULE:
             if item == "M":
-                x = max_pool(x)
+                mid = x
+                if self.downsample == "pool":
+                    x = max_pool(x)
             else:
                 conv_i += 1
                 x = getattr(self, f"conv{conv_i}")(x)
-        return x
+        return (x, mid) if return_mid else x
 
 
 class DetectionHead(nn.Module):
     """3×(3×3×1024) ConvBN + 1×1 output conv, output cast to float32.
 
-    ``bn_on_output`` keeps the reference's BN + leaky on the output conv.
+    ``bn_on_output`` keeps the reference's BN + leaky on the output conv;
+    without it the output conv is linear (the ``--v2`` head).
     """
 
     def __init__(self, output_channels: int = 30, bn_on_output: bool = True,
@@ -76,29 +97,68 @@ class DetectionHead(nn.Module):
         return self.output(x).float()
 
 
+class DetectionHeadV2(nn.Module):
+    """The YOLOv2 head with the passthrough (reorg) route.
+
+    Two 3×3×1024 ConvBN on the trunk output; the trunk's H/16 map through
+    a 1×1×64 ConvBN and a 2×2 space-to-depth to (256, H/32, W/32),
+    concatenated after the main path's 1024 channels; a 3×3×1024 ConvBN
+    on the 1280 channels; a linear 1×1 output conv, cast to float32.
+    """
+
+    def __init__(self, output_channels: int = 125, fold_bn: bool = False):
+        super().__init__()
+        self.conv1 = ConvBN(1024, 1024, 3, use_bn=not fold_bn)
+        self.conv2 = ConvBN(1024, 1024, 3, use_bn=not fold_bn)
+        self.passthrough = ConvBN(512, 64, 1, use_bn=not fold_bn)
+        self.conv3 = ConvBN(1024 + 4 * 64, 1024, 3, use_bn=not fold_bn)
+        self.output = ConvBN(1024, output_channels, 1, use_bn=False,
+                             activate=False)
+
+    def forward(self, x: torch.Tensor, mid: torch.Tensor) -> torch.Tensor:
+        x = self.conv2(self.conv1(x))
+        p = self.passthrough(mid)
+        # the reorg on the NHWC view, so that channel (2·r_row + r_col)·64
+        # + c is the JAX package's order whatever p's memory layout
+        p = space_to_depth(p.permute(0, 2, 3, 1)).permute(0, 3, 1, 2)
+        x = self.conv3(torch.cat([x, p], dim=1))
+        return self.output(x).float()
+
+
 class Darknet19Detector(nn.Module):
     """Backbone + detection head: NHWC images → (N, S, S, C) float32 grid.
 
     ``fold_bn=True`` builds the BN-free inference graph that takes the
-    state dict of ``models.fold.fold_params``. Only ``downsample="pool"``
-    (the reference architecture) is ported.
+    state dict of ``models.fold.fold_params``.
     """
 
     def __init__(self, output_channels: int = 30, bn_on_output: bool = True,
                  fold_bn: bool = False, downsample: str = "pool"):
         super().__init__()
-        if downsample != "pool":
-            raise NotImplementedError(
-                "downsample='stride' is not ported yet (ROADMAP: deferred "
-                "'--downsample stride', which needs an explicit "
-                "F.pad(0, 1, 0, 1) for XLA's SAME stride-2 padding)")
-        self.backbone = Darknet19Backbone(fold_bn=fold_bn)
+        self.backbone = Darknet19Backbone(fold_bn=fold_bn,
+                                          downsample=downsample)
         self.detection = DetectionHead(output_channels, bn_on_output, fold_bn)
 
     def forward(self, images: torch.Tensor) -> torch.Tensor:
         x = images.permute(0, 3, 1, 2)  # NHWC storage = NCHW channels_last
         x = self.detection(self.backbone(x))
         return x.permute(0, 2, 3, 1).contiguous()
+
+
+class Darknet19DetectorV2(nn.Module):
+    """Backbone + passthrough head → (N, S, S, B·(5+C)) anchor grid: the
+    YOLOv2 architecture. Backbone names match ``Darknet19Detector``."""
+
+    def __init__(self, output_channels: int = 125, fold_bn: bool = False,
+                 downsample: str = "pool"):
+        super().__init__()
+        self.backbone = Darknet19Backbone(fold_bn=fold_bn,
+                                          downsample=downsample)
+        self.detection = DetectionHeadV2(output_channels, fold_bn)
+
+    def forward(self, images: torch.Tensor) -> torch.Tensor:
+        x, mid = self.backbone(images.permute(0, 3, 1, 2), return_mid=True)
+        return self.detection(x, mid).permute(0, 2, 3, 1).contiguous()
 
 
 @torch.no_grad()

@@ -41,22 +41,35 @@ def max_pool(x: torch.Tensor) -> torch.Tensor:
 
 
 class ConvBN(nn.Module):
-    """k×k stride-1 SAME conv (with bias) + BatchNorm + leaky-ReLU.
+    """k×k SAME conv (with bias) + BatchNorm + leaky-ReLU.
 
     ``use_bn=False`` is a plain conv+bias(+leaky) — the shape BN folding
     produces for inference; ``activate=False`` drops the leaky.
+
+    ``stride=2`` pads as XLA's SAME does on an even input: the total
+    padding k−2 goes low ⌊·/2⌋, high the rest (low 0, high 1 for a 3×3),
+    where torch's symmetric ``padding`` would shift the sampling grid.
     """
 
     def __init__(self, in_channels: int, features: int, kernel_size: int = 3,
-                 use_bn: bool = True, activate: bool = True):
+                 use_bn: bool = True, activate: bool = True,
+                 stride: int = 1):
         super().__init__()
+        if stride == 1:
+            self.pad, padding = None, kernel_size // 2
+        else:
+            total = max(kernel_size - stride, 0)
+            low = total // 2
+            self.pad, padding = (low, total - low, low, total - low), 0
         self.conv = nn.Conv2d(in_channels, features, kernel_size,
-                              padding=kernel_size // 2, bias=True)
+                              stride=stride, padding=padding, bias=True)
         self.bn = (nn.BatchNorm2d(features, eps=BN_EPSILON, momentum=0.01)
                    if use_bn else None)
         self.activate = activate
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.pad is not None:
+            x = F.pad(x, self.pad)
         x = self.conv(x)
         if self.bn is not None:
             x = self.bn(x)

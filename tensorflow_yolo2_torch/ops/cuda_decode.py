@@ -1,26 +1,31 @@
-"""Fused YOLOv1 decode and decode + greedy NMS: CUDA kernels and their
-plain PyTorch versions (port of tensorflow_yolo2_tpu/ops/pallas_decode.py,
-v1 layout).
+"""Fused grid decode and decode + greedy NMS: CUDA kernels and their plain
+PyTorch versions (port of tensorflow_yolo2_tpu/ops/pallas_decode.py).
 
-Two kernels, in ``csrc/decode.cu``:
+Three kernels, in ``csrc/decode.cu``:
 
 - ``decode_grid_fused`` replaces ``decode_grid_pallas`` (``_decode_kernel``):
-  the dense decode, boxes (N, S·S·B, 4), scores and classes (N, S·S·B) in
-  slot order ``cell·B + b``. One thread per cell. It reads the grid once
-  and writes the slots once, so it is bound by bytes: at batch 256, 448²
-  (S=14) it reads 6.02 MB and writes 2.41 MB, ≈2.5 µs at 3.35 TB/s.
-- ``decode_nms_fused`` replaces ``decode_nms_pallas`` (``_decode_nms_kernel``
-  + ``_nms_sweep``): decode, confidence threshold and K greedy class-aware
-  NMS steps, K kept slots per image. One block per image with the
-  image's grid staged in shared memory and each slot in a thread's
-  registers. Its bytes bound at batch 256, 448² is ≈1.9 µs (6.02 MB in,
-  0.20 MB out), but what bounds it is the chain of K dependent
-  block-wide max reductions per image, each ending in a __syncthreads.
+  the v1 dense decode, boxes (N, S·S·B, 4), scores and classes (N, S·S·B)
+  in slot order ``cell·B + b``. One thread per cell. It reads the grid
+  once and writes the slots once, so it is bound by bytes: at batch 256,
+  448² (S=14) it reads 6.02 MB and writes 2.41 MB, ≈2.5 µs at 3.35 TB/s.
+- ``decode_nms_fused`` on a v1 grid replaces ``decode_nms_pallas``'s
+  ``_decode_nms_kernel`` + ``_nms_sweep``: decode, confidence threshold
+  and K greedy class-aware NMS steps, K kept slots per image. One block
+  per image with each slot in a thread's registers. Its bytes bound at
+  batch 256, 448² is ≈1.9 µs (6.02 MB in, 0.20 MB out), but what bounds
+  it is the chain of K dependent block-wide max reductions per image,
+  each ending in a __syncthreads.
+- ``decode_nms_fused`` on a ``per_slot_classes`` grid replaces
+  ``_decode_nms_v2_kernel``: the YOLOv2 anchor decode (σ xy, anchor ·
+  exp(clip(t, ±8)) / S wh, per-slot argmax, score σ(conf) / Σ exp(l −
+  l_max)) feeding the same sweep. At batch 256, 416² (S=13, B=5) it
+  reads 21.6 MB, ≈6.5 µs at 3.35 TB/s; the K steps bound it as they
+  bound the v1 kernel.
 
 ``*_plain`` are the same functions in plain PyTorch. A wrapper takes the
 plain version only for a tensor on the CPU; for a CUDA tensor it launches
-its kernel or raises. ``DECODE_GRID_LAUNCHES`` / ``DECODE_NMS_LAUNCHES``
-count kernel launches.
+its kernel or raises. ``DECODE_GRID_LAUNCHES`` / ``DECODE_NMS_LAUNCHES`` /
+``DECODE_NMS_V2_LAUNCHES`` count kernel launches.
 
 The NMS picks the highest alive score with ties going to the lowest key
 ``b·S·S + cell`` (the TPU kernel's rule, not ``nms_fixed``'s argsort
@@ -39,19 +44,26 @@ import torch
 from tensorflow_yolo2_torch.config import YoloConfig
 from tensorflow_yolo2_torch.ops.boxes import (
     Detections,
+    anchor_tensor,
     decode_grid,
+    grid_to_absolute_v2,
+    sigmoid,
     split_grid,
+    split_grid_v2,
 )
+from tensorflow_yolo2_torch.ops.iou import cxcywh_to_corners
 from tensorflow_yolo2_torch.utils import cuda_build
 
 DECODE_GRID_LAUNCHES = 0
 DECODE_NMS_LAUNCHES = 0
+DECODE_NMS_V2_LAUNCHES = 0
 
 
 def reset_launch_counts() -> None:
-    global DECODE_GRID_LAUNCHES, DECODE_NMS_LAUNCHES
+    global DECODE_GRID_LAUNCHES, DECODE_NMS_LAUNCHES, DECODE_NMS_V2_LAUNCHES
     DECODE_GRID_LAUNCHES = 0
     DECODE_NMS_LAUNCHES = 0
+    DECODE_NMS_V2_LAUNCHES = 0
 
 
 @functools.cache
@@ -64,13 +76,13 @@ def _lib() -> ctypes.CDLL:
     lib.tfy2_decode_nms.argtypes = [ptr, ptr, ptr, ptr, i32, i32, i32, i32,
                                     f32, f32, i32, i32, ptr]
     lib.tfy2_decode_nms.restype = i32
+    lib.tfy2_decode_nms_v2.argtypes = [ptr, ptr, ptr, ptr, ptr, i32, i32, i32,
+                                       i32, f32, f32, i32, i32, ptr]
+    lib.tfy2_decode_nms_v2.restype = i32
     return lib
 
 
 def _check_grid(net: torch.Tensor, cfg: YoloConfig) -> None:
-    if cfg.per_slot_classes:
-        raise NotImplementedError(
-            "the anchor (per_slot_classes) decode kernel is not ported yet")
     want = (cfg.S, cfg.S, cfg.cell_channels)
     if net.dim() != 4 or tuple(net.shape[1:]) != want:
         raise ValueError(f"grid must be (N, {cfg.S}, {cfg.S}, "
@@ -112,6 +124,10 @@ def decode_grid_fused(net: torch.Tensor, cfg: YoloConfig,
     order ``cell·B + b``.
     """
     global DECODE_GRID_LAUNCHES
+    if cfg.per_slot_classes:
+        raise ValueError("decode_grid_fused decodes the v1 layout; a "
+                         "per_slot_classes grid decodes with "
+                         "ops.boxes.decode_grid_v2")
     _check_grid(net, cfg)
     if net.device.type == "cpu":
         return decode_grid_plain(net, cfg, object_thresh)
@@ -136,31 +152,30 @@ def decode_grid_fused(net: torch.Tensor, cfg: YoloConfig,
 # ---------------------------------------------------------------------------
 
 
-def decode_nms_plain(net: torch.Tensor, cfg: YoloConfig,
-                     object_thresh: float = 0.5, iou_thresh: float = 0.5,
-                     max_outputs: int = 32,
-                     class_aware: bool = True) -> Detections:
-    """Plain version of ``decode_nms_fused``: the same K-step sweep, one
-    tensor op at a time, over the whole batch."""
-    S, B, K = cfg.S, cfg.B, max_outputs
-    batch, n = net.shape[0], S * S * B
-    dets = decode_grid(net, cfg, object_thresh)
-    _, _, raw = split_grid(net, cfg)
+def _slot_major(t: torch.Tensor, S: int, B: int) -> torch.Tensor:
+    """(N, S·S·B, ...) in ``cell·B + b`` order → key order ``b·S·S + cell``."""
+    batch = t.shape[0]
+    t = t.reshape((batch, S * S, B) + t.shape[2:]).transpose(1, 2)
+    return t.reshape((batch, S * S * B) + t.shape[3:])
 
-    def slot_major(t):  # (N, S·S·B, ...) in cell·B + b order → b·S·S + cell
-        t = t.reshape((batch, S * S, B) + t.shape[2:]).transpose(1, 2)
-        return t.reshape((batch, n) + t.shape[3:])
 
-    boxes, scores, cls = (slot_major(t) for t in dets)
-    raw = slot_major(raw.reshape(batch, n, 4))
-    area = torch.square(raw[..., 2]) * torch.square(raw[..., 3])
+def _greedy_sweep(boxes: torch.Tensor, area: torch.Tensor,
+                  scores: torch.Tensor, cls: torch.Tensor, K: int,
+                  iou_thresh: float, class_aware: bool) -> Detections:
+    """The K greedy NMS steps that both decode+NMS kernels run, one tensor
+    op at a time over the batch.
+
+    Takes the decoded slots in key order: corners (N, n, 4), the decode's
+    w·h (N, n), thresholded scores (N, n) and classes (N, n).
+    """
+    batch, n = scores.shape
     x1, y1, x2, y2 = boxes.unbind(-1)
-
-    keys = torch.arange(n, device=net.device)
+    keys = torch.arange(n, device=scores.device)
     alive = scores > 0.0
-    out_b = torch.zeros((batch, K, 4), dtype=torch.float32, device=net.device)
-    out_s = torch.zeros((batch, K), dtype=torch.float32, device=net.device)
-    out_c = torch.zeros((batch, K), dtype=torch.int32, device=net.device)
+    out_b = torch.zeros((batch, K, 4), dtype=torch.float32,
+                        device=scores.device)
+    out_s = torch.zeros((batch, K), dtype=torch.float32, device=scores.device)
+    out_c = torch.zeros((batch, K), dtype=torch.int32, device=scores.device)
     for k in range(K):
         m = torch.where(alive, scores, -1.0).amax(dim=1)
         valid = m > 0.0
@@ -190,35 +205,93 @@ def decode_nms_plain(net: torch.Tensor, cfg: YoloConfig,
     return Detections(out_b, out_s, out_c)
 
 
+def decode_nms_plain(net: torch.Tensor, cfg: YoloConfig,
+                     object_thresh: float = 0.5, iou_thresh: float = 0.5,
+                     max_outputs: int = 32,
+                     class_aware: bool = True) -> Detections:
+    """Plain version of ``decode_nms_fused`` on a v1 grid (B1):
+    ``decode_grid``, then the K-step sweep."""
+    S, B = cfg.S, cfg.B
+    boxes, scores, cls = (_slot_major(t, S, B)
+                          for t in decode_grid(net, cfg, object_thresh))
+    _, _, raw = split_grid(net, cfg)
+    raw = _slot_major(raw.reshape(net.shape[0], S * S * B, 4), S, B)
+    area = torch.square(raw[..., 2]) * torch.square(raw[..., 3])
+    return _greedy_sweep(boxes, area, scores, cls, max_outputs, iou_thresh,
+                         class_aware)
+
+
+def decode_nms_v2_plain(net: torch.Tensor, cfg: YoloConfig,
+                        object_thresh: float = 0.5, iou_thresh: float = 0.5,
+                        max_outputs: int = 32,
+                        class_aware: bool = True) -> Detections:
+    """Plain version of ``decode_nms_fused`` on a ``per_slot_classes``
+    grid (B2): the anchor decode of ``_decode_nms_v2_kernel``, then the
+    K-step sweep.
+
+    The score is σ(conf) / Σ_c exp(l_c − l_max), the sum taken class by
+    class from c = 0 as the kernel takes it (a ``torch.sum`` adds in
+    another order); boxes are ``grid_to_absolute_v2``'s.
+    """
+    S, B = cfg.S, cfg.B
+    batch, n = net.shape[0], S * S * B
+    logits, conf, raw = split_grid_v2(net, cfg)
+    xywh = grid_to_absolute_v2(raw, cfg)
+    best = logits.amax(dim=-1)
+    denom = torch.zeros_like(best)
+    for c in range(cfg.num_class):
+        denom = denom + torch.exp(logits[..., c] - best)
+    score = sigmoid(conf) / denom
+    scores = torch.where(score > object_thresh, score, 0.0)
+    cls = logits.argmax(dim=-1).to(torch.int32)
+    boxes = cxcywh_to_corners(xywh).reshape(batch, n, 4)
+    area = (xywh[..., 2] * xywh[..., 3]).reshape(batch, n)
+    return _greedy_sweep(
+        _slot_major(boxes, S, B), _slot_major(area, S, B),
+        _slot_major(scores.reshape(batch, n), S, B),
+        _slot_major(cls.reshape(batch, n), S, B),
+        max_outputs, iou_thresh, class_aware)
+
+
 def decode_nms_fused(net: torch.Tensor, cfg: YoloConfig,
                      object_thresh: float = 0.5, iou_thresh: float = 0.5,
                      max_outputs: int = 32,
                      class_aware: bool = True) -> Detections:
-    """Decode + confidence threshold + greedy NMS of a (N, S, S, 5B+C)
-    float32 grid.
+    """Decode + confidence threshold + greedy NMS of a (N, S, S, cc)
+    float32 grid, cc = ``cfg.cell_channels``: the v1 kernel, or the
+    anchor kernel for a ``per_slot_classes`` config.
 
     Returns boxes (N, K, 4), scores (N, K) score-descending and classes
     (N, K) int32 for K = ``max_outputs``; empty slots have score 0.
     """
-    global DECODE_NMS_LAUNCHES
+    global DECODE_NMS_LAUNCHES, DECODE_NMS_V2_LAUNCHES
     _check_grid(net, cfg)
     if max_outputs < 1:
         raise ValueError(f"max_outputs must be >= 1, got {max_outputs}")
+    v2 = cfg.per_slot_classes
     if net.device.type == "cpu":
-        return decode_nms_plain(net, cfg, object_thresh, iou_thresh,
-                                max_outputs, class_aware)
+        plain = decode_nms_v2_plain if v2 else decode_nms_plain
+        return plain(net, cfg, object_thresh, iou_thresh, max_outputs,
+                     class_aware)
     batch, K = net.shape[0], max_outputs
     boxes = torch.empty((batch, K, 4), dtype=torch.float32, device=net.device)
     scores = torch.empty((batch, K), dtype=torch.float32, device=net.device)
     classes = torch.empty((batch, K), dtype=torch.int32, device=net.device)
     if batch == 0:
         return Detections(boxes, scores, classes)
+    outs = (boxes.data_ptr(), scores.data_ptr(), classes.data_ptr())
+    args = (batch, cfg.S, cfg.B, cfg.num_class, float(object_thresh),
+            float(iou_thresh), K, int(class_aware), _stream(net.device))
     with torch.cuda.device(net.device):
-        err = _lib().tfy2_decode_nms(
-            net.data_ptr(), boxes.data_ptr(), scores.data_ptr(),
-            classes.data_ptr(), batch, cfg.S, cfg.B, cfg.num_class,
-            float(object_thresh), float(iou_thresh), K, int(class_aware),
-            _stream(net.device))
-    _check_error(err, "tfy2_decode_nms")
-    DECODE_NMS_LAUNCHES += 1
+        if v2:
+            anchors = anchor_tensor(cfg, net.device)
+            err = _lib().tfy2_decode_nms_v2(net.data_ptr(),
+                                            anchors.data_ptr(), *outs, *args)
+        else:
+            err = _lib().tfy2_decode_nms(net.data_ptr(), *outs, *args)
+    _check_error(err, "tfy2_decode_nms_v2" if v2 else "tfy2_decode_nms")
+    if v2:
+        DECODE_NMS_V2_LAUNCHES += 1
+    else:
+        DECODE_NMS_LAUNCHES += 1
     return Detections(boxes, scores, classes)

@@ -184,8 +184,10 @@ def test_wrappers_check_their_input():
     with pytest.raises(ValueError, match="max_outputs"):
         cuda_decode.decode_nms_fused(net, pcfg, max_outputs=0)
     v2 = pt_config.YoloConfig(S=7, B=5, per_slot_classes=True)
-    with pytest.raises(NotImplementedError):
-        cuda_decode.decode_nms_fused(torch.zeros((1, 7, 7, 125)), v2)
+    with pytest.raises(ValueError, match="v1 layout"):
+        cuda_decode.decode_grid_fused(torch.zeros((1, 7, 7, 125)), v2)
+    with pytest.raises(ValueError, match="grid must be"):
+        cuda_decode.decode_nms_fused(torch.zeros((1, 7, 7, 30)), v2)
 
 
 def test_empty_grid_keeps_nothing():

@@ -96,8 +96,7 @@ def test_default_device_is_cuda(weights):
             pt_detect.make_detect_fn(PCFG, params, stats)
 
 
-@pytest.mark.parametrize("option", ["v2", "passthrough", "int8",
-                                    "pallas_stem"])
+@pytest.mark.parametrize("option", ["int8", "pallas_stem"])
 def test_unported_options_raise(weights, option):
     params, stats = weights
     with pytest.raises(NotImplementedError, match=option):

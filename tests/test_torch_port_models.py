@@ -191,8 +191,11 @@ def test_converter_rejects_unknown_leaves():
 
 
 def test_stride_downsample_not_ported():
-    with pytest.raises(NotImplementedError, match="stride"):
-        pt_darknet.Darknet19Detector(downsample="stride")
+    """``downsample`` takes "pool" and "stride" (held to flax in
+    test_torch_port_v2.py); any other value is not a trunk and raises."""
+    pt_darknet.Darknet19Detector(downsample="stride")
+    with pytest.raises(ValueError, match="downsample"):
+        pt_darknet.Darknet19Detector(downsample="avg")
 
 
 def test_randomize_is_seeded():
