@@ -9,7 +9,11 @@
    seeded synthetic grids with exact score ties and overlapping same- and
    cross-class boxes, batch 256, class-aware NMS on and off: the v1
    kernels at S=7 and 14, the anchor kernel at S=7, 10, 13, 14 and 19
-   (224² to 608²).
+   (224² to 608²). The max-pool backward kernel (B5) is held bit for bit
+   to its plain version and to torch's autograd of ``F.max_pool2d`` at
+   the five pool sites of a 224² train step at batch 24, in bf16 and
+   float32, on integer-valued inputs that tie in every window, and on odd
+   C and small maps.
 3. Drives the v1 serving path, ``make_detect_fn`` on the full
    Darknet19-448 detector (BN folded, bf16, seeded random weights), on a
    seeded uint8 batch with NMS on and off; checks shapes, finiteness, that
@@ -20,11 +24,22 @@
    (``Darknet19DetectorV2``) and ``--v2`` (linear-output
    ``Darknet19Detector``), checking that the anchor kernel was launched,
    the grid, and the kernel on the real grid.
-5. Times the v1 and v2p paths (images/s at batch 32 and 256, with a
-   profile) and each kernel and its plain version at batch 256, and
-   prints them, with each kernel's bound, as one JSON line
-   ``{"kernels": [...]}``.
-6. Ends with ``{"ok": true, "device": {...}}``.
+5. Drives the v1 training path at full width, ``Trainer.train_step`` on
+   the Darknet19 v1 detector at the reference's 224² (S=7, B=2, C=20),
+   fresh seeded weights (flax's initializers), bf16 compute, Adam at
+   1e-3, on seeded uint8 batches whose labels come from
+   ``build_label_grid`` on seeded boxes: 30 steps on one batch of 24,
+   checking that B5 ran 5 times a step and that the loss fell; then, from
+   the weights those steps reached, one float32 step on the card against
+   the same step in float64 on the CPU (loss and every gradient), and the
+   bf16 loss against the float32 one.
+6. Times the v1 and v2p serving paths (images/s at batch 32 and 256, with
+   a profile), the train step (steps/s and images/s at batch 24 and 64,
+   with a profile), each decode kernel and its plain version at batch
+   256, and B5 at each pool site of a batch-24 step beside torch's
+   ``max_pool2d_with_indices_backward``, and prints them, with each
+   kernel's bound, as one JSON line ``{"kernels": [...]}``.
+7. Ends with ``{"ok": true, "device": {...}}``.
 
 Each path is driven with the launch counts set to 0 just before it and
 read just after; the ``launches`` of a kernel are those of its path.
@@ -34,13 +49,16 @@ fails. Float32 checks on the card run with TF32 off.
 
 from __future__ import annotations
 
+import itertools
 import json
+import math
 import subprocess
 import sys
 import time
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 # H100 SXM peaks (NVIDIA data sheet, dense, at 700 W): HBM bytes/s and
 # float32 operations/s outside the tensor cores; bf16 tensor-core FLOP/s.
@@ -54,11 +72,26 @@ PATH_BATCHES = (32, 256)
 GRID_REL_TOL = 5e-2  # bf16 card forward vs float32 CPU forward, rel. norm
 BOX_TOL = 1e-6
 SOURCE = "tensorflow_yolo2_torch/csrc/decode.cu"
+POOL_SOURCE = "tensorflow_yolo2_torch/csrc/pool.cu"
 TPU_KERNELS = {
     "decode_nms": "tensorflow_yolo2_tpu/ops/pallas_decode.py:204",
     "decode_nms_v2": "tensorflow_yolo2_tpu/ops/pallas_decode.py:255",
     "decode_grid": "tensorflow_yolo2_tpu/ops/pallas_decode.py:42",
+    "max_pool2_bwd": "tensorflow_yolo2_tpu/ops/pallas_pool.py:44",
 }
+
+# the training path: the reference's batch 24, and 64
+TRAIN_BATCHES = (24, 64)
+FALL_STEPS = 30       # steps on one batch, over which the loss must fall
+TIMED_STEPS = 20
+# a float32 train step on the card against float64 on the CPU (see
+# check_train_step_against_cpu for why float64): the loss, relative; each
+# gradient and all of them as one vector, relative norm
+LOSS_REL_TOL = 1e-4
+GRAD_REL_TOL = 5e-2
+ALL_GRADS_REL_TOL = 1e-2
+BF16_LOSS_REL_TOL = 5e-2  # bf16 loss vs float32 loss, same weights
+L2_BYTES = 50e6
 
 
 def check(ok: bool, what: str) -> None:
@@ -135,6 +168,265 @@ def compare_kept(got, want, name: str = "decode_nms") -> float:
     return err
 
 
+def pool_sites(batch: int, size: int = 224) -> list[tuple[int, ...]]:
+    """NCHW shapes of the inputs of Darknet19's five 2×2/2 pools."""
+    return [(batch, c, size >> i, size >> i)
+            for i, c in enumerate((32, 64, 128, 256, 512))]
+
+
+def bits(t: torch.Tensor) -> torch.Tensor:
+    """The tensor's bits in NCHW order, for bit-exact comparisons."""
+    t = t.contiguous()
+    return t.view(torch.int16 if t.element_size() == 2 else torch.int32)
+
+
+def check_pool(x: torch.Tensor, dout: torch.Tensor, what: str) -> float:
+    """B5 on (x, dout) against its plain version and against torch's
+    autograd of ``F.max_pool2d``: all three bit-equal. Returns the largest
+    absolute difference to the plain version (0.0)."""
+    from tensorflow_yolo2_torch.ops import cuda_pool
+
+    y = F.max_pool2d(x, 2, 2)
+    fused = cuda_pool.max_pool2_bwd_fused(x, y, dout)
+    plain = cuda_pool.max_pool2_bwd_plain(x, y, dout)
+    leaf = x.detach().requires_grad_()
+    auto, = torch.autograd.grad(F.max_pool2d(leaf, 2, 2), leaf, dout)
+    check(fused.shape == x.shape and fused.dtype == x.dtype,
+          f"max_pool2_bwd output, {what}")
+    check(torch.equal(bits(fused), bits(plain)),
+          f"max_pool2_bwd equals its plain version, {what}")
+    check(torch.equal(bits(fused), bits(auto)),
+          f"max_pool2_bwd equals autograd of F.max_pool2d, {what}")
+    return (fused.float() - plain.float()).abs().max().item()
+
+
+def check_pool_kernel(dev: torch.device) -> float:
+    """B5 at the five pool sites of a 224² step at batch 24 in bf16 and
+    float32; on integer values in {0, 1, 2}, which tie in almost every
+    window; on odd C and small maps; and on an input in NCHW memory."""
+    gen = torch.Generator(device=dev).manual_seed(5)
+    bf16, f32 = torch.bfloat16, torch.float32
+    cases = [(s, dt, False) for s in pool_sites(TRAIN_BATCHES[0])
+             for dt in (bf16, f32)]
+    cases += [(s, dt, True) for s in pool_sites(4)[::2] for dt in (bf16, f32)]
+    cases += [((2, 3, 4, 6), f32, False), ((1, 5, 2, 2), bf16, True),
+              ((3, 5, 8, 10), bf16, False), ((2, 3, 6, 4), f32, True)]
+    err = 0.0
+    for shape, dtype, ties in cases:
+        if ties:
+            x = torch.randint(0, 3, shape, generator=gen, device=dev)
+        else:
+            x = torch.randn(shape, generator=gen, device=dev)
+        n, c, h, w = shape
+        dout = torch.randn((n, c, h // 2, w // 2), generator=gen, device=dev)
+        x, dout = (t.to(dtype).contiguous(memory_format=torch.channels_last)
+                   for t in (x, dout))
+        kind = "ties" if ties else "random"
+        err = max(err, check_pool(x, dout, f"{kind} {dtype} {shape}"))
+    err = max(err, check_pool(x.contiguous(), dout.contiguous(),
+                              "NCHW memory"))
+    torch.cuda.synchronize()
+    return err
+
+
+def pool_bound(x: torch.Tensor) -> tuple[float, float]:
+    """Least time of B5 on x, in ms, by bytes (x and dx once, y and dout
+    once: 2.5·|x|) and by operations (a compare and a select an input
+    element, float32 rate)."""
+    nbytes = 2.5 * x.numel() * x.element_size()
+    return nbytes / HBM_BYTES_PER_S * 1e3, 2 * x.numel() / F32_OPS_PER_S * 1e3
+
+
+def cold_copies(make, nbytes: float) -> list:
+    """Enough ``make()`` input sets that cycling through them outruns the
+    50 MB L2, as a train step finds the pool's inputs: the forward saved
+    them long before the backward reads them."""
+    return [make() for _ in range(min(32, max(1, math.ceil(
+        2.5 * L2_BYTES / nbytes))))]
+
+
+def time_pool_sites(dev: torch.device, batch: int) -> list[dict]:
+    """B5, its plain version and torch's own pool backward
+    (``max_pool2d_with_indices_backward`` given the forward's indices) at
+    each pool site of a bf16 train step, on inputs L2 does not hold."""
+    from tensorflow_yolo2_torch.ops import cuda_pool
+
+    gen = torch.Generator(device=dev).manual_seed(6)
+    rows = []
+    for shape in pool_sites(batch):
+        def make():
+            x = torch.randn(shape, generator=gen, device=dev,
+                            dtype=torch.bfloat16).contiguous(
+                memory_format=torch.channels_last)
+            y, idx = torch.ops.aten.max_pool2d_with_indices(x, [2, 2],
+                                                             [2, 2])
+            return x, y, torch.randn(y.shape, generator=gen, device=dev,
+                                     dtype=torch.bfloat16).contiguous(
+                memory_format=torch.channels_last), idx
+
+        t_bytes, t_ops = pool_bound(make()[0])
+        sets = cold_copies(make, 2.5 * math.prod(shape) * 2)
+        cycle = itertools.cycle(sets)
+
+        def fused():
+            x, y, dout, _ = next(cycle)
+            return cuda_pool.max_pool2_bwd_fused(x, y, dout)
+
+        def library():
+            x, _, dout, idx = next(cycle)
+            return torch.ops.aten.max_pool2d_with_indices_backward(
+                dout, x, [2, 2], [2, 2], [0, 0], [1, 1], False, idx)
+
+        def plain():
+            x, y, dout, _ = next(cycle)
+            return cuda_pool.max_pool2_bwd_plain(x, y, dout)
+
+        rows.append({"shape": list(shape), "ms": graph_ms(fused, 40),
+                     "library_ms": graph_ms(library, 40),
+                     "plain_ms": cuda_ms(plain, 5),
+                     "bound_ms": max(t_bytes, t_ops),
+                     "bound_by": "bytes" if t_bytes >= t_ops
+                     else "operations", "copies": len(sets)})
+        del sets, cycle
+    return rows
+
+
+def train_batch(rng: np.random.RandomState, batch: int, yolo):
+    """Seeded uint8 images (batch, size, size, 3) and their label grids
+    from ``build_label_grid`` on 1–6 seeded boxes an image."""
+    from tensorflow_yolo2_torch.data.voc import build_label_grid
+
+    size = yolo.image_size
+    images = rng.randint(0, 256, (batch, size, size, 3)).astype(np.uint8)
+    labels = np.zeros((batch, yolo.S, yolo.S, 5 + yolo.num_class),
+                      np.float32)
+    for i in range(batch):
+        n = rng.randint(1, 7)
+        xy = rng.uniform(0, size - 40, (n, 2))
+        wh = rng.uniform(16, 160, (n, 2))
+        corners = np.concatenate([xy, np.minimum(xy + wh, size - 1)], 1)
+        labels[i] = build_label_grid(
+            corners.astype(np.float32), rng.randint(0, yolo.num_class, n),
+            yolo.S, yolo.num_class, float(size))
+    return images, labels
+
+
+def make_trainer(yolo, dtype: torch.dtype, device, state_dict=None):
+    """The v1 detector's trainer as the CLI builds it (Adam at 1e-3, the
+    YOLOv1 loss) and its state on ``device``: fresh weights from seed 0,
+    or ``state_dict``'s."""
+    from tensorflow_yolo2_torch.models.darknet import Darknet19Detector
+    from tensorflow_yolo2_torch.train.trainer import Trainer, yolo_task
+
+    trainer = Trainer(Darknet19Detector(yolo.cell_channels),
+                      yolo_task(yolo), device=device, compute_dtype=dtype)
+    return trainer, trainer.create_state(torch.Generator().manual_seed(0),
+                                         state_dict)
+
+
+def rel_norm(got: torch.Tensor, want: torch.Tensor) -> float:
+    got, want = got.double().cpu(), want.double().cpu()
+    return ((got - want).norm() / want.norm().clamp(min=1e-30)).item()
+
+
+def step_grads(yolo, dtype: torch.dtype, where, state_dict, images,
+               labels) -> tuple[float, dict]:
+    """(loss, gradients by name, float64 on the CPU) of one step of the
+    v1 detector from ``state_dict``'s weights, in train mode, with the
+    trunk in ``dtype``: bf16 (autocast), float32, or float64 (the model
+    converted, the images normalized in float64; the loss stays float32,
+    as on every path)."""
+    compute = torch.float32 if dtype == torch.float64 else dtype
+    trainer, state = make_trainer(yolo, compute, where, state_dict)
+    if dtype == torch.float64:
+        state.model.double()
+        images = images.double() / 255.0 * 2.0 - 1.0
+    metrics, grads = trainer.loss_and_grads(state, images.to(where),
+                                            labels.to(where))
+    return (metrics["loss"].item(),
+            {k: g.detach().double().cpu() for k, g in grads.items()})
+
+
+def grad_errors(grads: dict, want: dict) -> tuple[float, str, float]:
+    """(worst relative-norm error of one gradient, its name, error of all
+    gradients as one vector). The conv biases in front of a BatchNorm
+    have a true gradient of 0 and hold rounding noise: they count only in
+    the error of all."""
+    pre_bn = {k for k in want if k.endswith("conv.bias") and
+              k[:-len("conv.bias")] + "bn.weight" in want}
+    worst, key = max((rel_norm(grads[k], want[k]), k)
+                     for k in want if k not in pre_bn)
+    total = rel_norm(torch.cat([grads[k].ravel() for k in want]),
+                     torch.cat([want[k].ravel() for k in want]))
+    return worst, key, total
+
+
+def check_train_step_against_cpu(yolo, images, labels, dev,
+                                 state_dict) -> dict:
+    """One step (forward in train mode and gradients) from the weights of
+    ``state_dict`` on one batch: float32 on the card, TF32 off, held to
+    the float64 step on the CPU, with the CPU's own float32 step printed
+    beside it; and the bf16 step's loss on the card held to the float32
+    one. The gradients of the same step with TF32 convs and of the bf16
+    step are printed as controls, with whether the bounds reject them.
+
+    The float32 gradients of this network are ill-conditioned: the
+    BatchNorm backward of each of 22 layers subtracts batch means, and
+    float32 rounding alone puts the CPU's gradients of the early BN
+    parameters up to 3e-2 (relative norm) from the float64 ones at fresh
+    weights, batch 24, and 7e-3 after 30 steps at batch 8. So each side
+    is held to float64, not to the other. The weights are those of a few
+    steps on this batch: from fresh ones the predicted boxes are random
+    and the responsible box of a cell (the larger of two small IoUs)
+    flips under bf16's rounding, which moves the coordinate loss ~10%."""
+    cpu = torch.device("cpu")
+    loss, grads = step_grads(yolo, torch.float32, dev, state_dict, images,
+                             labels)
+    loss64, grads64 = step_grads(yolo, torch.float64, cpu, state_dict,
+                                 images, labels)
+    loss32, grads32 = step_grads(yolo, torch.float32, cpu, state_dict,
+                                 images, labels)
+    bf16_loss, bf16_grads = step_grads(yolo, torch.bfloat16, dev,
+                                       state_dict, images, labels)
+    # the control: the same float32 step with TF32 convs, which the bounds
+    # must reject for the check to tell reduced precision from float32
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        _, tf32_grads = step_grads(yolo, torch.float32, dev, state_dict,
+                                   images, labels)
+    finally:
+        torch.backends.cudnn.allow_tf32 = False
+    worst, key, total = grad_errors(grads, grads64)
+    cpu_worst, cpu_key, cpu_total = grad_errors(grads32, grads64)
+    controls = {}
+    for name, g in (("tf32", tf32_grads), ("bf16", bf16_grads)):
+        c_worst, c_key, c_total = grad_errors(g, grads64)
+        rejected = c_worst > GRAD_REL_TOL or c_total > ALL_GRADS_REL_TOL
+        controls[name] = {"grad_rel_err": c_worst, "all_grads_rel_err":
+                          c_total, "rejected": rejected}
+        print(f"control, {name} card gradients against float64: worst "
+              f"{c_worst:.2e} ({c_key}), all {c_total:.2e}: "
+              f"{'rejected' if rejected else 'NOT rejected'} by the bounds")
+    loss_err = abs(loss - loss64) / abs(loss64)
+    bf16_err = abs(bf16_loss - loss) / abs(loss)
+    print(f"train step, batch {len(images)}, against float64 on the CPU: "
+          f"float32 card loss {loss:.6f} vs {loss64:.6f} (rel. err "
+          f"{loss_err:.2e}, bound {LOSS_REL_TOL}); float32 card gradients: "
+          f"worst {worst:.2e} ({key}), all {total:.2e} (bounds "
+          f"{GRAD_REL_TOL}, {ALL_GRADS_REL_TOL}, relative norm); float32 "
+          f"CPU gradients: worst {cpu_worst:.2e} ({cpu_key}), all "
+          f"{cpu_total:.2e}; bf16 card loss {bf16_loss:.6f} (rel. err to "
+          f"float32 {bf16_err:.2e}, bound {BF16_LOSS_REL_TOL})")
+    check(loss_err <= LOSS_REL_TOL, "float32 card loss vs float64")
+    check(worst <= GRAD_REL_TOL and total <= ALL_GRADS_REL_TOL,
+          "float32 card gradients vs float64")
+    check(bf16_err <= BF16_LOSS_REL_TOL, "bf16 loss vs float32 loss")
+    return {"loss_rel_err": loss_err, "grad_rel_err": worst,
+            "all_grads_rel_err": total, "cpu_f32_grad_rel_err": cpu_worst,
+            "cpu_f32_all_grads_rel_err": cpu_total,
+            "bf16_loss_rel_err": bf16_err, "controls": controls}
+
+
 def graph_ms(fn, reps: int = 100) -> float:
     """Device time per call of ``fn()``, replayed from a CUDA graph of
     ``reps`` calls: the host's launch overhead is left out."""
@@ -165,34 +457,38 @@ def cuda_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
-def profile_path(detect, images, top: int = 12) -> None:
-    """Device time of one path call by kernel (torch.profiler), and the
-    share of the call's wall time in which the card ran a kernel."""
+def profile_call(fn, label: str, top: int = 12) -> float:
+    """Device time of one call of ``fn()`` by kernel (torch.profiler), and
+    the share of the call's wall time in which the card ran no kernel,
+    which it returns."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    detect(images)
+    fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        detect(images)
+        fn()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
-    busy_us, ops = 0.0, []
+    busy_us, n_kernels, ops = 0.0, 0, []
     for e in prof.key_averages():
         us = e.self_device_time_total
         if us <= 0:
             continue
         if e.device_type == DeviceType.CUDA:  # a kernel
             busy_us += us
+            n_kernels += e.count
         else:  # the operator that launched kernels: the same time, by op
             ops.append((us, e.count, e.key))
-    print(f"profile, path batch {len(images)}: wall {wall_us:.0f} us, "
-          f"kernels {busy_us:.0f} us, device idle share "
-          f"{1 - busy_us / wall_us:.3f}; device time by operator:")
+    idle = 1 - busy_us / wall_us
+    print(f"profile, {label}: wall {wall_us:.0f} us, {n_kernels} kernels "
+          f"{busy_us:.0f} us, device idle share {idle:.3f}; device time by "
+          f"operator:")
     for us, count, key in sorted(ops, reverse=True)[:top]:
         print(f"  {us:10.1f} us {count:4d}x  {key[:80]}")
+    return idle
 
 
 def conv_flops_per_image(image_size: int, cell_channels: int,
@@ -266,7 +562,53 @@ def time_path(detect, images, dev, label: str, flops: float) -> dict:
               f"conv bound {BF16_FLOPS_PER_S / flops:.0f} images/s at "
               f"{flops / 1e9:.2f} GFLOP per image)")
     for b in PATH_BATCHES:
-        profile_path(detect, images[:b].to(dev))
+        xb = images[:b].to(dev)
+        out[b]["idle_share"] = profile_call(lambda: detect(xb),
+                                            f"{label} path batch {b}")
+    return out
+
+
+def time_train(trainer, state, rng, yolo, dev) -> dict:
+    """Steps/s and images/s of ``Trainer.train_step`` at each of
+    TRAIN_BATCHES on seeded batches already on the card (as the train
+    loop's device prefetch hands them over), host clock around steps that
+    end in a synchronize; B5's launches checked at 5 a step; then one
+    profiled step a batch."""
+    from tensorflow_yolo2_torch.ops import cuda_pool
+
+    out, batches = {}, {}
+    flops = 3 * conv_flops_per_image(yolo.image_size, yolo.cell_channels)
+    for b in TRAIN_BATCHES:
+        images, labels = (torch.from_numpy(a).to(dev)
+                          for a in train_batch(rng, b, yolo))
+        batches[b] = (images, labels)
+        for _ in range(3):
+            trainer.train_step(state, images, labels)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        cuda_pool.reset_launch_counts()
+        t0 = time.perf_counter()
+        for _ in range(TIMED_STEPS):
+            state, metrics = trainer.train_step(state, images, labels)
+        torch.cuda.synchronize()
+        dt = (time.perf_counter() - t0) / TIMED_STEPS
+        n = cuda_pool.MAX_POOL2_BWD_LAUNCHES
+        check(n == 5 * TIMED_STEPS, f"B5 ran 5 times a step at batch {b} "
+                                    f"({n} in {TIMED_STEPS} steps)")
+        check(math.isfinite(metrics["loss"].item()), f"finite loss at {b}")
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        out[b] = {"steps_per_s": 1 / dt, "images_per_s": b / dt,
+                  "ms_per_step": dt * 1e3, "peak_gib": peak,
+                  "bound_images_per_s": BF16_FLOPS_PER_S / flops}
+        print(f"train step {yolo.image_size}², bf16, batch {b}: "
+              f"{1 / dt:.2f} steps/s, {b / dt:.1f} images/s ({dt * 1e3:.2f} "
+              f"ms a step; conv bound {BF16_FLOPS_PER_S / flops:.0f} "
+              f"images/s at {flops / 1e9:.2f} GFLOP an image, forward and "
+              f"backward); peak memory {peak:.2f} GiB")
+    for b, (images, labels) in batches.items():
+        out[b]["idle_share"] = profile_call(
+            lambda: trainer.train_step(state, images, labels),
+            f"train step batch {b}", top=16)
     return out
 
 
@@ -369,6 +711,11 @@ def main() -> int:
         torch.cuda.synchronize()
     print(f"synthetic grids: kernels match their plain versions "
           f"(max abs err {errs})")
+    errs["max_pool2_bwd"] = check_pool_kernel(dev)
+    print(f"max_pool2_bwd: bit-equal to its plain version and to autograd "
+          f"of F.max_pool2d at the 224² pool sites (batch 24, bf16 and "
+          f"float32), on ties, odd C and small maps (max abs err "
+          f"{errs['max_pool2_bwd']})")
 
     rng = np.random.RandomState(0)
     images = torch.from_numpy(rng.randint(
@@ -512,7 +859,39 @@ def main() -> int:
     print(f"anchor real grids: the kernel matches its plain version (max "
           f"abs err {errs['decode_nms_v2']})")
 
-    # 5. times ---------------------------------------------------------------
+    # 5. the v1 training path at full width: 224², bf16 ---------------------
+    from tensorflow_yolo2_torch.ops import cuda_pool
+
+    tyolo = YoloConfig()  # the reference's: 224², S=7, B=2, C=20
+    trng = np.random.RandomState(3)
+    images24, labels24 = (torch.from_numpy(a).to(dev) for a in
+                          train_batch(trng, TRAIN_BATCHES[0], tyolo))
+    trainer, tstate = make_trainer(tyolo, torch.bfloat16, dev)
+    losses = []
+    cuda_pool.reset_launch_counts()
+    for _ in range(FALL_STEPS):
+        tstate, metrics = trainer.train_step(tstate, images24, labels24)
+        losses.append(metrics["loss"])
+    torch.cuda.synchronize()
+    launches["max_pool2_bwd"] = cuda_pool.MAX_POOL2_BWD_LAUNCHES
+    losses = torch.stack(losses).tolist()
+    print(f"train path launches: max_pool2_bwd {launches['max_pool2_bwd']} "
+          f"in {FALL_STEPS} steps; loss on one batch of "
+          f"{TRAIN_BATCHES[0]}: " + ", ".join(f"{v:.3f}" for v in losses))
+    check(launches["max_pool2_bwd"] == 5 * FALL_STEPS,
+          "B5 ran 5 times a train step")
+    check(all(math.isfinite(v) for v in losses), "finite train losses")
+    check(sum(losses[-5:]) / 5 < 0.5 * losses[0],
+          "the loss fell on a fixed batch (mean of the last 5 steps under "
+          "half the first)")
+    check(tstate.step == FALL_STEPS and all(
+        bool(torch.isfinite(p).all()) for p in tstate.params.values()),
+        "finite parameters after the steps")
+    train_check = check_train_step_against_cpu(
+        tyolo, images24, labels24, dev,
+        {k: v.cpu() for k, v in tstate.model.state_dict().items()})
+
+    # 6. times ---------------------------------------------------------------
     print(f"times on {card}:")
     path = {
         "v1_448": time_path(v1_detect, images, dev, "v1 448²",
@@ -520,7 +899,10 @@ def main() -> int:
         "v2p_416": time_path(v2p_detect, v2_images, dev, "v2p 416²",
                              conv_flops_per_image(416, v2cfg.cell_channels,
                                                   passthrough=True)),
+        "train_224": time_train(trainer, tstate, trng, tyolo, dev),
+        "train_checks": train_check,
     }
+    del trainer, tstate
 
     kept_v1 = (cd.decode_nms_plain(v1_grid, yolo, 0.5, 0.5, K).scores > 0
                ).sum(1)
@@ -562,6 +944,28 @@ def main() -> int:
             kernels[-1]["k1_ms"] = k1_ms = graph_ms(one_step)
             print(f"  the same with K=1: {k1_ms * 1e3:.2f} us, so "
                   f"{(ms - k1_ms) / (K - 1) * 1e3:.2f} us a further step")
+
+    sites = time_pool_sites(dev, TRAIN_BATCHES[0])
+    for s in sites:
+        print(f"max_pool2_bwd, bf16 {tuple(s['shape'])}: kernel "
+              f"{s['ms'] * 1e3:.2f} us, max_pool2d_with_indices_backward "
+              f"{s['library_ms'] * 1e3:.2f} us, plain {s['plain_ms']:.3f} "
+              f"ms, bound {s['bound_ms'] * 1e3:.2f} us ({s['bound_by']}); "
+              f"{s['copies']} input sets in turn")
+    total = {k: sum(s[k] for s in sites)
+             for k in ("ms", "library_ms", "plain_ms", "bound_ms")}
+    kernels.append({
+        "name": "max_pool2_bwd", "route": "cuda", "source": POOL_SOURCE,
+        "replaces": TPU_KERNELS["max_pool2_bwd"],
+        "launches": launches["max_pool2_bwd"],
+        "max_abs_err": errs["max_pool2_bwd"], **total,
+        "bound_by": "bytes" if all(s["bound_by"] == "bytes" for s in sites)
+        else "operations", "sites": sites})
+    print(f"max_pool2_bwd, the five sites of a 224² bf16 step at batch "
+          f"{TRAIN_BATCHES[0]}: kernel {total['ms'] * 1e3:.2f} us, "
+          f"max_pool2d_with_indices_backward {total['library_ms'] * 1e3:.2f}"
+          f" us, plain {total['plain_ms']:.3f} ms, bound "
+          f"{total['bound_ms'] * 1e3:.2f} us")
     print(json.dumps({"path": path, "card": card}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -1,18 +1,82 @@
-"""Detection-grid configuration (port of tensorflow_yolo2_tpu/config.py).
+"""Configuration (port of tensorflow_yolo2_tpu/config.py).
 
-Only the pieces the serving paths read: ``YoloConfig`` with its channel
-layout, grid offset and ``at_scale``, ``yolo_grid_offset``, the anchor
-head's ``yolo_v2_config`` with ``CLASSIC_VOC_ANCHORS``, and
-``VOC_CLASSES``.
+The pieces the serving and v1 training paths read: the run-directory
+layout (``root_dir``, ``Paths``, ``TRAIN_SNAPSHOT_PREFIX``),
+``YoloConfig`` with its channel layout, loss weights, grid offset and
+``at_scale``, ``yolo_grid_offset``, the anchor head's ``yolo_v2_config``
+with ``CLASSIC_VOC_ANCHORS``, the optimizer knobs ``LRScheduleConfig`` /
+``OptimizerConfig``, ``scope_matches`` and ``VOC_CLASSES``.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from dataclasses import dataclass
+import os
+from dataclasses import dataclass, field
 from typing import Sequence
 
 import numpy as np
+
+# The run-directory root: $TFY2_ROOT, else the repository root.
+_DEFAULT_ROOT = os.path.abspath(os.path.join(os.path.dirname(__file__),
+                                             os.pardir))
+
+
+def root_dir() -> str:
+    return os.environ.get("TFY2_ROOT", _DEFAULT_ROOT)
+
+
+@dataclass(frozen=True)
+class Paths:
+    """Run-directory layout, the JAX package's: ``data/VOCdevkit``,
+    ``cache/``, ``ckpts/<net>/<imdb>/``, ``tensorboard/<net>/<imdb>/``."""
+
+    root: str = field(default_factory=root_dir)
+
+    @property
+    def pascal(self) -> str:
+        return os.path.join(self.root, "data", "VOCdevkit")
+
+    @property
+    def cache(self) -> str:
+        return os.path.join(self.root, "cache")
+
+    @property
+    def ckpts(self) -> str:
+        return os.path.join(self.root, "ckpts")
+
+    @property
+    def tensorboard(self) -> str:
+        return os.path.join(self.root, "tensorboard")
+
+    def ckpts_dir(self, network_name: str, imdb_name: str) -> str:
+        """The (created) checkpoint dir of one (network, dataset) run."""
+        out = os.path.join(self.ckpts, network_name, imdb_name)
+        os.makedirs(out, exist_ok=True)
+        return out
+
+    def tb_dirs(self, network_name: str, imdb_name: str, val: bool = True):
+        """The (created) train and val metric dirs; val is None unless
+        ``val``."""
+        out = os.path.join(self.tensorboard, network_name, imdb_name)
+        train_dir = os.path.join(out, "train")
+        os.makedirs(train_dir, exist_ok=True)
+        val_dir = None
+        if val:
+            val_dir = os.path.join(out, "val")
+            os.makedirs(val_dir, exist_ok=True)
+        return train_dir, val_dir
+
+
+# Snapshot dirs are named <prefix>_<iter|epoch>_<N>.
+TRAIN_SNAPSHOT_PREFIX = "train"
+
+
+def scope_matches(key: str, scopes, sep: str = ".") -> bool:
+    """True when ``key`` lies inside a scope prefix, matched per path
+    component: ``backbone.conv1`` matches ``backbone.conv1.conv.weight``
+    but not ``backbone.conv19.conv.weight``."""
+    return any(key == s or key.startswith(s + sep) for s in scopes)
 
 
 def yolo_grid_offset(S: int, B: int) -> np.ndarray:
@@ -26,18 +90,21 @@ def yolo_grid_offset(S: int, B: int) -> np.ndarray:
 
 @dataclass(frozen=True)
 class YoloConfig:
-    """YOLO grid-detection head hyperparameters.
+    """YOLO grid-detection head and loss hyperparameters.
 
     The v1 head emits ``S*S`` cells with channel layout
     ``[num_class | B confidences | B*(x, y, w, h)]`` (5B + C channels).
     ``per_slot_classes`` selects the YOLOv2 anchor layout, ``B*(5 + C)``
     channels: each slot carries ``(x, y, w, h, conf, C class logits)``.
+    The YOLOv2 loss's stabilizers are not ported yet.
     """
 
     S: int = 7
     B: int = 2
     num_class: int = 20
     image_size: int = 224
+    lambda_coord: float = 5.0
+    lambda_noobj: float = 0.5
     per_slot_classes: bool = False
     # Anchor priors (w, h) in grid-cell units; v2 decode only.
     anchors: tuple[tuple[float, float], ...] = ()
@@ -95,6 +162,49 @@ def yolo_v2_config(image_size: int = 224,
         anchors = tuple((float(w), float(h)) for w, h in anchors)
     return YoloConfig(S=S, image_size=image_size, B=len(anchors),
                       per_slot_classes=True, anchors=anchors)
+
+
+@dataclass(frozen=True)
+class LRScheduleConfig:
+    """Learning-rate schedule: ``kind`` is fixed, exponential (staircase
+    every ``decay_steps``), polynomial or cosine, after an optional linear
+    warmup. ``offset_steps`` is subtracted from the optimizer's step count
+    (clamped at 0) before the schedule is evaluated, so that a resumed run
+    decays over its own iterations."""
+
+    kind: str = "fixed"
+    learning_rate: float = 1e-3
+    decay_factor: float = 0.94
+    decay_steps: int = 10_000
+    end_learning_rate: float = 1e-4
+    power: float = 1.0
+    warmup_steps: int = 0
+    offset_steps: int = 0
+
+
+@dataclass(frozen=True)
+class OptimizerConfig:
+    """Optimizer family and hyperparameters, with the JAX package's fields
+    and defaults. The port trains with ``adam`` and optional global-norm
+    clipping; ``train.optimizers.make_optimizer`` rejects the rest."""
+
+    name: str = "adam"
+    momentum: float = 0.9
+    adam_beta1: float = 0.9
+    adam_beta2: float = 0.999
+    epsilon: float = 1e-8
+    rmsprop_decay: float = 0.9
+    adadelta_rho: float = 0.95
+    ftrl_learning_rate_power: float = -0.5
+    ftrl_initial_accumulator_value: float = 0.1
+    ftrl_l1: float = 0.0
+    ftrl_l2: float = 0.0
+    weight_decay: float = 0.0
+    grad_clip_norm: float | None = None
+    moving_average_decay: float | None = None
+    trainable_scopes: tuple[str, ...] = ()
+    grad_accum_steps: int = 1
+    schedule: LRScheduleConfig = field(default_factory=LRScheduleConfig)
 
 
 # VOC2007 class list.

@@ -1,0 +1,184 @@
+"""Shared wiring of the training entry points (port of
+tensorflow_yolo2_tpu/entries/common.py): the base CLI flags, the
+resume / warm-start bootstrap, and the train loop (dataset → prefetch
+threads → device copies → step → metrics → snapshots)."""
+
+from __future__ import annotations
+
+import argparse
+from typing import Any, Callable, Mapping, Optional
+
+import torch
+
+from tensorflow_yolo2_torch.convert import state_dict_from_flax
+from tensorflow_yolo2_torch.data.prefetch import PrefetchLoader, device_prefetch
+from tensorflow_yolo2_torch.train.checkpoint import (
+    CheckpointManager,
+    load_into,
+    merge_pytrees,
+    warm_start_params,
+)
+from tensorflow_yolo2_torch.train.metrics import MetricsWriter
+from tensorflow_yolo2_torch.train.trainer import Trainer, TrainState
+from tensorflow_yolo2_torch.utils.timer import Timer
+
+
+def base_parser(description: str) -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser(description=description)
+    p.add_argument("--batch-size", type=int, default=None)
+    p.add_argument("--iters", type=int, default=None,
+                   help="additional training iterations")
+    p.add_argument("--epochs", type=int, default=None)
+    p.add_argument("--learning-rate", type=float, default=None)
+    p.add_argument("--save-every", type=int, default=None)
+    p.add_argument("--log-every", type=int, default=10)
+    p.add_argument("--eval-every", type=int, default=25)
+    p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--compute-dtype", default="bfloat16",
+                   choices=["bfloat16", "float32"])
+    p.add_argument("--num-workers", type=int, default=4,
+                   help="host prefetch threads")
+    p.add_argument("--data-path", default=None)
+    p.add_argument("--tf-checkpoint", default=None,
+                   help="TF1 checkpoint to import weights from (not "
+                        "ported yet)")
+    p.add_argument("--profile-dir", default=None,
+                   help="capture a profiler trace into this dir (not "
+                        "ported yet)")
+    p.add_argument("--device", default=None,
+                   help="torch device (default: cuda)")
+    return p
+
+
+def _as_state_dict(params: Mapping[str, Any],
+                   batch_stats: Mapping[str, Any] | None
+                   ) -> dict[str, Any]:
+    """A (params, batch_stats) pair of flax trees (nested dicts of
+    arrays) or of flat state dicts → one state dict."""
+    if any(isinstance(v, Mapping) for v in params.values()):
+        return state_dict_from_flax(params, batch_stats)
+    return {**params, **(batch_stats or {})}
+
+
+def bootstrap_state(trainer: Trainer, mgr: CheckpointManager,
+                    generator: torch.Generator,
+                    warm_start_dir: Optional[str] = None,
+                    warm_start_exclude: tuple[str, ...] = (),
+                    warm_start_tree: Optional[tuple[Any, Any]] = None,
+                    state_dict: Optional[Mapping[str, torch.Tensor]] = None
+                    ) -> tuple[TrainState, int]:
+    """Resume or initialize:
+
+    1. the newest snapshot of this run → exact resume; when its optimizer
+       state does not fit, the model's tensors by name and shape and a
+       fresh optimizer (the optimizer swap);
+    2. otherwise parameters from ``warm_start_dir`` (another run's
+       snapshot) outside the excluded scopes, or parameters and BatchNorm
+       statistics from ``warm_start_tree``, a (params, batch_stats) pair
+       of flax trees or state dicts;
+    3. otherwise fresh weights from ``generator`` (or ``state_dict``).
+
+    Returns (state, step).
+    """
+    state = trainer.create_state(generator, state_dict)
+    last = mgr.latest_step()
+    if last is not None:
+        try:
+            state, step = mgr.restore(state)
+        except ValueError:
+            raw = mgr.restore_raw()
+            merged, _ = merge_pytrees(state.model.state_dict(), raw["model"])
+            load_into(state.model, merged)
+            state = trainer.resume_optimizer(state)
+            state.step = step = last
+            print("Optimizer state in snapshot does not match — restored "
+                  "params/stats only, optimizer re-initialized")
+        print(f"Restored snapshot at {mgr.interval} {step} from {mgr.dir}")
+        return state, step
+    if warm_start_dir:
+        params = {k: p.detach() for k, p in state.params.items()}
+        params, n = warm_start_params(params, warm_start_dir,
+                                      warm_start_exclude)
+        load_into(state.model, params)
+        print(f"Warm-started {n} tensors from {warm_start_dir}")
+    elif warm_start_tree is not None:
+        tree = _as_state_dict(*warm_start_tree)
+        own = state.model.state_dict()
+        merged, n = merge_pytrees(
+            {k: own[k] for k in state.params}, tree, warm_start_exclude)
+        merged_stats, m = merge_pytrees(state.batch_stats, tree,
+                                        warm_start_exclude)
+        load_into(state.model, {**merged, **merged_stats})
+        print(f"Warm-started {n} param + {m} batch-stat tensors from "
+              "imported checkpoint")
+    return state, 0
+
+
+def run_train_loop(trainer: Trainer, state: TrainState,
+                   get_batch: Callable[[], tuple],
+                   mgr: CheckpointManager, writer: MetricsWriter,
+                   start_iter: int, num_iters: int,
+                   log_every: int = 10, save_every: int = 1000,
+                   num_workers: int = 4) -> TrainState:
+    """Prefetched host batches → device copies kept two ahead → the train
+    step. Right after a step is queued, its scalar metrics (stacked into
+    one tensor) and, on logging steps, its histograms start their copy to
+    pinned host memory behind it on the stream; they are read one step
+    later, after the next step is queued, so that logging waits for the
+    step before, never for the step in flight. Snapshots every
+    ``save_every`` iterations and at the end."""
+    timer = Timer()
+    on_card = trainer.device.type == "cuda"
+    pending: list[tuple[int, list[str], dict[str, torch.Tensor],
+                        Optional[torch.cuda.Event]]] = []
+    last_saved_iter = start_iter
+
+    def stage(it: int, metrics: Mapping[str, torch.Tensor]) -> None:
+        names = [k for k, v in metrics.items() if v.dim() == 0]
+        out = {k: v.float() for k, v in metrics.items()
+               if v.dim() > 0 and it % log_every == 0}
+        if names:
+            out["scalars"] = torch.stack([metrics[k].float() for k in names])
+        done = None
+        if on_card:
+            out = {k: torch.empty(v.shape, dtype=v.dtype, pin_memory=True)
+                   .copy_(v, non_blocking=True) for k, v in out.items()}
+            done = torch.cuda.Event()
+            done.record()
+        pending.append((it, names, out, done))
+
+    def flush(upto: int) -> None:
+        while len(pending) > upto:
+            it, names, host, done = pending.pop(0)
+            if done is not None:
+                done.synchronize()
+            vals = dict(zip(names, host.pop("scalars").tolist())) \
+                if names else {}
+            writer.scalars(it, vals)
+            if it % log_every == 0:
+                for k, arr in host.items():
+                    writer.histogram(it, k, arr.numpy())
+                msg = ", ".join(f"{k}: {v:.4f}" for k, v in vals.items())
+                print(f"iter {it}: {msg}, "
+                      f"avg step {timer.average_time * 1000:.1f} ms")
+
+    with PrefetchLoader(get_batch, num_workers=num_workers) as loader:
+        stream = device_prefetch(iter(loader), size=2, device=trainer.device)
+        for i in range(start_iter + 1, start_iter + num_iters + 1):
+            images, labels = next(stream)
+            timer.tic()
+            state, metrics = trainer.train_step(state, images, labels)
+            timer.toc()
+            stage(i, metrics)
+            flush(1)
+            if save_every and i % save_every == 0:
+                mgr.save(i, state)
+                last_saved_iter = i
+                print(f"Saved snapshot at iter {i} ({mgr.interval} {i})")
+        flush(0)
+    final = start_iter + num_iters
+    if num_iters > 0 and last_saved_iter != final:
+        mgr.save(final, state)
+        print(f"Saved final snapshot at iter {final} "
+              f"({mgr.interval} {final})")
+    return state

@@ -12,10 +12,13 @@ NCHW views in ``channels_last`` memory.
 
 from __future__ import annotations
 
+import math
+
 import torch
 from torch import nn
 
 from tensorflow_yolo2_torch.models.layers import (
+    BN_MOMENTUM,
     ConvBN,
     max_pool,
     space_to_depth,
@@ -39,9 +42,12 @@ class Darknet19Backbone(nn.Module):
     ``downsample="pool"`` is the reference's 2×2/2 max pool between
     stages; ``"stride"`` instead gives the 3×3 conv after each "M" stride
     2 (the JAX package's pool-free training variant; same parameters).
+    ``bn_momentum`` is the BatchNorm running-statistic momentum (flax's
+    convention; the reference's 0.99).
     """
 
-    def __init__(self, fold_bn: bool = False, downsample: str = "pool"):
+    def __init__(self, fold_bn: bool = False, downsample: str = "pool",
+                 bn_momentum: float = BN_MOMENTUM):
         super().__init__()
         if downsample not in ("pool", "stride"):
             raise ValueError(f"downsample must be 'pool' or 'stride', got "
@@ -56,7 +62,7 @@ class Darknet19Backbone(nn.Module):
             conv_i += 1
             self.add_module(f"conv{conv_i}",
                             ConvBN(in_ch, f, k, use_bn=not fold_bn,
-                                   stride=stride))
+                                   stride=stride, bn_momentum=bn_momentum))
             in_ch, stride = f, 1
 
     def forward(self, x: torch.Tensor, return_mid: bool = False):
@@ -83,14 +89,16 @@ class DetectionHead(nn.Module):
     """
 
     def __init__(self, output_channels: int = 30, bn_on_output: bool = True,
-                 fold_bn: bool = False, in_channels: int = 1024):
+                 fold_bn: bool = False, in_channels: int = 1024,
+                 bn_momentum: float = BN_MOMENTUM):
         super().__init__()
-        self.conv1 = ConvBN(in_channels, 1024, 3, use_bn=not fold_bn)
-        self.conv2 = ConvBN(1024, 1024, 3, use_bn=not fold_bn)
-        self.conv3 = ConvBN(1024, 1024, 3, use_bn=not fold_bn)
+        kw = {"use_bn": not fold_bn, "bn_momentum": bn_momentum}
+        self.conv1 = ConvBN(in_channels, 1024, 3, **kw)
+        self.conv2 = ConvBN(1024, 1024, 3, **kw)
+        self.conv3 = ConvBN(1024, 1024, 3, **kw)
         self.output = ConvBN(1024, output_channels, 1,
                              use_bn=bn_on_output and not fold_bn,
-                             activate=bn_on_output)
+                             activate=bn_on_output, bn_momentum=bn_momentum)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = self.conv3(self.conv2(self.conv1(x)))
@@ -133,11 +141,14 @@ class Darknet19Detector(nn.Module):
     """
 
     def __init__(self, output_channels: int = 30, bn_on_output: bool = True,
-                 fold_bn: bool = False, downsample: str = "pool"):
+                 fold_bn: bool = False, downsample: str = "pool",
+                 bn_momentum: float = BN_MOMENTUM):
         super().__init__()
         self.backbone = Darknet19Backbone(fold_bn=fold_bn,
-                                          downsample=downsample)
-        self.detection = DetectionHead(output_channels, bn_on_output, fold_bn)
+                                          downsample=downsample,
+                                          bn_momentum=bn_momentum)
+        self.detection = DetectionHead(output_channels, bn_on_output, fold_bn,
+                                       bn_momentum=bn_momentum)
 
     def forward(self, images: torch.Tensor) -> torch.Tensor:
         x = images.permute(0, 3, 1, 2)  # NHWC storage = NCHW channels_last
@@ -159,6 +170,29 @@ class Darknet19DetectorV2(nn.Module):
     def forward(self, images: torch.Tensor) -> torch.Tensor:
         x, mid = self.backbone(images.permute(0, 3, 1, 2), return_mid=True)
         return self.detection(x, mid).permute(0, 2, 3, 1).contiguous()
+
+
+# flax's truncated normal keeps [-2σ, 2σ] and rescales σ by this, so
+# that the truncated distribution has the requested variance
+_TRUNCATED_STD = 0.87962566103423978
+
+
+@torch.no_grad()
+def init_params_(model: nn.Module, generator: torch.Generator) -> nn.Module:
+    """Seeded fresh weights with flax's defaults, in place: lecun-normal
+    conv kernels (variance 1/fan_in, truncated at two standard
+    deviations), zero conv biases, BatchNorm scale 1, bias 0, running
+    mean 0 and variance 1."""
+    for m in model.modules():
+        if isinstance(m, nn.Conv2d):
+            fan_in = m.in_channels * m.kernel_size[0] * m.kernel_size[1]
+            std = math.sqrt(1.0 / fan_in) / _TRUNCATED_STD
+            nn.init.trunc_normal_(m.weight, 0.0, std, -2.0 * std, 2.0 * std,
+                                  generator=generator)
+            m.bias.zero_()
+        elif isinstance(m, nn.BatchNorm2d):
+            m.reset_parameters()
+    return model
 
 
 @torch.no_grad()

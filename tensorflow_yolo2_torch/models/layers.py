@@ -5,7 +5,8 @@ memory, which is NHWC in storage); the free functions keep the JAX
 package's NHWC layout where they work on images.
 
 The conv keeps its bias in front of BatchNorm, as the reference does, so
-imported checkpoints map 1:1; BatchNorm uses TF1's epsilon 1e-3.
+imported checkpoints map 1:1; BatchNorm uses TF1's epsilon 1e-3 and
+flax's running-statistic update (``BatchNorm``).
 """
 
 from __future__ import annotations
@@ -14,8 +15,11 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from tensorflow_yolo2_torch.ops import cuda_pool
+
 LEAKY_ALPHA = 0.1
 BN_EPSILON = 1e-3
+BN_MOMENTUM = 0.99
 
 
 def leaky_relu(x: torch.Tensor, alpha: float = LEAKY_ALPHA) -> torch.Tensor:
@@ -34,10 +38,54 @@ def space_to_depth(x: torch.Tensor) -> torch.Tensor:
 def max_pool(x: torch.Tensor) -> torch.Tensor:
     """2×2/2 SAME max pool of an NCHW tensor.
 
-    ``ceil_mode`` keeps the last partial window of an odd size, which is
-    what SAME's -inf padding gives; on even sizes it is a VALID pool.
+    When a gradient is recorded and H and W are even, the pool is
+    ``ops.cuda_pool.MaxPool2``, whose backward on the card is the CUDA
+    kernel B5. Otherwise ``ceil_mode`` keeps the last partial window of
+    an odd size, which is what SAME's -inf padding gives; on even sizes
+    it is a VALID pool. Both have the same values and gradient.
     """
+    if torch.is_grad_enabled() and x.requires_grad and \
+            cuda_pool.supported(x):
+        return cuda_pool.MaxPool2.apply(x)
     return F.max_pool2d(x, 2, 2, ceil_mode=True)
+
+
+class BatchNorm(nn.BatchNorm2d):
+    """BatchNorm over NCHW with flax's running statistics.
+
+    In training mode it normalises with the batch mean and the biased
+    batch variance, as ``nn.BatchNorm2d`` does, and then updates
+    ``running ← momentum·running + (1 − momentum)·batch_stat`` with the
+    biased variance (flax's ``BatchNorm``; ``nn.BatchNorm2d`` would use
+    the unbiased one, and its momentum is the complement). Statistics are
+    float32 whatever the input type. In eval mode it normalises with the
+    running statistics. The state dict is ``nn.BatchNorm2d``'s.
+    """
+
+    def __init__(self, num_features: int, eps: float = BN_EPSILON,
+                 momentum: float = BN_MOMENTUM):
+        super().__init__(num_features, eps=eps)
+        self.flax_momentum = momentum
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if not self.training:
+            return F.batch_norm(x, self.running_mean, self.running_var,
+                                self.weight, self.bias, False, 0.0, self.eps)
+        # the batch statistics come out of the fused kernel: with
+        # momentum 1 it writes the batch mean and unbiased variance into
+        # zeroed buffers (it refuses a single value per channel)
+        mean = torch.zeros_like(self.running_mean)
+        var = torch.zeros_like(self.running_var)
+        y = F.batch_norm(x, mean, var, self.weight, self.bias, True, 1.0,
+                         self.eps)
+        n = x.numel() // x.shape[1]
+        m = self.flax_momentum
+        with torch.no_grad():
+            self.running_mean.mul_(m).add_(mean, alpha=1.0 - m)
+            # var itself is saved for the backward: not in place
+            self.running_var.mul_(m).add_(var * ((n - 1) / n),
+                                          alpha=1.0 - m)
+        return y
 
 
 class ConvBN(nn.Module):
@@ -53,7 +101,7 @@ class ConvBN(nn.Module):
 
     def __init__(self, in_channels: int, features: int, kernel_size: int = 3,
                  use_bn: bool = True, activate: bool = True,
-                 stride: int = 1):
+                 stride: int = 1, bn_momentum: float = BN_MOMENTUM):
         super().__init__()
         if stride == 1:
             self.pad, padding = None, kernel_size // 2
@@ -63,7 +111,7 @@ class ConvBN(nn.Module):
             self.pad, padding = (low, total - low, low, total - low), 0
         self.conv = nn.Conv2d(in_channels, features, kernel_size,
                               stride=stride, padding=padding, bias=True)
-        self.bn = (nn.BatchNorm2d(features, eps=BN_EPSILON, momentum=0.01)
+        self.bn = (BatchNorm(features, momentum=bn_momentum)
                    if use_bn else None)
         self.activate = activate
 

@@ -19,7 +19,7 @@ from typing import NamedTuple
 
 import torch
 
-from tensorflow_yolo2_torch.config import YoloConfig
+from tensorflow_yolo2_torch.config import YoloConfig, yolo_grid_offset
 from tensorflow_yolo2_torch.ops.iou import cxcywh_to_corners
 
 
@@ -63,11 +63,27 @@ def grid_to_absolute(raw_boxes: torch.Tensor, cfg: YoloConfig) -> torch.Tensor:
     return torch.stack([xs, ys, ws, hs], dim=-1)
 
 
+@functools.cache
+def _offset_on(S: int, B: int, device: torch.device,
+               dtype: torch.dtype) -> torch.Tensor:
+    # a normal tensor even when first asked for under inference_mode, so
+    # that a later train step may use it
+    with torch.inference_mode(False):
+        return torch.from_numpy(yolo_grid_offset(S, B)).to(device, dtype)
+
+
+def offset_tensor(cfg: YoloConfig, device: torch.device,
+                  dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """``cfg.offset``, the (S, S, B) column offsets, on ``device`` in
+    ``dtype``. Cached: a host-to-device copy waits for the card's stream,
+    so a train step or a serving call makes none after the first."""
+    return _offset_on(cfg.S, cfg.B, torch.device(device), dtype)
+
+
 def _grid_terms(raw_boxes: torch.Tensor, cfg: YoloConfig):
     """Column and row offsets (S, S, B) and S as a 0-d tensor, on the
     device and in the dtype of ``raw_boxes``."""
-    offset = torch.from_numpy(cfg.offset).to(raw_boxes.device,
-                                             raw_boxes.dtype)
+    offset = offset_tensor(cfg, raw_boxes.device, raw_boxes.dtype)
     # Divide by a tensor on the same device, not a Python number: on CUDA
     # PyTorch turns division by a CPU scalar into a multiplication by its
     # reciprocal, which is not the IEEE quotient the kernels compute.

@@ -16,6 +16,11 @@ def cxcywh_to_corners(b: torch.Tensor) -> torch.Tensor:
         [cx - w / 2.0, cy - h / 2.0, cx + w / 2.0, cy + h / 2.0], dim=-1)
 
 
+def box_iou(boxes1: torch.Tensor, boxes2: torch.Tensor) -> torch.Tensor:
+    """Elementwise IoU of (..., 4) cxcywh boxes; returns (...)."""
+    return corners_iou(cxcywh_to_corners(boxes1), cxcywh_to_corners(boxes2))
+
+
 def corners_iou(b1: torch.Tensor, b2: torch.Tensor) -> torch.Tensor:
     """Elementwise IoU of (..., 4) (x1, y1, x2, y2) boxes; returns (...)."""
     lu = torch.maximum(b1[..., :2], b2[..., :2])

@@ -1,0 +1,185 @@
+"""The train step (port of tensorflow_yolo2_tpu/train/trainer.py).
+
+One step: images → the model in train mode (BatchNorm on batch
+statistics, running statistics updated as flax does) → the task's loss in
+float32 → gradients → global norm → Adam (``train.optimizers``). The JAX
+step is one jitted function that donates its input state; here the step
+runs eagerly on ``Trainer.device`` and updates the parameters, BatchNorm
+statistics and Adam moments of the state in place.
+
+Mixed precision follows ``compute_dtype``: with bfloat16 the forward runs
+under ``torch.autocast``, so that convs compute in bf16, while parameters,
+gradients and Adam moments stay float32, and the head output and the loss
+are float32 (the JAX package's ``dtype`` / ``param_dtype`` split).
+
+On the card the trunk's activations stay in ``channels_last`` memory and
+its five pools run backward through the CUDA kernel of
+``ops.cuda_pool`` (B5). EMA, gradient accumulation and trainable scopes
+are not ported yet.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Any, Callable, Mapping
+
+import torch
+from torch import nn
+
+from tensorflow_yolo2_torch.config import OptimizerConfig, YoloConfig
+from tensorflow_yolo2_torch.losses.yolo import yolo_loss
+from tensorflow_yolo2_torch.models.darknet import init_params_
+from tensorflow_yolo2_torch.train.optimizers import (
+    AdamState,
+    global_norm,
+    make_optimizer,
+)
+from tensorflow_yolo2_torch.utils.device import resolve_device
+
+Metrics = dict[str, torch.Tensor]
+
+
+def device_normalize(images: torch.Tensor) -> torch.Tensor:
+    """uint8 batches → float32 in [-1, 1] as (x/255)·2 − 1, on the
+    batch's device; float batches pass through."""
+    if images.dtype == torch.uint8:
+        return (images.float() / 255.0) * 2.0 - 1.0
+    return images
+
+
+@dataclass
+class TrainState:
+    """What a step updates: the model (parameters and BatchNorm running
+    statistics, on the trainer's device), Adam's state and the step
+    count."""
+
+    step: int
+    model: nn.Module
+    opt_state: AdamState
+
+    @property
+    def params(self) -> dict[str, torch.nn.Parameter]:
+        return dict(self.model.named_parameters())
+
+    @property
+    def batch_stats(self) -> dict[str, torch.Tensor]:
+        return {k: v for k, v in self.model.state_dict().items()
+                if k.endswith(("running_mean", "running_var"))}
+
+
+def yolo_task(yolo_cfg: YoloConfig, histograms: bool = False) -> Callable:
+    """Detection task: (head output, labels) → (YOLO grid loss, metrics).
+
+    Metrics are 0-d tensors ``loss``, ``class_loss``, ``object_loss``,
+    ``noobject_loss``, ``coord_loss`` and ``mean_iou`` (the IoU of the
+    responsible boxes); ``histograms`` adds the arrays ``hist/iou`` and
+    ``hist/confidence`` (the predicted confidences)."""
+
+    def task(outputs: torch.Tensor, labels: torch.Tensor):
+        total, aux = yolo_loss(outputs, labels, yolo_cfg)
+        metrics = {
+            "loss": total,
+            "class_loss": aux.class_loss,
+            "object_loss": aux.object_loss,
+            "noobject_loss": aux.noobject_loss,
+            "coord_loss": aux.coord_loss,
+            "mean_iou": torch.sum(aux.ious * aux.object_mask) /
+            torch.clamp(torch.sum(aux.object_mask), min=1.0),
+        }
+        if histograms:
+            C = yolo_cfg.num_class
+            metrics["hist/iou"] = aux.ious
+            metrics["hist/confidence"] = outputs[..., C:C + yolo_cfg.B]
+        return total, metrics
+
+    return task
+
+
+class Trainer:
+    """The train and eval steps of (model, task, optimizer) on one device.
+
+    ``compute_dtype`` is ``torch.bfloat16`` (autocast) or
+    ``torch.float32``; ``device`` defaults to ``cuda``.
+    """
+
+    def __init__(self, model: nn.Module, task: Callable,
+                 opt_cfg: OptimizerConfig = OptimizerConfig(),
+                 device: str | torch.device | None = None,
+                 compute_dtype: torch.dtype = torch.bfloat16):
+        if compute_dtype not in (torch.bfloat16, torch.float32):
+            raise ValueError(f"compute_dtype must be bfloat16 or float32, "
+                             f"got {compute_dtype}")
+        self.model = model
+        self.task = task
+        self.opt_cfg = opt_cfg
+        self.optimizer = make_optimizer(opt_cfg)
+        self.device = resolve_device(device)
+        self.compute_dtype = compute_dtype
+
+    # -- state --------------------------------------------------------------
+
+    def create_state(self, generator: torch.Generator,
+                     state_dict: Mapping[str, torch.Tensor] | None = None
+                     ) -> TrainState:
+        """Fresh seeded weights (``models.darknet.init_params_``, flax's
+        defaults; ``generator`` is a CPU generator), or ``state_dict``'s,
+        on the device, with a fresh optimizer state."""
+        self.model.to("cpu")
+        if state_dict is None:
+            init_params_(self.model, generator)
+        else:
+            self.model.load_state_dict(state_dict)
+        self.model.to(self.device, memory_format=torch.channels_last)
+        return TrainState(0, self.model,
+                          self.optimizer.init(dict(
+                              self.model.named_parameters())))
+
+    def resume_optimizer(self, state: TrainState) -> TrainState:
+        """The optimizer swap of a resume: a fresh optimizer state for the
+        current parameters."""
+        state.opt_state = self.optimizer.init(state.params)
+        return state
+
+    # -- steps ----------------------------------------------------------------
+
+    def _forward(self, images: torch.Tensor) -> torch.Tensor:
+        images = device_normalize(torch.as_tensor(images).to(self.device))
+        with torch.autocast(self.device.type, dtype=torch.bfloat16,
+                            enabled=self.compute_dtype == torch.bfloat16):
+            outputs = self.model(images)
+        return outputs.float()
+
+    def loss_and_grads(self, state: TrainState, images: Any, labels: Any
+                       ) -> tuple[Metrics, dict[str, torch.Tensor]]:
+        """Forward in train mode (updating the BatchNorm running
+        statistics) and backward: (metrics, gradients by parameter
+        name). The parameters are not changed."""
+        state.model.train()
+        params = state.params
+        labels = torch.as_tensor(labels).to(self.device, torch.float32)
+        loss, metrics = self.task(self._forward(images), labels)
+        grads = torch.autograd.grad(loss, list(params.values()))
+        return ({k: v.detach() for k, v in metrics.items()},
+                dict(zip(params, grads)))
+
+    def train_step(self, state: TrainState, images: Any, labels: Any
+                   ) -> tuple[TrainState, Metrics]:
+        """One optimizer step on a batch (NHWC images, float or uint8,
+        and label grids; numpy or tensors). Updates ``state`` in place and
+        returns it with the step's metrics, ``grad_norm`` (the global
+        norm of the gradients before clipping) among them; the metrics
+        stay on the device."""
+        metrics, grads = self.loss_and_grads(state, images, labels)
+        norm = global_norm(grads.values())
+        metrics["grad_norm"] = norm
+        self.optimizer.update_(grads, state.opt_state, state.params, norm)
+        state.step += 1
+        return state, metrics
+
+    @torch.no_grad()
+    def eval_step(self, state: TrainState, images: Any,
+                  labels: Any) -> Metrics:
+        """The task's metrics in eval mode (running statistics)."""
+        state.model.eval()
+        labels = torch.as_tensor(labels).to(self.device, torch.float32)
+        return self.task(self._forward(images), labels)[1]

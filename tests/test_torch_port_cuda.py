@@ -9,7 +9,12 @@ without the repository's conftest (which imports JAX):
 Tolerances (chip_smoke.compare_*): scores and classes exact, boxes to
 1e-6 — the kernels repeat the plain versions' float32 arithmetic with
 the same rounding (and the anchor kernel calls the expf that torch.exp
-calls).
+calls). The max-pool backward kernel (B5) is bit-equal to its plain
+version and to torch's autograd of ``F.max_pool2d``: it copies dout or
+writes 0. A float32 train step on the card, TF32 off, against float64 on the
+CPU: loss rtol 1e-4, each gradient 5e-2 and all gradients 1e-2
+relative norm (chip_smoke's bounds: float32 rounding alone puts the
+early BatchNorm gradients up to ~1e-2 from float64 on any device).
 """
 
 import pytest
@@ -23,7 +28,7 @@ from tensorflow_yolo2_torch.models.darknet import (
     Darknet19DetectorV2,
     randomize_,
 )
-from tensorflow_yolo2_torch.ops import cuda_decode
+from tensorflow_yolo2_torch.ops import cuda_decode, cuda_pool
 
 pytestmark = pytest.mark.cuda
 K = 32
@@ -142,3 +147,110 @@ def test_detect_v2_runs_through_the_anchor_kernel(card):
     assert cuda_decode.DECODE_NMS_V2_LAUNCHES == 2
     assert cuda_decode.DECODE_NMS_LAUNCHES == 0
     assert cuda_decode.DECODE_GRID_LAUNCHES == 0
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_pool_kernel_matches_plain_and_autograd(card, dtype):
+    """B5 at the five pool sites of a 224² step at batch 2."""
+    gen = torch.Generator(device=card).manual_seed(0)
+    for shape in chip_smoke.pool_sites(2):
+        n, c, h, w = shape
+        x, dout = (torch.randn(s, generator=gen, device=card).to(dtype)
+                   .contiguous(memory_format=torch.channels_last)
+                   for s in (shape, (n, c, h // 2, w // 2)))
+        assert chip_smoke.check_pool(x, dout, f"{dtype} {shape}") == 0.0
+    torch.cuda.synchronize()
+
+
+def test_pool_kernel_ties_and_odd_shapes(card):
+    """The batch-24 sites, integer ties, odd C, small maps, NCHW memory."""
+    assert chip_smoke.check_pool_kernel(card) == 0.0
+
+
+def test_pool_kernel_never_falls_back(card):
+    y = torch.zeros(1, 2, 2, 2, device=card)
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        cuda_pool.max_pool2_bwd_fused(torch.zeros(1, 2, 4, 4, device=card,
+                                                  dtype=torch.float16),
+                                      y.half(), y.half())
+    with pytest.raises(ValueError, match="even"):
+        cuda_pool.max_pool2_bwd_fused(torch.zeros(1, 2, 5, 4, device=card),
+                                      y, y)
+    cuda_pool.reset_launch_counts()
+    cuda_pool.max_pool2_bwd_fused(torch.zeros(1, 2, 4, 4, device=card), y, y)
+    assert cuda_pool.MAX_POOL2_BWD_LAUNCHES == 1
+
+
+@pytest.fixture()
+def no_tf32():
+    saved = (torch.backends.cudnn.allow_tf32,
+             torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    yield
+    (torch.backends.cudnn.allow_tf32,
+     torch.backends.cuda.matmul.allow_tf32) = saved
+
+
+def test_train_step_matches_cpu(card, no_tf32):
+    """20 bf16 steps of the v1 detector at 224², batch 4, on one batch,
+    with the pools' backward through B5 (5 launches a step); then, from
+    the weights they reached, a float32 step on the card against the same
+    step in float64 on the CPU (loss rtol 1e-4, each gradient 5e-2 and
+    all gradients 1e-2 relative norm) and the bf16 loss against the
+    float32 one (5e-2): chip_smoke's checks and bounds."""
+    import numpy as np
+
+    yolo = YoloConfig()
+    images, labels = (torch.from_numpy(a).to(card)
+                      for a in chip_smoke.train_batch(
+                          np.random.RandomState(0), 4, yolo))
+    trainer, state = chip_smoke.make_trainer(yolo, torch.bfloat16, card)
+    cuda_pool.reset_launch_counts()
+    losses = [trainer.train_step(state, images, labels)[1]["loss"].item()
+              for _ in range(20)]
+    assert cuda_pool.MAX_POOL2_BWD_LAUNCHES == 5 * 20
+    assert losses[-1] < losses[0]
+    chip_smoke.check_train_step_against_cpu(
+        yolo, images, labels, card,
+        {k: v.cpu() for k, v in state.model.state_dict().items()})
+
+
+def test_train_loop_on_the_card(card, tmp_path):
+    """``run_train_loop`` on the card, as the CLI calls it: every step's
+    metrics, copied to pinned host memory behind the step and read one
+    step later, reach ``events.jsonl`` finite, the histograms on logging
+    steps; the snapshots are written."""
+    import json
+
+    import numpy as np
+
+    from tensorflow_yolo2_torch.config import Paths
+    from tensorflow_yolo2_torch.entries.common import run_train_loop
+    from tensorflow_yolo2_torch.train.checkpoint import CheckpointManager
+    from tensorflow_yolo2_torch.train.metrics import MetricsWriter
+    from tensorflow_yolo2_torch.train.trainer import Trainer, yolo_task
+
+    yolo = YoloConfig(S=2, B=2, num_class=4, image_size=64)
+    batches = iter([chip_smoke.train_batch(np.random.RandomState(i), 2, yolo)
+                    for i in range(4)])
+    trainer = Trainer(Darknet19Detector(yolo.cell_channels),
+                      yolo_task(yolo, histograms=True), device=card)
+    state = trainer.create_state(torch.Generator().manual_seed(0))
+    paths = Paths(root=str(tmp_path))
+    mgr = CheckpointManager("darknet19", "voc_2007", paths=paths, yolo=yolo)
+    logdir = str(tmp_path / "events")
+    writer = MetricsWriter(logdir, tensorboard=False)
+    state = run_train_loop(trainer, state, lambda: next(batches), mgr,
+                           writer, start_iter=0, num_iters=4, log_every=2,
+                           save_every=2, num_workers=1)
+    writer.close()
+    recs = [json.loads(line) for line in
+            open(f"{logdir}/events.jsonl").read().splitlines()]
+    scalars = [r for r in recs if "hist" not in r]
+    assert [r["step"] for r in scalars] == [1, 2, 3, 4]
+    assert all(np.isfinite(r["loss"]) and np.isfinite(r["grad_norm"])
+               for r in scalars)
+    assert sorted((r["step"], r["hist"]) for r in recs if "hist" in r) == [
+        (s, h) for s in (2, 4) for h in ("hist/confidence", "hist/iou")]
+    assert state.step == 4 and mgr.all_steps() == [2, 4]
