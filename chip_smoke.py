@@ -24,7 +24,18 @@
    (``Darknet19DetectorV2``) and ``--v2`` (linear-output
    ``Darknet19Detector``), checking that the anchor kernel was launched,
    the grid, and the kernel on the real grid.
-5. Drives the v1 training path at full width, ``Trainer.train_step`` on
+5. Holds the fused stem kernel B4 against its plain version (the same
+   rounding points) on the card at (2, 32, 32), (1, 64, 32), (1, 56, 64),
+   (4, 416, 416), (4, 448, 448) and (256, 448, 448), with random weights
+   and with the folded conv1 / conv2 of the v1 detector, and on all-zero
+   images with b1 > 0 (the SAME zeros of the stage-1 map make every edge
+   output differ from the interior). Then drives the ``--pallas-stem``
+   serving paths, ``make_detect_fn(pallas_stem=True)``, on the v1 448²
+   and ``--v2`` 416² detectors above, NMS on and off: B4 once a call and
+   the decode kernel once a call, the grid against the float32 CPU
+   forward and against the stock path's bf16 grid, the decode kernels on
+   that grid against their plain versions.
+6. Drives the v1 training path at full width, ``Trainer.train_step`` on
    the Darknet19 v1 detector at the reference's 224² (S=7, B=2, C=20),
    fresh seeded weights (flax's initializers), bf16 compute, Adam at
    1e-3, on seeded uint8 batches whose labels come from
@@ -33,13 +44,15 @@
    the weights those steps reached, one float32 step on the card against
    the same step in float64 on the CPU (loss and every gradient), and the
    bf16 loss against the float32 one.
-6. Times the v1 and v2p serving paths (images/s at batch 32 and 256, with
-   a profile), the train step (steps/s and images/s at batch 24 and 64,
-   with a profile), each decode kernel and its plain version at batch
-   256, and B5 at each pool site of a batch-24 step beside torch's
-   ``max_pool2d_with_indices_backward``, and prints them, with each
-   kernel's bound, as one JSON line ``{"kernels": [...]}``.
-7. Ends with ``{"ok": true, "device": {...}}``.
+7. Times the v1, v1 ``--pallas-stem`` and v2p serving paths (images/s
+   at batch 32 and 256, with a profile), the train step (steps/s and
+   images/s at batch 24 and 64, with a profile), each decode kernel and
+   its plain version at batch 256, B5 at each pool site of a batch-24
+   step beside torch's ``max_pool2d_with_indices_backward``, and B4 at
+   batch 256, 448², beside the stock stem (the detector's own conv1,
+   bias, leaky, pool, conv2, bias, leaky, pool), and prints them, with
+   each kernel's bound, as one JSON line ``{"kernels": [...]}``.
+8. Ends with ``{"ok": true, "device": {...}}``.
 
 Each path is driven with the launch counts set to 0 just before it and
 read just after; the ``launches`` of a kernel are those of its path.
@@ -73,12 +86,36 @@ GRID_REL_TOL = 5e-2  # bf16 card forward vs float32 CPU forward, rel. norm
 BOX_TOL = 1e-6
 SOURCE = "tensorflow_yolo2_torch/csrc/decode.cu"
 POOL_SOURCE = "tensorflow_yolo2_torch/csrc/pool.cu"
+STEM_SOURCE = "tensorflow_yolo2_torch/csrc/stem.cu"
 TPU_KERNELS = {
     "decode_nms": "tensorflow_yolo2_tpu/ops/pallas_decode.py:204",
     "decode_nms_v2": "tensorflow_yolo2_tpu/ops/pallas_decode.py:255",
     "decode_grid": "tensorflow_yolo2_tpu/ops/pallas_decode.py:42",
     "max_pool2_bwd": "tensorflow_yolo2_tpu/ops/pallas_pool.py:44",
+    "stem": "tensorflow_yolo2_tpu/ops/pallas_stem.py:118",
 }
+
+# B4 against its plain version (same rounding points, float32 sums in
+# another order). A sum that lands on the other side of a bf16 rounding
+# boundary in stage 1 moves the stage-2 sums that read it by ~1 bf16 ulp
+# of the stage-1 value, which near an output of 0 is many ulps of that
+# output: cuDNN's float32 plain version itself is 1236 ulps from a
+# float64 reference at worst on (4, 448, 448). So each difference is held
+# to one bf16 ulp of the plain value or of the plain output's RMS,
+# whichever is larger; the share of bit-equal elements is taken over all
+# shapes of a weight set (one such flip moves ~20 outputs, a large share
+# of a 32² image's); and the relative norm.
+STEM_BIT_SHARE = 0.999
+STEM_MAX_ULPS = 1.0
+STEM_REL_TOL = 1e-4
+STEM_SHAPES = ((2, 32, 32), (1, 64, 32), (1, 56, 64), (4, 416, 416),
+               (4, 448, 448), (256, 448, 448))
+# the --pallas-stem grid against the stock path's bf16 grid, rel. norm
+STEM_PATH_REL_TOL = 5e-2
+
+# names of the kernels of csrc/, which the profile lists by kernel
+PORT_KERNEL_NAMES = ("decode_grid_kernel", "decode_nms_kernel",
+                     "pool2_bwd_kernel", "stem_kernel")
 
 # the training path: the reference's batch 24, and 64
 TRAIN_BATCHES = (24, 64)
@@ -291,6 +328,137 @@ def time_pool_sites(dev: torch.device, batch: int) -> list[dict]:
     return rows
 
 
+def bf16_ulp(v: torch.Tensor) -> torch.Tensor:
+    """The bf16 spacing above |v|, as float32."""
+    a = v.abs().to(torch.bfloat16)
+    return (a.view(torch.int16) + 1).view(torch.bfloat16).float() - a.float()
+
+
+def compare_stem(got: torch.Tensor, want: torch.Tensor,
+                 what: str) -> tuple[float, int]:
+    """B4's output against its plain version's: no difference above
+    STEM_MAX_ULPS bf16 ulps of the plain value or of the plain output's
+    RMS, relative norm at most STEM_REL_TOL. Returns the largest absolute
+    difference and the count of elements that are not bit-equal, for the
+    caller's share."""
+    check(got.shape == want.shape and got.dtype == want.dtype ==
+          torch.bfloat16, f"stem output {tuple(got.shape)} {got.dtype}, "
+          f"{what}")
+    unequal = int((bits(got) != bits(want)).sum().item())
+    w = want.float()
+    diff = (got.float() - w).abs()
+    rms = w.double().square().mean().sqrt().float()
+    ulps = (diff / torch.maximum(bf16_ulp(want), bf16_ulp(rms))).max().item()
+    rel = (diff.double().norm() / w.double().norm().clamp(min=1e-30)).item()
+    print(f"stem {what}: {100 - unequal / want.numel() * 100:.4f}% "
+          f"bit-equal, worst {ulps:.2f} ulp (of the value or the RMS "
+          f"{rms.item():.3f}), relative norm {rel:.2e}")
+    check(ulps <= STEM_MAX_ULPS and rel <= STEM_REL_TOL,
+          f"stem matches its plain version, {what}")
+    return diff.max().item(), unequal
+
+
+def random_stem_weights(gen: torch.Generator) -> tuple[torch.Tensor, ...]:
+    """Seeded (w1, b1, w2, b2) at the spreads of the JAX package's stem
+    tests."""
+    return tuple(torch.randn(shape, generator=gen) * std for shape, std in (
+        ((3, 3, 3, 32), 0.3), ((32,), 0.2), ((3, 3, 32, 64), 0.1),
+        ((64,), 0.2)))
+
+
+def check_stem_kernel(dev: torch.device, state: dict) -> float:
+    """B4 against ``fused_stem_plain`` on the card at STEM_SHAPES, with
+    random weights and with the folded conv1 / conv2 of ``state``; then
+    all-zero images with b1 > 0, where SAME padding of the stage-1 map
+    with zeros (not leaky(b1)) makes every edge output differ from the
+    interior. Returns the largest absolute difference."""
+    from tensorflow_yolo2_torch.entries.pascal_detect_darknet import (
+        stem_weights,
+    )
+    from tensorflow_yolo2_torch.ops import cuda_stem as cs
+
+    gen = torch.Generator().manual_seed(7)
+    xgen = torch.Generator(device=dev).manual_seed(8)
+    sets = {"random": cs.pack_stem_weights(*random_stem_weights(gen),
+                                           device=dev),
+            "detector": stem_weights(state, dev)}
+    err = 0.0
+    for name, weights in sets.items():
+        unequal = total = 0
+        for n, h, w in STEM_SHAPES:
+            x = (torch.rand((n, h, w, 3), generator=xgen, device=dev) * 2 - 1
+                 ).to(torch.bfloat16)
+            got = cs.fused_stem_packed(x, weights)
+            want = cs.fused_stem_plain(x, *weights[:4])
+            e, u = compare_stem(got, want, f"{name} weights, {(n, h, w)}")
+            err, unequal, total = max(err, e), unequal + u, total + got.numel()
+            del x, got, want
+        share = 1 - unequal / total
+        print(f"stem, {name} weights, all shapes: {share * 100:.4f}% "
+              f"bit-equal (bound {STEM_BIT_SHARE * 100}%)")
+        check(share >= STEM_BIT_SHARE, f"stem bit-equal share, {name}")
+        torch.cuda.synchronize()
+    w1, b1, w2, b2 = random_stem_weights(gen)
+    weights = cs.pack_stem_weights(w1, b1.abs() + 0.1, w2, b2, device=dev)
+    x = torch.zeros((2, 64, 96, 3), dtype=torch.bfloat16, device=dev)
+    got = cs.fused_stem_packed(x, weights)
+    err = max(err, compare_stem(got, cs.fused_stem_plain(x, *weights[:4]),
+                                "all-zero images, b1 > 0")[0])
+    inner = got[:, 1:-1, 1:-1]
+    check(bool((inner == got[:1, 1:2, 1:2]).all()),
+          "zero images: the interior is constant")
+    for edge in (got[:, 0, 1:-1], got[:, -1, 1:-1], got[:, 1:-1, 0],
+                 got[:, 1:-1, -1]):
+        check(bool((edge != inner[:, :1, 0]).any(-1).all()),
+              "zero images: every edge output differs from the interior")
+    torch.cuda.synchronize()
+    return err
+
+
+def stem_bound(n: int, h: int, w: int) -> tuple[float, float]:
+    """Least time of B4 on (n, h, w, 3) bf16 images, in ms: by bytes (the
+    images read once, the (n, h/4, w/4, 64) bf16 output written once, the
+    weights) and by operations (the two convs' multiply-adds, 2 FLOPs
+    each, at the bf16 tensor-core rate; the float32 bias, leaky and pool
+    run on other units beside them)."""
+    nbytes = (n * h * w * 3 + n * (h // 4) * (w // 4) * 64) * 2 + \
+        (27 * 32 + 288 * 64) * 2 + (32 + 64) * 4
+    flops = n * 2 * (h * w * 27 * 32 + (h // 2) * (w // 2) * 288 * 64)
+    return nbytes / HBM_BYTES_PER_S * 1e3, flops / BF16_FLOPS_PER_S * 1e3
+
+
+def time_stem(dev: torch.device, yolo, state: dict, images) -> dict:
+    """B4, its plain version and the stock stem (the detector's own conv1,
+    bias, leaky, pool, conv2, bias, leaky, pool) on one uint8 batch of
+    448² images normalized to bf16 on the card; B4 and the stock stem
+    replayed from CUDA graphs."""
+    from tensorflow_yolo2_torch.entries.pascal_detect_darknet import (
+        build_detector,
+        stem_weights,
+    )
+    from tensorflow_yolo2_torch.models.layers import max_pool
+    from tensorflow_yolo2_torch.ops import cuda_stem as cs
+
+    x = images.to(dev).float().div_(255.0).mul_(2.0).sub_(1.0).to(
+        torch.bfloat16)
+    weights = stem_weights(state, dev)
+    bk = build_detector(yolo, state, dtype=torch.bfloat16,
+                        device=dev).backbone
+    xc = x.permute(0, 3, 1, 2)  # NCHW view of NHWC memory, as the model
+    n, h, w, _ = x.shape
+    t_bytes, t_ops = stem_bound(n, h, w)
+    with torch.inference_mode():
+        ms = graph_ms(lambda: cs.fused_stem_packed(x, weights), 20)
+        stock_ms = graph_ms(
+            lambda: max_pool(bk.conv2(max_pool(bk.conv1(xc)))), 20)
+        plain_ms = cuda_ms(lambda: cs.fused_stem_plain(x, *weights[:4]), 3)
+    return {"ms": ms, "stock_stem_ms": stock_ms, "plain_ms": plain_ms,
+            "bound_ms": max(t_bytes, t_ops), "bytes_bound_ms": t_bytes,
+            "ops_bound_ms": t_ops,
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "shape": [n, h, w, 3]}
+
+
 def train_batch(rng: np.random.RandomState, batch: int, yolo):
     """Seeded uint8 images (batch, size, size, 3) and their label grids
     from ``build_label_grid`` on 1–6 seeded boxes an image."""
@@ -480,12 +648,15 @@ def profile_call(fn, label: str, top: int = 12) -> float:
         if e.device_type == DeviceType.CUDA:  # a kernel
             busy_us += us
             n_kernels += e.count
+            if any(k in e.key for k in PORT_KERNEL_NAMES):
+                # launched through ctypes, under no operator: by kernel
+                ops.append((us, e.count, "kernel " + e.key))
         else:  # the operator that launched kernels: the same time, by op
             ops.append((us, e.count, e.key))
     idle = 1 - busy_us / wall_us
     print(f"profile, {label}: wall {wall_us:.0f} us, {n_kernels} kernels "
           f"{busy_us:.0f} us, device idle share {idle:.3f}; device time by "
-          f"operator:")
+          f"operator, and by kernel for the port's own:")
     for us, count, key in sorted(ops, reverse=True)[:top]:
         print(f"  {us:10.1f} us {count:4d}x  {key[:80]}")
     return idle
@@ -612,27 +783,38 @@ def time_train(trainer, state, rng, yolo, dev) -> dict:
     return out
 
 
-def card_grid(yolo, state, images, dev, **head) -> torch.Tensor:
-    """The bf16 detector's float32 grid of a uint8 batch, on the card."""
+def card_grid(yolo, state, images, dev, pallas_stem: bool = False,
+              **head) -> torch.Tensor:
+    """The bf16 detector's float32 grid of a uint8 batch, on the card;
+    with ``pallas_stem``, through B4 and the rest of the detector, as
+    ``make_detect_fn(pallas_stem=True)`` runs it."""
     from tensorflow_yolo2_torch.entries.pascal_detect_darknet import (
         build_detector,
+        stem_weights,
     )
+    from tensorflow_yolo2_torch.ops.cuda_stem import fused_detect_forward
 
     model = build_detector(yolo, state, dtype=torch.bfloat16, device=dev,
                            **head)
+    x = images.to(dev).float().div_(255.0).mul_(2.0).sub_(1.0).to(
+        torch.bfloat16)
     with torch.inference_mode():
-        return model(images.to(dev).float().div_(255.0).mul_(2.0).sub_(1.0)
-                     .to(torch.bfloat16))
+        if pallas_stem:
+            return fused_detect_forward(model, x, stem_weights(state, dev))
+        return model(x)
 
 
-def grid_rel_err(yolo, state, images, dev, **head) -> float:
-    """One image's grid, bf16 on the card against float32 on the CPU
-    (BN unfolded), as a relative norm error."""
+def grid_rel_err(yolo, state, images, dev, pallas_stem: bool = False,
+                 **head) -> float:
+    """One image's grid, bf16 on the card (through B4 with
+    ``pallas_stem``) against float32 on the CPU (BN unfolded, the stock
+    stem), as a relative norm error."""
     from tensorflow_yolo2_torch.entries.pascal_detect_darknet import (
         build_detector,
     )
 
-    on_card = card_grid(yolo, state, images[:1], dev, **head).cpu().double()
+    on_card = card_grid(yolo, state, images[:1], dev, pallas_stem,
+                        **head).cpu().double()
     model = build_detector(yolo, state, fold_bn=False, dtype=torch.float32,
                            device="cpu", **head)
     with torch.inference_mode():
@@ -728,6 +910,7 @@ def main() -> int:
     # larger w, h roots (channels 24-25, 28-29: boxes ~0.3 wide, several
     # cells at S=14) so that neighbouring boxes overlap and NMS has work
     state["detection.output.bn.bias"][[24, 25, 28, 29]] += 0.5
+    v1_state = state
     batch = images[:16]
 
     v1_detect = make_detect_fn(yolo, state, object_thresh=0.5, use_nms=True)
@@ -825,6 +1008,8 @@ def main() -> int:
         if passthrough:
             launches["decode_nms_v2"] = n_launch
             v2p_detect = detect_nms
+        else:
+            v2_state = state
         del detect_dense
 
         rel = grid_rel_err(v2cfg, state, v2_images, dev, **kw)
@@ -859,7 +1044,87 @@ def main() -> int:
     print(f"anchor real grids: the kernel matches its plain version (max "
           f"abs err {errs['decode_nms_v2']})")
 
-    # 5. the v1 training path at full width: 224², bf16 ---------------------
+    # 5. B4 and the --pallas-stem serving paths: v1 448², --v2 416² ---------
+    from tensorflow_yolo2_torch.ops import cuda_stem as cs
+
+    errs["stem"] = check_stem_kernel(dev, v1_state)
+    for head, cfg, st, imgs in (("v1", yolo, v1_state, images),
+                                ("v2", v2cfg, v2_state, v2_images)):
+        kw = {"v2": True} if head == "v2" else {}
+        detect_nms = make_detect_fn(cfg, st, object_thresh=0.5, use_nms=True,
+                                    pallas_stem=True, **kw)
+        detect_dense = make_detect_fn(cfg, st, object_thresh=0.5,
+                                      use_nms=False, pallas_stem=True, **kw)
+        cd.reset_launch_counts()
+        cs.reset_launch_counts()
+        kept = detect_nms(imgs[:16])
+        dense = detect_dense(imgs[:16])
+        torch.cuda.synchronize()
+        counts = {"stem": cs.STEM_LAUNCHES,
+                  "decode_nms": cd.DECODE_NMS_LAUNCHES,
+                  "decode_nms_v2": cd.DECODE_NMS_V2_LAUNCHES,
+                  "decode_grid": cd.DECODE_GRID_LAUNCHES}
+        print(f"{head} --pallas-stem path launches, one call with NMS and "
+              f"one without: {counts}")
+        check(counts["stem"] == 2, f"{head} --pallas-stem: B4 once a call")
+        decode = ({"decode_nms_v2": 1, "decode_nms": 0, "decode_grid": 0}
+                  if head == "v2" else
+                  {"decode_nms_v2": 0, "decode_nms": 1, "decode_grid": 1})
+        check(all(counts[k] == v for k, v in decode.items()),
+              f"{head} --pallas-stem: each decode kernel once a call")
+        n_slots = cfg.S * cfg.S * cfg.B
+        check(kept.boxes.shape == (16, K, 4) and dense.boxes.shape ==
+              (16, n_slots, 4), f"{head} --pallas-stem output shapes")
+        check(all(bool(torch.isfinite(t).all())
+                  for t in (*kept[:2], *dense[:2])),
+              f"{head} --pallas-stem finite outputs")
+        check(bool((kept.scores > 0).any()),
+              f"the {head} --pallas-stem path kept detections")
+        if head == "v1":
+            launches["stem"] = counts["stem"]
+            stem_detect = detect_nms
+        del detect_dense
+
+        rel = grid_rel_err(cfg, st, imgs, dev, pallas_stem=True, **kw)
+        grid = card_grid(cfg, st, imgs[:BATCH], dev, pallas_stem=True, **kw)
+        stock = card_grid(cfg, st, imgs[:BATCH], dev, **kw)
+        rel_stock = ((grid.double() - stock.double()).norm() /
+                     stock.double().norm()).item()
+        del stock
+        print(f"{head} --pallas-stem grid: against the float32 CPU forward "
+              f"{rel:.3e} (bound {GRID_REL_TOL}), against the stock bf16 "
+              f"grid at batch {BATCH} {rel_stock:.3e} (bound "
+              f"{STEM_PATH_REL_TOL}), relative norm")
+        check(rel <= GRID_REL_TOL,
+              f"{head} --pallas-stem grid agrees with the CPU forward")
+        check(rel_stock <= STEM_PATH_REL_TOL,
+              f"{head} --pallas-stem grid agrees with the stock grid")
+        for thresh in (0.05, 0.5):
+            for class_aware in (True, False):
+                if head == "v2":
+                    errs["decode_nms_v2"] = max(
+                        errs["decode_nms_v2"], compare_kept(
+                            cd.decode_nms_fused(grid, cfg, thresh, 0.5, K,
+                                                class_aware),
+                            cd.decode_nms_v2_plain(grid, cfg, thresh, 0.5, K,
+                                                   class_aware),
+                            "decode_nms_v2"))
+                else:
+                    errs["decode_nms"] = max(errs["decode_nms"], compare_kept(
+                        cd.decode_nms_fused(grid, cfg, thresh, 0.5, K,
+                                            class_aware),
+                        cd.decode_nms_plain(grid, cfg, thresh, 0.5, K,
+                                            class_aware)))
+            if head == "v1":
+                errs["decode_grid"] = max(errs["decode_grid"], compare_dense(
+                    cd.decode_grid_fused(grid, cfg, thresh),
+                    cd.decode_grid_plain(grid, cfg, thresh)))
+        del grid
+        torch.cuda.synchronize()
+    print(f"--pallas-stem real grids: the decode kernels match their plain "
+          f"versions (max abs err {errs})")
+
+    # 6. the v1 training path at full width: 224², bf16 ---------------------
     from tensorflow_yolo2_torch.ops import cuda_pool
 
     tyolo = YoloConfig()  # the reference's: 224², S=7, B=2, C=20
@@ -891,11 +1156,14 @@ def main() -> int:
         tyolo, images24, labels24, dev,
         {k: v.cpu() for k, v in tstate.model.state_dict().items()})
 
-    # 6. times ---------------------------------------------------------------
+    # 7. times ---------------------------------------------------------------
     print(f"times on {card}:")
     path = {
         "v1_448": time_path(v1_detect, images, dev, "v1 448²",
                             conv_flops_per_image(448, yolo.cell_channels)),
+        "v1_448_pallas_stem": time_path(
+            stem_detect, images, dev, "v1 448² --pallas-stem",
+            conv_flops_per_image(448, yolo.cell_channels)),
         "v2p_416": time_path(v2p_detect, v2_images, dev, "v2p 416²",
                              conv_flops_per_image(416, v2cfg.cell_channels,
                                                   passthrough=True)),
@@ -966,6 +1234,18 @@ def main() -> int:
           f"max_pool2d_with_indices_backward {total['library_ms'] * 1e3:.2f}"
           f" us, plain {total['plain_ms']:.3f} ms, bound "
           f"{total['bound_ms'] * 1e3:.2f} us")
+    st = time_stem(dev, yolo, v1_state, images[:BATCH])
+    kernels.append({
+        "name": "stem", "route": "cuda", "source": STEM_SOURCE,
+        "replaces": TPU_KERNELS["stem"], "launches": launches["stem"],
+        "max_abs_err": errs["stem"], "library_ms": None, **st})
+    print(f"stem (B4), bf16 {tuple(st['shape'])}: kernel {st['ms']:.3f} ms "
+          f"(graph replay), the stock stem (conv1, bias, leaky, pool, "
+          f"conv2, bias, leaky, pool) {st['stock_stem_ms']:.3f} ms, plain "
+          f"{st['plain_ms']:.3f} ms; bound {st['bound_ms']:.3f} ms "
+          f"({st['bound_by']}: bytes {st['bytes_bound_ms']:.3f} ms, "
+          f"operations {st['ops_bound_ms']:.3f} ms); no single PyTorch call "
+          f"computes it")
     print(json.dumps({"path": path, "card": card}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -14,6 +14,10 @@ the dense decode. Three heads:
 - ``--v2 --passthrough``: ``Darknet19DetectorV2``, the YOLOv2
   architecture with the reorg route.
 
+``--pallas-stem`` (v1 or ``--v2``) runs conv1 + pool + conv2 + pool as one
+CUDA kernel, ``ops.cuda_stem.fused_stem`` (B4), which keeps the conv1
+activation out of device memory; the folded detector runs on from there.
+
 Weights come from a ``.npz`` written by ``convert.save_npz`` (a flax
 params / batch_stats pair); reading Orbax snapshots or TF checkpoints
 needs JAX or TensorFlow and is not part of this package. An anchor head
@@ -50,6 +54,11 @@ from tensorflow_yolo2_torch.ops.boxes import Detections, decode_grid_v2
 from tensorflow_yolo2_torch.ops.cuda_decode import (
     decode_grid_fused,
     decode_nms_fused,
+)
+from tensorflow_yolo2_torch.ops.cuda_stem import (
+    StemWeights,
+    fused_detect_forward,
+    pack_stem_weights,
 )
 from tensorflow_yolo2_torch.utils.device import resolve_device
 
@@ -96,6 +105,21 @@ def build_detector(yolo: YoloConfig, state_dict: Mapping[str, torch.Tensor],
                     memory_format=torch.channels_last)
 
 
+def stem_weights(state_dict: Mapping[str, torch.Tensor],
+                 device: str | torch.device) -> StemWeights:
+    """The folded conv1 and conv2 of a port state dict, packed once for
+    ``ops.cuda_stem`` on ``device``. BN is folded here in float32 when the
+    state dict carries it, so the stem keeps float32 biases whatever type
+    the detector is cast to."""
+    if any(".bn." in k for k in state_dict):
+        state_dict = fold_params(state_dict)
+    conv1, conv2 = ((state_dict[f"backbone.{n}.conv.weight"]
+                     .permute(2, 3, 1, 0),  # OIHW → HWIO
+                     state_dict[f"backbone.{n}.conv.bias"])
+                    for n in ("conv1", "conv2"))
+    return pack_stem_weights(*conv1, *conv2, device=device)
+
+
 def make_detect_fn(yolo: YoloConfig, params_or_state_dict, batch_stats=None,
                    object_thresh: float = 0.5, use_nms: bool = False,
                    nms_iou: float = 0.5, fold_bn: bool = True,
@@ -114,6 +138,11 @@ def make_detect_fn(yolo: YoloConfig, params_or_state_dict, batch_stats=None,
     [-1, 1] or raw uint8 (normalized on the device as x/255·2−1), as a
     tensor or numpy array, and returns ``Detections`` on the device: K=32
     kept slots per image with ``use_nms``, else the dense S·S·B slots.
+
+    ``pallas_stem`` runs the first two conv + pool stages through
+    ``ops.cuda_stem`` (the CUDA kernel B4 on the card, bf16 only) and the
+    rest of the folded detector after them; it takes the v1 or ``v2``
+    head with the pool downsample and BN folding.
     """
     if v2 != yolo.per_slot_classes:
         raise ValueError(
@@ -124,22 +153,37 @@ def make_detect_fn(yolo: YoloConfig, params_or_state_dict, batch_stats=None,
     if passthrough and not v2:
         raise ValueError("passthrough is the YOLOv2 reorg head; it "
                          "requires v2=True (the anchor layout)")
-    for name, flag in (("pallas_stem", pallas_stem), ("int8", int8)):
-        if flag:
-            raise NotImplementedError(f"{name} serving is not ported yet")
+    if pallas_stem:
+        # checked before the int8 refusal below, so that pallas_stem with
+        # int8 is refused as a combination, as the JAX package refuses it
+        if passthrough or int8:
+            raise ValueError("--pallas-stem covers the sequential Darknet19 "
+                             "chain (no passthrough route, no int8)")
+        if downsample != "pool":
+            raise ValueError("--pallas-stem fuses the pool-based stem; the "
+                             "stride variant has no pools to fuse")
+        if not fold_bn:
+            raise ValueError("--pallas-stem serves the BN-folded chain; "
+                             "fold_bn=True is required")
+    if int8:
+        raise NotImplementedError("int8 serving is not ported yet")
     device = resolve_device(device)
-    model = build_detector(yolo, as_state_dict(params_or_state_dict,
-                                               batch_stats),
-                           fold_bn=fold_bn, dtype=dtype, device=device,
-                           v2=v2, passthrough=passthrough,
+    state_dict = as_state_dict(params_or_state_dict, batch_stats)
+    model = build_detector(yolo, state_dict, fold_bn=fold_bn, dtype=dtype,
+                           device=device, v2=v2, passthrough=passthrough,
                            downsample=downsample)
+    stem = stem_weights(state_dict, device) if pallas_stem else None
 
     @torch.inference_mode()
     def detect(images) -> Detections:
         images = torch.as_tensor(images).to(device)
         if images.dtype == torch.uint8:
             images = images.float() / 255.0 * 2.0 - 1.0
-        grid = model(images.to(dtype))
+        images = images.to(dtype)
+        if pallas_stem:
+            grid = fused_detect_forward(model, images.contiguous(), stem)
+        else:
+            grid = model(images)
         if use_nms:
             return decode_nms_fused(grid, yolo, object_thresh, nms_iou,
                                     max_outputs=32)
@@ -208,6 +252,9 @@ def main(argv: list[str] | None = None) -> int:
     p.add_argument("--downsample", default="pool", choices=["pool", "stride"],
                    help="'stride' serves weights trained with "
                         "pascal_train_darknet --downsample stride")
+    p.add_argument("--pallas-stem", action="store_true",
+                   help="the first two conv + pool stages as one fused "
+                        "CUDA kernel (bf16; not with --passthrough)")
     p.add_argument("--device", default=None,
                    help="torch device (default: cuda)")
     args = p.parse_args(argv)
@@ -231,6 +278,7 @@ def main(argv: list[str] | None = None) -> int:
                             use_nms=args.nms, fold_bn=not args.no_fold_bn,
                             device=args.device, v2=args.v2,
                             passthrough=args.passthrough,
+                            pallas_stem=args.pallas_stem,
                             downsample=args.downsample)
     dets = detect(image_read(args.image, yolo.image_size)[None])
     boxes, scores, classes = (t[0].cpu().numpy() for t in dets)

@@ -34,6 +34,7 @@ _DARKNET19_SCHEDULE = (
     (3, 512), (1, 256), (3, 512), (1, 256), (3, 512), "M",
     (3, 1024), (1, 512), (3, 1024), (1, 512), (3, 1024),
 )
+_STEM_ITEMS = 4  # conv1, pool, conv2, pool: what the fast stems compute
 
 
 class Darknet19Backbone(nn.Module):
@@ -65,12 +66,20 @@ class Darknet19Backbone(nn.Module):
                                    stride=stride, bn_momentum=bn_momentum))
             in_ch, stride = f, 1
 
-    def forward(self, x: torch.Tensor, return_mid: bool = False):
+    def forward(self, x: torch.Tensor, return_mid: bool = False,
+                after_stem: bool = False):
         """``return_mid=True`` also returns ``mid``, the (N, 512, H/16,
         W/16) map that feeds the last downsample: the YOLOv2
-        passthrough source."""
-        conv_i, mid = 0, None
-        for item in _DARKNET19_SCHEDULE:
+        passthrough source. ``after_stem=True`` takes the (N, 64, H/4,
+        W/4) map after the second pool, as a fast stem computes it, and
+        runs conv3 on."""
+        schedule, conv_i, mid = _DARKNET19_SCHEDULE, 0, None
+        if after_stem:
+            if self.downsample != "pool":
+                raise ValueError("after_stem follows the pool-based stem; "
+                                 "the stride variant has no pools")
+            schedule, conv_i = schedule[_STEM_ITEMS:], 2
+        for item in schedule:
             if item == "M":
                 mid = x
                 if self.downsample == "pool":

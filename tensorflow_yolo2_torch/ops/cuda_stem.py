@@ -1,0 +1,220 @@
+"""The fused Darknet19 stem: a CUDA kernel and its plain PyTorch version
+(port of tensorflow_yolo2_tpu/ops/pallas_stem.py).
+
+``fused_stem`` computes the first two stages of the folded Darknet19
+trunk, conv1 3×3 3→32 + bias + leaky + 2×2 max pool, then conv2 3×3
+32→64 + bias + leaky + 2×2 max pool, SAME padding, on an NHWC image batch
+(N, H, W, 3) with H and W multiples of 4, into (N, H/4, W/4, 64). On the
+card it is the kernel of ``csrc/stem.cu`` (B4, replacing ``_stem_kernel``):
+one block a tile of 8×16 output pixels, the stage-1 map kept in shared
+memory, both convs on the tensor cores. Its work, 2.2 GFLOP an image at
+448², bounds it, not its bytes (the source says more).
+
+The kernel rounds where ``_stem_kernel`` rounds: bf16 inputs and weights,
+float32 sums, bias and leaky ``max(0.1·x, x)`` in float32, the stage-1
+map rounded to the working type once and the output once.
+``fused_stem_plain`` is the same function in plain PyTorch with those
+rounding points (the XLA composition ``stem_reference`` rounds each conv
+output as well, and is kept for tests). A wrapper takes the plain version
+only for a tensor on the CPU, in any floating type; on a CUDA tensor it
+launches the kernel, which takes bfloat16 only, or raises.
+``STEM_LAUNCHES`` counts kernel launches.
+
+``pack_stem_weights`` builds the kernel's operands once: the HWIO kernels
+reshaped to (9·C, O), k = (dy·3 + dx)·C + c, conv1's K zero-padded from 27
+to 32, in the order of ``mma.sync``'s B fragments, and float32 biases.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+from typing import NamedTuple
+
+import torch
+import torch.nn.functional as F
+
+from tensorflow_yolo2_torch.models.fast_stem import detect_tail
+from tensorflow_yolo2_torch.models.layers import leaky_relu
+from tensorflow_yolo2_torch.utils import cuda_build
+
+STEM_LAUNCHES = 0
+
+C1, C2 = 32, 64
+
+
+def reset_launch_counts() -> None:
+    global STEM_LAUNCHES
+    STEM_LAUNCHES = 0
+
+
+@functools.cache
+def _lib() -> ctypes.CDLL:
+    lib = cuda_build.load("stem")
+    ptr, i32 = ctypes.c_void_p, ctypes.c_int
+    lib.tfy2_fused_stem.argtypes = [ptr, ptr, ptr, ptr, ptr, ptr, i32, i32,
+                                    i32, ptr]
+    lib.tfy2_fused_stem.restype = i32
+    return lib
+
+
+class StemWeights(NamedTuple):
+    """The stem's weights: HWIO kernels and biases (float32) for the plain
+    version, and the kernel's bf16 B fragments."""
+    w1: torch.Tensor  # (3, 3, 3, 32)
+    b1: torch.Tensor  # (32,)
+    w2: torch.Tensor  # (3, 3, 32, 64)
+    b2: torch.Tensor  # (64,)
+    w1_frags: torch.Tensor  # (2, 4, 32, 4) bf16
+    w2_frags: torch.Tensor  # (18, 8, 32, 4) bf16
+
+
+def mma_fragments(w: torch.Tensor) -> torch.Tensor:
+    """A (3, 3, C, O) kernel as the B operand of ``mma.sync.m16n8k16``:
+    the (9C, O) matrix, K zero-padded to a multiple of 16, cut into K
+    steps of 16 and N tiles of 8, each tile as its 32 lanes hold it. Lane
+    g·4 + t of tile (s, j) holds rows 16s + 2t, +1, +8, +9 of column
+    8j + g, in that order. Returns (K/16, O/8, 32, 4) bfloat16."""
+    kh, kw, c, o = w.shape
+    b = w.reshape(kh * kw * c, o).to(torch.bfloat16)
+    k = -(-b.shape[0] // 16) * 16
+    b = F.pad(b, (0, 0, 0, k - b.shape[0]))
+    # k = 16s + 8·half + 2t + pair, n = 8j + g → (s, j, g, t, half, pair)
+    b = b.reshape(k // 16, 2, 4, 2, o // 8, 8).permute(0, 4, 5, 2, 1, 3)
+    return b.reshape(k // 16, o // 8, 32, 4).contiguous()
+
+
+def pack_stem_weights(w1: torch.Tensor, b1: torch.Tensor, w2: torch.Tensor,
+                      b2: torch.Tensor, device=None) -> StemWeights:
+    """The folded conv1 (3, 3, 3, 32) and conv2 (3, 3, 32, 64) HWIO kernels
+    and their biases as ``StemWeights`` on ``device`` (default: w1's)."""
+    w1, b1, w2, b2 = (torch.as_tensor(t) for t in (w1, b1, w2, b2))
+    if tuple(w1.shape) != (3, 3, 3, C1) or tuple(b1.shape) != (C1,) or \
+            tuple(w2.shape) != (3, 3, C1, C2) or tuple(b2.shape) != (C2,):
+        raise ValueError(
+            f"the stem takes w1 (3, 3, 3, 32), b1 (32,), w2 (3, 3, 32, 64), "
+            f"b2 (64,); got {tuple(w1.shape)}, {tuple(b1.shape)}, "
+            f"{tuple(w2.shape)}, {tuple(b2.shape)}")
+    device = w1.device if device is None else torch.device(device)
+    w1, b1, w2, b2 = (t.to(device=device, dtype=torch.float32)
+                      for t in (w1, b1, w2, b2))
+    return StemWeights(w1, b1, w2, b2, mma_fragments(w1), mma_fragments(w2))
+
+
+def _check_images(x: torch.Tensor) -> None:
+    if x.dim() != 4 or x.shape[3] != 3 or x.shape[1] % 4 or x.shape[2] % 4:
+        raise ValueError(f"the stem takes (N, H, W, 3) images with H and W "
+                         f"multiples of 4, got {tuple(x.shape)}")
+    if not x.is_floating_point():
+        raise TypeError(f"the stem takes floating images, got {x.dtype}")
+
+
+_PACKED = {"b1": ((C1,), torch.float32), "b2": ((C2,), torch.float32),
+           "w1_frags": ((2, C1 // 8, 32, 4), torch.bfloat16),
+           "w2_frags": ((18, C2 // 8, 32, 4), torch.bfloat16)}
+
+
+def _check_packed(weights: StemWeights, device: torch.device) -> None:
+    """The kernel's operands as ``pack_stem_weights`` makes them."""
+    for name, (shape, dtype) in _PACKED.items():
+        t = getattr(weights, name)
+        if tuple(t.shape) != shape or t.dtype != dtype or \
+                t.device != device or not t.is_contiguous():
+            raise ValueError(
+                f"weights.{name} must be a contiguous {shape} {dtype} "
+                f"tensor on {device} (pack_stem_weights), got "
+                f"{tuple(t.shape)} {t.dtype} on {t.device}")
+
+
+def fused_stem_plain(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
+                     w2: torch.Tensor, b2: torch.Tensor) -> torch.Tensor:
+    """Plain version of ``fused_stem`` in x's type: the kernels rounded to
+    it; the convs, bias, leaky and pool in float32 (float64 for float64
+    x); the stage-1 map and the output rounded to x's type."""
+    _check_images(x)
+    dtype = x.dtype
+    acc = torch.promote_types(dtype, torch.float32)
+
+    def stage(y: torch.Tensor, w: torch.Tensor, b: torch.Tensor):
+        w = w.to(device=y.device, dtype=dtype).to(acc).permute(3, 2, 0, 1)
+        z = F.max_pool2d(F.conv2d(y.to(acc), w, padding=1), 2)
+        return leaky_relu(z + b.to(device=y.device, dtype=acc)[:, None, None]
+                          ).to(dtype)
+
+    y = stage(stage(x.permute(0, 3, 1, 2), w1, b1), w2, b2)
+    return y.permute(0, 2, 3, 1).contiguous()
+
+
+def stem_reference(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
+                   w2: torch.Tensor, b2: torch.Tensor,
+                   dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
+    """The XLA composition's counterpart, for tests: each conv output
+    rounded to ``dtype`` before the bias, then leaky in float32, rounded
+    again, and the pool."""
+    def block(y: torch.Tensor, w: torch.Tensor, b: torch.Tensor):
+        w = w.to(dtype).float().permute(3, 2, 0, 1)
+        z = F.conv2d(y.float(), w, padding=1).to(dtype)
+        z = leaky_relu(z.float() + b.float()[:, None, None]).to(dtype)
+        return F.max_pool2d(z, 2, ceil_mode=True)
+
+    y = block(block(x.to(dtype).permute(0, 3, 1, 2), w1, b1), w2, b2)
+    return y.permute(0, 2, 3, 1).contiguous()
+
+
+def fused_stem(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
+               w2: torch.Tensor, b2: torch.Tensor) -> torch.Tensor:
+    """The first two Darknet19 stages of x (N, H, W, 3), H and W multiples
+    of 4, with the HWIO kernels w1 (3, 3, 3, 32), w2 (3, 3, 32, 64) and
+    biases b1, b2: (N, H/4, W/4, 64) in x's type. Packs the weights on
+    every call; a caller that keeps them packs them once with
+    ``pack_stem_weights`` and calls ``fused_stem_packed``."""
+    return fused_stem_packed(x, pack_stem_weights(w1, b1, w2, b2, x.device))
+
+
+def fused_stem_packed(x: torch.Tensor, weights: StemWeights) -> torch.Tensor:
+    """``fused_stem`` with weights packed by ``pack_stem_weights``. On the
+    card x must be bfloat16 and contiguous, with the weights on its
+    device."""
+    global STEM_LAUNCHES
+    _check_images(x)
+    if x.device.type == "cpu":
+        return fused_stem_plain(x, weights.w1, weights.b1, weights.w2,
+                                weights.b2)
+    if x.device.type != "cuda":
+        raise ValueError(f"unsupported device {x.device}")
+    if x.dtype != torch.bfloat16:
+        raise TypeError(f"the CUDA stem takes bfloat16 images, got {x.dtype} "
+                        f"(float32 is not ported to the card)")
+    if not x.is_contiguous():
+        raise ValueError("the CUDA stem reads a contiguous NHWC batch")
+    _check_packed(weights, x.device)
+    n, h, w, _ = x.shape
+    out = torch.empty((n, h // 4, w // 4, C2), dtype=torch.bfloat16,
+                      device=x.device)
+    if n == 0:
+        return out
+    with torch.cuda.device(x.device):
+        err = _lib().tfy2_fused_stem(
+            x.data_ptr(), weights.w1_frags.data_ptr(), weights.b1.data_ptr(),
+            weights.w2_frags.data_ptr(), weights.b2.data_ptr(),
+            out.data_ptr(), n, h, w,
+            ctypes.c_void_p(torch.cuda.current_stream(x.device).cuda_stream))
+    if err != 0:
+        raise RuntimeError(f"tfy2_fused_stem launch failed with cudaError_t "
+                           f"{err}")
+    STEM_LAUNCHES += 1
+    return out
+
+
+def fused_detect_forward(detector: torch.nn.Module, images: torch.Tensor,
+                         weights: StemWeights) -> torch.Tensor:
+    """A folded ``Darknet19Detector``'s forward with ``fused_stem`` on the
+    first two conv + pool stages and the detector's own modules after it
+    (``models.fast_stem.detect_tail``): NHWC images in the detector's type
+    → the (N, S, S, C) float32 grid. The counterpart of
+    ``pallas_detect_forward``; its ``linear_output`` is the detector's
+    ``bn_on_output=False``. ``weights`` are the detector's conv1 and conv2,
+    packed once from the float32 folded weights
+    (``entries.pascal_detect_darknet.stem_weights``), so that bf16 serving
+    keeps float32 biases."""
+    return detect_tail(detector, fused_stem_packed(images, weights))

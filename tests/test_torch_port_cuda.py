@@ -14,7 +14,10 @@ version and to torch's autograd of ``F.max_pool2d``: it copies dout or
 writes 0. A float32 train step on the card, TF32 off, against float64 on the
 CPU: loss rtol 1e-4, each gradient 5e-2 and all gradients 1e-2
 relative norm (chip_smoke's bounds: float32 rounding alone puts the
-early BatchNorm gradients up to ~1e-2 from float64 on any device).
+early BatchNorm gradients up to ~1e-2 from float64 on any device). The
+fused stem (B4) against its plain version: chip_smoke.compare_stem's
+bounds, at least 99.9% bit-equal, each difference within one bf16 ulp of
+the value or of the output's RMS, relative norm 1e-4.
 """
 
 import pytest
@@ -28,7 +31,7 @@ from tensorflow_yolo2_torch.models.darknet import (
     Darknet19DetectorV2,
     randomize_,
 )
-from tensorflow_yolo2_torch.ops import cuda_decode, cuda_pool
+from tensorflow_yolo2_torch.ops import cuda_decode, cuda_pool, cuda_stem
 
 pytestmark = pytest.mark.cuda
 K = 32
@@ -190,6 +193,76 @@ def no_tf32():
     yield
     (torch.backends.cudnn.allow_tf32,
      torch.backends.cuda.matmul.allow_tf32) = saved
+
+
+@pytest.mark.parametrize("shape", [(2, 32, 32), (1, 56, 64),
+                                   (8, 448, 448)])
+def test_stem_kernel_matches_plain(card, no_tf32, shape):
+    weights = cuda_stem.pack_stem_weights(
+        *chip_smoke.random_stem_weights(torch.Generator().manual_seed(0)),
+        device=card)
+    x = (torch.rand(shape + (3,), device=card,
+                    generator=torch.Generator(device=card).manual_seed(1))
+         * 2 - 1).to(torch.bfloat16)
+    cuda_stem.reset_launch_counts()
+    got = cuda_stem.fused_stem_packed(x, weights)
+    assert cuda_stem.STEM_LAUNCHES == 1
+    _, unequal = chip_smoke.compare_stem(
+        got, cuda_stem.fused_stem_plain(x, *weights[:4]), f"{shape}")
+    if shape[1] == 448:  # a share of a few images' outputs, not of one
+        assert unequal <= (1 - chip_smoke.STEM_BIT_SHARE) * got.numel()
+    torch.cuda.synchronize()
+
+
+def test_stem_kernel_edges_and_shapes(card, no_tf32):
+    """All 8 STEM_SHAPES with both weight sets (the batch of 256 too),
+    and all-zero images with b1 > 0 (SAME zeros of the stage-1 map)."""
+    state = randomize_(Darknet19Detector(),
+                       torch.Generator().manual_seed(0)).state_dict()
+    assert chip_smoke.check_stem_kernel(card, state) < 0.1
+
+
+def test_stem_kernel_never_falls_back(card):
+    weights = cuda_stem.pack_stem_weights(
+        *chip_smoke.random_stem_weights(torch.Generator().manual_seed(0)),
+        device=card)
+    x = torch.zeros((1, 32, 32, 3), device=card)
+    with pytest.raises(TypeError, match="bfloat16"):
+        cuda_stem.fused_stem_packed(x, weights)
+    with pytest.raises(TypeError, match="bfloat16"):
+        cuda_stem.fused_stem(x, *weights[:4])
+    with pytest.raises(ValueError, match="contiguous"):
+        cuda_stem.fused_stem_packed(
+            torch.zeros((1, 32, 32, 3), device=card, dtype=torch.bfloat16)
+            .transpose(1, 2), weights)
+    with pytest.raises(ValueError, match="multiples of 4"):
+        cuda_stem.fused_stem_packed(
+            torch.zeros((1, 30, 32, 3), device=card, dtype=torch.bfloat16),
+            weights)
+    with pytest.raises(ValueError, match="pack_stem_weights"):
+        cuda_stem.fused_stem_packed(
+            torch.zeros((1, 32, 32, 3), device=card, dtype=torch.bfloat16),
+            cuda_stem.pack_stem_weights(*weights[:4], device="cpu"))
+
+
+def test_detect_runs_through_the_stem_kernel(card):
+    images = torch.randint(0, 256, (2, 64, 64, 3), dtype=torch.uint8,
+                           generator=torch.Generator().manual_seed(1))
+    cuda_decode.reset_launch_counts()
+    cuda_stem.reset_launch_counts()
+    for cfg, model, kw in (
+            (YoloConfig(S=2, image_size=64), Darknet19Detector(), {}),
+            (yolo_v2_config(64), Darknet19Detector(125, bn_on_output=False),
+             {"v2": True})):
+        state = randomize_(model, torch.Generator().manual_seed(0)
+                           ).state_dict()
+        out = make_detect_fn(cfg, state, object_thresh=0.05, use_nms=True,
+                             pallas_stem=True, **kw)(images)
+        assert out.scores.device.type == "cuda"
+        assert bool(torch.isfinite(out.scores).all())
+    assert cuda_stem.STEM_LAUNCHES == 2
+    assert cuda_decode.DECODE_NMS_LAUNCHES == 1
+    assert cuda_decode.DECODE_NMS_V2_LAUNCHES == 1
 
 
 def test_train_step_matches_cpu(card, no_tf32):
