@@ -4,7 +4,8 @@
     python3 chip_smoke.py
 
 1. Prints the card's name and power limit, the torch and CUDA versions, and
-   builds the CUDA kernels from tensorflow_yolo2_torch/csrc with nvcc.
+   builds the CUDA kernels from tensorflow_yolo2_torch/csrc with nvcc
+   (failing if ptxas serializes B4's wgmma pipeline).
 2. Holds each kernel against its plain PyTorch version on the card, on
    seeded synthetic grids with exact score ties and overlapping same- and
    cross-class boxes, batch 256, class-aware NMS on and off: the v1
@@ -54,6 +55,16 @@
    each kernel's bound, as one JSON line ``{"kernels": [...]}``.
 8. Ends with ``{"ok": true, "device": {...}}``.
 
+    python3 chip_smoke.py --stem-ab [OTHER_STEM_CU ...]
+
+runs no smoke: it builds csrc/stem.cu (B4) and the other stem sources
+given, each whole, with each phase of a tile (the input load, conv1,
+conv2) left out and with each phase alone, holds each whole source to
+B4's plain version, and times them all in turns at batch 256, 448²
+(``stem_ab``). No profiler sees inside a kernel on the card, so this is
+how the phases are timed; an older B4 to compare with is written out with
+``git show <commit>:tensorflow_yolo2_torch/csrc/stem.cu``.
+
 Each path is driven with the launch counts set to 0 just before it and
 read just after; the ``launches`` of a kernel are those of its path.
 Exits non-zero, printing no result, without a CUDA device or if any phase
@@ -62,12 +73,17 @@ fails. Float32 checks on the card run with TF32 off.
 
 from __future__ import annotations
 
+import argparse
+import contextlib
+import ctypes
 import itertools
 import json
 import math
+import os
 import subprocess
 import sys
 import time
+from unittest import mock
 
 import numpy as np
 import torch
@@ -366,9 +382,10 @@ def random_stem_weights(gen: torch.Generator) -> tuple[torch.Tensor, ...]:
         ((64,), 0.2)))
 
 
-def check_stem_kernel(dev: torch.device, state: dict) -> float:
+def check_stem_kernel(dev: torch.device, state: dict | None) -> float:
     """B4 against ``fused_stem_plain`` on the card at STEM_SHAPES, with
-    random weights and with the folded conv1 / conv2 of ``state``; then
+    random weights and, given ``state``, the folded conv1 / conv2 of its
+    detector; then
     all-zero images with b1 > 0, where SAME padding of the stage-1 map
     with zeros (not leaky(b1)) makes every edge output differ from the
     interior. Returns the largest absolute difference."""
@@ -380,8 +397,9 @@ def check_stem_kernel(dev: torch.device, state: dict) -> float:
     gen = torch.Generator().manual_seed(7)
     xgen = torch.Generator(device=dev).manual_seed(8)
     sets = {"random": cs.pack_stem_weights(*random_stem_weights(gen),
-                                           device=dev),
-            "detector": stem_weights(state, dev)}
+                                           device=dev)}
+    if state is not None:
+        sets["detector"] = stem_weights(state, dev)
     err = 0.0
     for name, weights in sets.items():
         unequal = total = 0
@@ -438,9 +456,9 @@ def time_stem(dev: torch.device, yolo, state: dict, images) -> dict:
     )
     from tensorflow_yolo2_torch.models.layers import max_pool
     from tensorflow_yolo2_torch.ops import cuda_stem as cs
+    from tensorflow_yolo2_torch.utils.device import device_normalize
 
-    x = images.to(dev).float().div_(255.0).mul_(2.0).sub_(1.0).to(
-        torch.bfloat16)
+    x = device_normalize(images.to(dev)).to(torch.bfloat16)
     weights = stem_weights(state, dev)
     bk = build_detector(yolo, state, dtype=torch.bfloat16,
                         device=dev).backbone
@@ -457,6 +475,141 @@ def time_stem(dev: torch.device, yolo, state: dict, images) -> dict:
             "ops_bound_ms": t_ops,
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
             "shape": [n, h, w, 3]}
+
+
+# ``--stem-ab``: B4's sources built and timed side by side. A phase of a
+# tile's work in a stem source is the block that starts at its comment and
+# ends at the first line "    }" after it; a copy without it computes a
+# wrong output and is only timed.
+STEM_PHASES = {"load": "    // input patch:", "conv1": "    // stage 1:",
+               "conv2": "    // stage 2:"}
+AB_ROUNDS = 4  # rounds of timing, in turns (A B ... B A A B ...)
+# what ptxas prints where a wgmma pipeline cannot stand as written: B4
+# would run, slower, and still pass
+PIPELINE_LOST = ("serialized", "is injected")
+
+
+def without_phases(text: str, phases) -> str:
+    """The stem source ``text`` with the named phases left out."""
+    lines = text.split("\n")
+    for phase in phases:
+        first = next(i for i, line in enumerate(lines)
+                     if line.startswith(STEM_PHASES[phase]))
+        del lines[first:lines.index("    }", first) + 1]
+    return "\n".join(lines)
+
+
+def stem_variants(sources: list[str], where: str) -> list[dict]:
+    """Each stem source whole, with each phase left out and with each
+    phase alone; the copies are written to ``where``."""
+    os.makedirs(where, exist_ok=True)
+    variants = []
+    for src in sources:
+        with open(src) as f:
+            text = f.read()
+        base = os.path.basename(src)[:-3]
+        for left_out in [(), *((p,) for p in STEM_PHASES),
+                         *(tuple(q for q in STEM_PHASES if q != p)
+                           for p in STEM_PHASES)]:
+            if len(left_out) == 2:
+                alone = next(p for p in STEM_PHASES if p not in left_out)
+                name = f"{base}, {alone} alone"
+            else:
+                name = base + "".join(f" -{p}" for p in left_out)
+            copy = src
+            if left_out:
+                copy = os.path.join(where, f"{base}-no-{'-'.join(left_out)}.cu")
+                with open(copy, "w") as f:
+                    f.write(without_phases(text, left_out))
+            # a source without wgmma (B4 before it) reads conv2's weights
+            # as mma.sync fragments
+            variants.append({"name": name, "source": src, "build": copy,
+                             "left_out": list(left_out),
+                             "wgmma": "wgmma.mma_async" in text})
+    return variants
+
+
+@contextlib.contextmanager
+def stem_build(v: dict):
+    """``cuda_stem``'s wrapper, on the card, launching the variant's
+    library, with conv2's weights packed in the layout it reads."""
+    from tensorflow_yolo2_torch.ops import cuda_stem as cs
+    from tensorflow_yolo2_torch.utils import cuda_build
+
+    lib = cs.bind(ctypes.CDLL(cuda_build.library_path(v["build"])))
+    with contextlib.ExitStack() as stack:
+        stack.enter_context(mock.patch.object(cs, "_lib", lambda: lib))
+        if not v["wgmma"]:
+            stack.enter_context(mock.patch.object(
+                cs, "wgmma_tiles", lambda w: cs.mma_fragments(w).view(
+                    18, cs.C2 // 8, 2, 8, 8)))
+        yield
+
+
+def stem_ab(sources: list[str], card: str) -> int:
+    """Builds every variant of ``stem_variants`` at once and prints what
+    ptxas says; holds each whole source to the plain version as
+    ``check_stem_kernel`` does (random weights); times every variant at
+    batch 256, 448², bf16 (CUDA-graph replays) in AB_ROUNDS rounds, in
+    turns, on the same seeded images and weights. Prints a line for each
+    variant, then one JSON object. Returns 1 if a whole source fails its
+    check or loses its wgmma pipeline, else 0."""
+    from tensorflow_yolo2_torch.ops import cuda_stem as cs
+    from tensorflow_yolo2_torch.utils import cuda_build
+
+    dev = torch.device("cuda")
+    variants = stem_variants(sources, os.path.join(cuda_build.BUILD_DIR,
+                                                   "ab"))
+    t0 = time.perf_counter()
+    logs = cuda_build.build([v["build"] for v in variants])
+    print(f"build: {time.perf_counter() - t0:.1f} s for {len(variants)} "
+          f"variants")
+    ok = True
+    for v in variants:
+        print(f"[{v['name']}: {v['build']}]\n{logs[v['build']]}", end="")
+        v["pipeline_lost"] = any(w in logs[v["build"]]
+                                 for w in PIPELINE_LOST)
+        v["check"] = None
+        if not v["left_out"]:
+            with stem_build(v):
+                try:
+                    check_stem_kernel(dev, None)
+                    v["check"] = True
+                except RuntimeError as e:
+                    print(f"{v['name']}: {e}")
+                    v["check"] = False
+            ok &= v["check"] and not v["pipeline_lost"]
+
+    n, h, w = BATCH, 448, 448
+    raw = random_stem_weights(torch.Generator().manual_seed(0))
+    x = (torch.rand((n, h, w, 3), device=dev,
+                    generator=torch.Generator(device=dev).manual_seed(1))
+         * 2 - 1).to(torch.bfloat16)
+    for v in variants:
+        with stem_build(v):
+            v["weights"] = cs.pack_stem_weights(*raw, device=dev)
+        v["runs_ms"] = []
+    for r in range(AB_ROUNDS):
+        for v in (variants if r % 2 == 0 else variants[::-1]):
+            with stem_build(v), torch.inference_mode():
+                v["runs_ms"].append(graph_ms(
+                    lambda: cs.fused_stem_packed(x, v["weights"]), 20))
+    bound = max(stem_bound(n, h, w))
+    rows = []
+    for v in variants:
+        ms = sum(v["runs_ms"]) / len(v["runs_ms"])
+        print(f"{v['name']}: {ms:.4f} ms ("
+              + ", ".join(f"{t:.4f}" for t in v["runs_ms"])
+              + f"; bound {bound:.3f} ms, {ms / bound:.2f}x)"
+              + ("" if v["check"] is None else
+                 ", check " + ("ok" if v["check"] else "FAILED"))
+              + (", wgmma pipeline LOST" if v["pipeline_lost"] else ""))
+        rows.append({k: v[k] for k in ("name", "source", "left_out",
+                                       "runs_ms", "check", "pipeline_lost")}
+                    | {"ms": ms})
+    print(json.dumps({"card": card, "shape": [n, h, w, 3], "bound_ms": bound,
+                      "variants": rows}))
+    return 0 if ok else 1
 
 
 def train_batch(rng: np.random.RandomState, batch: int, yolo):
@@ -630,20 +783,36 @@ def profile_call(fn, label: str, top: int = 12) -> float:
     the share of the call's wall time in which the card ran no kernel,
     which it returns."""
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile, schedule
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    # a warm-up step first, and a pause at each end of the recorded call:
+    # a profile of one call alone has lost the call's first few ms of
+    # kernels, as if they lay outside the window it records
+    events = []
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=1),
+                 on_trace_ready=lambda p: events.extend(p.key_averages())
+                 ) as prof:
+        fn()
+        torch.cuda.synchronize()
+        prof.step()
+        time.sleep(0.05)
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
+        time.sleep(0.05)
+        prof.step()
     busy_us, n_kernels, ops = 0.0, 0, []
-    for e in prof.key_averages():
+    for e in events:
         us = e.self_device_time_total
         if us <= 0:
+            continue
+        if e.key.startswith("ProfilerStep"):
+            # the step's own range, mirrored on the card's timeline over
+            # the kernels it holds: not a kernel
             continue
         if e.device_type == DeviceType.CUDA:  # a kernel
             busy_us += us
@@ -793,11 +962,11 @@ def card_grid(yolo, state, images, dev, pallas_stem: bool = False,
         stem_weights,
     )
     from tensorflow_yolo2_torch.ops.cuda_stem import fused_detect_forward
+    from tensorflow_yolo2_torch.utils.device import device_normalize
 
     model = build_detector(yolo, state, dtype=torch.bfloat16, device=dev,
                            **head)
-    x = images.to(dev).float().div_(255.0).mul_(2.0).sub_(1.0).to(
-        torch.bfloat16)
+    x = device_normalize(images.to(dev)).to(torch.bfloat16)
     with torch.inference_mode():
         if pallas_stem:
             return fused_detect_forward(model, x, stem_weights(state, dev))
@@ -822,7 +991,13 @@ def grid_rel_err(yolo, state, images, dev, pallas_stem: bool = False,
     return ((on_card - on_cpu).norm() / on_cpu.norm()).item()
 
 
-def main() -> int:
+def main(argv: list[str] | None = None) -> int:
+    parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    parser.add_argument(
+        "--stem-ab", nargs="*", metavar="STEM_CU",
+        help="instead of the smoke run, time csrc/stem.cu and these other "
+        "B4 sources side by side, whole and by phase (stem_ab)")
+    args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
         return 2
@@ -853,12 +1028,20 @@ def main() -> int:
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"device {torch.cuda.get_device_name(0)}, "
           f"count {torch.cuda.device_count()}; TF32 off for float32 checks")
+    if args.stem_ab is not None:
+        return stem_ab([os.path.join(cuda_build.CSRC_DIR, "stem.cu"),
+                        *args.stem_ab], card)
     t0 = time.perf_counter()
     logs = cuda_build.build()
     print(f"build: {time.perf_counter() - t0:.1f} s for "
           f"{', '.join(cuda_build.sources())}")
+    # each library's own compiler output, this build's or the one that
+    # made a library already on disk
     for log in logs.values():
         print(log, end="")
+    check(not any(w in log for log in logs.values() for w in PIPELINE_LOST),
+          "ptxas kept B4's wgmma pipeline (no serialization, no injected "
+          "warpgroup waits)")
 
     errs = {"decode_nms": 0.0, "decode_nms_v2": 0.0, "decode_grid": 0.0}
     launches = {}

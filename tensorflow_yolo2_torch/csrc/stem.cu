@@ -6,10 +6,13 @@
 //
 // Input x (N, H, W, 3) bfloat16, H and W multiples of 4. Output
 // (N, H/4, W/4, 64) bfloat16. The weights come packed by the wrapper
-// (ops/cuda_stem.py::pack_stem_weights) in the order of mma.sync's B
-// fragments: (K/16, O/8, 32 lanes, 4) bfloat16, where K = 9*C indexes the
-// HWIO kernel reshaped to (9C, O), k = (dy*3 + dx)*C + c, zero-padded from
-// 27 to 32 for conv1. Biases are float32.
+// (ops/cuda_stem.py::pack_stem_weights); both kernels are the HWIO kernel
+// reshaped to (K, O), K = 9*C, k = (dy*3 + dx)*C + c. conv1's comes in the
+// order of mma.sync's B fragments, (2, 4, 32 lanes, 4) bfloat16, K
+// zero-padded from 27 to 32. conv2's comes in wgmma's K-major layout
+// without swizzle: 8 x 8 core matrices (8 columns n, 16 bytes of k each,
+// 128 contiguous bytes) at byte (s*8 + n/8)*256 + ((k%16)/8)*128 for k
+// step s = k/16: (18, 8, 2, 8, 8) bfloat16. Biases are float32.
 //
 // Numerics, as _stem_kernel's: bf16 products, float32 sums (the order of
 // the sums is the tensor cores'); bias and leaky max(0.1 x, x) in float32;
@@ -27,20 +30,38 @@
 // epilogue, writing NHWC bf16. The 448^2 x 32 conv1 activation never
 // reaches device memory.
 //
-// Both convs are implicit GEMMs on the tensor cores (mma.sync m16n8k16,
-// bf16 in, float32 accumulators). An M tile of 16 rows is 8 neighbouring
-// pixels of one row and the 8 below them, so the 2x2 pool is a max of a
-// thread's own two rows and a shuffle with the lane 4 away. conv1 gathers
-// its A fragments from the input patch (27 taps padded to K=32); conv2 reads
-// them with ldmatrix from p1, whose pixels are 80 bytes apart so that the
-// eight rows of a matrix fall in distinct banks.
+// conv1 is an implicit GEMM on mma.sync m16n8k16 (bf16 in, float32
+// accumulators): an M tile of 16 rows is 8 neighbouring pixels of one row
+// and the 8 below them, so the 2x2 pool is a max of a thread's own two rows
+// and a shuffle with the lane 4 away; each lane gathers its A fragments
+// from the input patch (27 taps padded to K = 32) and keeps its B
+// fragments (16 registers) and biases in registers for the life of the
+// block. conv2 runs on wgmma m64n64k16 with A from registers: a warpgroup
+// takes one pair of pre-pool rows x 32 columns, four such M tiles, one a
+// warp, each loaded with ldmatrix from p1 (pixels 80 bytes apart, so that
+// the eight rows of a matrix fall in distinct banks); B, conv2's weights,
+// is read by the tensor cores from shared memory through a descriptor. A
+// warp's accumulators are laid out as mma.sync's are for each n8 chunk,
+// so the pool and epilogue are the same for both convs. The input patch
+// is loaded in 4-byte words, all of a thread's loads issued before its
+// stores.
 //
 // Bound: at batch 256, 448^2 the work is 562 GFLOP (conv1 0.347 + conv2
 // 1.850 GFLOP an image), 0.57 ms at 989 TFLOP/s bf16; the bytes, 2.81 MB an
-// image in and out, take 0.21 ms at 3.35 TB/s. So operations bound it. This
-// first version recomputes a 1.27x halo of conv1, pads conv1's K from 27 to
-// 32, feeds the tensor cores with mma.sync rather than wgmma, and does not
-// overlap a tile's loads with the previous tile's math.
+// image in and out, take 0.21 ms at 3.35 TB/s. So operations bound it.
+//
+// What wgmma changed: with mma.sync every warp re-read conv2's B
+// fragments from shared memory for each K step (1.5 shared-memory
+// wavefronts a m16n8k16); now the tensor cores read B once a warpgroup
+// and K step. With conv1's weights in registers and the word-wide load,
+// the kernel went from 2.78 to 1.91 ms at batch 256, 448^2 (chip_smoke.py,
+// NVIDIA H100 80GB HBM3 at 700 W). What is left: conv1, 16% of the work,
+// takes the largest share of the time (chip_smoke.py --stem-ab times each
+// phase alone and left out), with its K padded from 27 to 32, its halo
+// recomputed 1.27x and its gather and epilogue issued by every lane; a
+// tile's load, conv1 and conv2 are separated by block barriers and overlap
+// only with the SM's other block (no TMA or cp.async pipeline, no warp
+// specialisation).
 //
 // tfy2_fused_stem returns cudaGetLastError() after the launch.
 
@@ -53,6 +74,7 @@ namespace {
 
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
+constexpr int kWarpGroups = kWarps / 4;
 constexpr int kTileRows = 8;   // stage-2 output rows a tile
 constexpr int kTileCols = 16;  // stage-2 output columns a tile
 constexpr int kC1 = 32;
@@ -66,29 +88,37 @@ constexpr int kP1Stride = kC1 + 8;           // bf16 a pixel: 80 bytes
 // the input patch: conv1's pre-pool pixels of p1 plus conv1's halo
 constexpr int kInRows = 2 * kP1Rows + 2;       // 38
 constexpr int kInCols = 8 * kP1Groups + 2;     // 74
+// a patch row in shared memory: one bf16 before column 0, so that a row
+// starts where a 4-byte word of x does, then 74 x 3 values and one after
+constexpr int kInStride = 3 * kInCols + 2;     // 224 bf16
+constexpr int kInWords = kInStride / 2;        // 112 words a row
+constexpr int kInLoaders = 2 * kInWords;       // threads of the load: 2 rows
+static_assert(kInRows % 2 == 0 && kInLoaders <= kThreads, "the input load's rows");
 
 constexpr int kK1Steps = 2;           // conv1: K = 27 padded to 32
 constexpr int kN1Tiles = kC1 / 8;     // 4
 constexpr int kK2Steps = 9 * kC1 / 16;  // conv2: K = 288, 18 steps
 constexpr int kN2Tiles = kC2 / 8;     // 8
-constexpr int kM1Tiles = kP1Rows * kP1Groups;            // 162
-constexpr int kM2Cols = 2 * kTileCols / 8;  // conv2 M tiles across a tile: 4
-constexpr int kM2Tiles = kTileRows * kM2Cols;  // 32
-constexpr int kM2PerPass = 2;  // conv2 M tiles a warp holds at once
-static_assert(kM2Tiles % (kWarps * kM2PerPass) == 0, "conv2 M tiles per warp");
+constexpr int kM1Tiles = kP1Rows * kP1Groups;  // 162
+// conv2: a warpgroup's 64 rows are one output row's pair of pre-pool rows
+// x 32 columns; warp w of the group holds columns 8w ... 8w + 7
+static_assert(2 * kTileCols == 4 * 8, "a warpgroup spans a tile's width");
+static_assert(kTileRows % kWarpGroups == 0, "row pairs per warpgroup");
+
+// conv2's weights in wgmma's K-major layout without swizzle
+constexpr int kW2Lbo = 128;  // bytes to the next core matrix along K
+constexpr int kW2Sbo = 256;  // bytes to the next core matrix along N
+constexpr int kW2StepBytes = kN2Tiles * kW2Sbo;  // one K step of 16: 2048
 
 // shared memory, in bytes
-constexpr int kW2Bytes = kK2Steps * kN2Tiles * 32 * 8;  // 36864
-constexpr int kW1Bytes = kK1Steps * kN1Tiles * 32 * 8;  // 2048
-constexpr int kBiasBytes = (kC1 + kC2) * 4;
+constexpr int kW2Bytes = kK2Steps * kW2StepBytes;  // 36864
 constexpr int kP1Bytes = kP1Rows * kP1Cols * kP1Stride * 2;  // 48960
-constexpr int kInBytes = kInRows * kInCols * 3 * 2;          // 16872
-constexpr int kOffW1 = kW2Bytes;
-constexpr int kOffBias = kOffW1 + kW1Bytes;
-constexpr int kOffP1 = kOffBias + kBiasBytes;
+constexpr int kInBytes = kInRows * kInStride * 2;            // 17024
+constexpr int kOffP1 = kW2Bytes;
 constexpr int kOffIn = kOffP1 + kP1Bytes;
-constexpr int kSmemBytes = kOffIn + kInBytes;  // 105128
+constexpr int kSmemBytes = kOffIn + kInBytes;  // 102848
 static_assert(kOffP1 % 16 == 0, "ldmatrix rows are 16-byte aligned");
+static_assert(kOffIn % 4 == 0, "the input patch is stored in words");
 static_assert((kP1Stride * 2) % 16 == 0, "ldmatrix rows are 16-byte aligned");
 
 constexpr int kMaxDevices = 64;
@@ -108,6 +138,58 @@ __device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], uint32_t addr) {
       "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
       : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
       : "r"(addr));
+}
+
+// wgmma's shared-memory matrix descriptor for conv2's B at shared address
+// addr: start >> 4, LBO and SBO >> 4, base offset 0, no swizzle
+__device__ __forceinline__ uint64_t w2_descriptor(uint32_t addr) {
+  return static_cast<uint64_t>((addr >> 4) & 0x3fff) |
+         (static_cast<uint64_t>(kW2Lbo >> 4) << 16) |
+         (static_cast<uint64_t>(kW2Sbo >> 4) << 32);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+
+template <int kPending>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(kPending) : "memory");
+}
+
+// d += A B for the warpgroup's 64 x 16 A (this warp's 16 rows in a, as
+// mma.sync's A fragment) and the 16 x 64 B at descriptor desc
+__device__ __forceinline__ void wgmma_m64n64k16(float (&d)[kN2Tiles][4],
+                                                const uint32_t (&a)[4], uint64_t desc) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, "
+      "%31}, {%32, %33, %34, %35}, %36, p, 1, 1, 0;\n"
+      "}\n"
+      : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]), "+f"(d[1][0]),
+        "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]), "+f"(d[2][0]), "+f"(d[2][1]),
+        "+f"(d[2][2]), "+f"(d[2][3]), "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]),
+        "+f"(d[3][3]), "+f"(d[4][0]), "+f"(d[4][1]), "+f"(d[4][2]), "+f"(d[4][3]),
+        "+f"(d[5][0]), "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3]), "+f"(d[6][0]),
+        "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3]), "+f"(d[7][0]), "+f"(d[7][1]),
+        "+f"(d[7][2]), "+f"(d[7][3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1));
+}
+
+// keeps the compiler from reading the accumulators before wgmma.wait_group
+__device__ __forceinline__ void fence_accumulators(float (&d)[kN2Tiles][4]) {
+#pragma unroll
+  for (int i = 0; i < kN2Tiles; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) asm volatile("" : "+f"(d[i][j])::"memory");
 }
 
 __device__ __forceinline__ uint32_t pack_bits(uint16_t lo, uint16_t hi) {
@@ -137,16 +219,14 @@ __device__ __forceinline__ void pool2(const float (&acc)[4], float& v0, float& v
 
 __global__ void __launch_bounds__(kThreads, 2)
 stem_kernel(const uint16_t* __restrict__ x, const uint2* __restrict__ w1f,
-            const float* __restrict__ b1, const uint2* __restrict__ w2f,
+            const float* __restrict__ b1, const uint4* __restrict__ w2t,
             const float* __restrict__ b2, uint16_t* __restrict__ out, int N,
             int H, int W, int tiles_y, int tiles_x) {
   extern __shared__ __align__(16) unsigned char smem[];
-  uint2* sw2 = reinterpret_cast<uint2*>(smem);
-  uint2* sw1 = reinterpret_cast<uint2*>(smem + kOffW1);
-  float* sb1 = reinterpret_cast<float*>(smem + kOffBias);
-  float* sb2 = sb1 + kC1;
+  uint4* sw2 = reinterpret_cast<uint4*>(smem);
   uint16_t* sp1 = reinterpret_cast<uint16_t*>(smem + kOffP1);
   uint16_t* sxin = reinterpret_cast<uint16_t*>(smem + kOffIn);
+  uint32_t* sxin_words = reinterpret_cast<uint32_t*>(smem + kOffIn);
 
   const int tid = threadIdx.x;
   const int lane = tid & 31;
@@ -154,10 +234,30 @@ stem_kernel(const uint16_t* __restrict__ x, const uint2* __restrict__ w1f,
   const int g = lane >> 2;  // the fragment's row group
   const int t = lane & 3;   // the thread in the group
 
-  for (int i = tid; i < kW2Bytes / 8; i += kThreads) sw2[i] = w2f[i];
-  for (int i = tid; i < kW1Bytes / 8; i += kThreads) sw1[i] = w1f[i];
-  for (int i = tid; i < kC1; i += kThreads) sb1[i] = b1[i];
-  for (int i = tid; i < kC2; i += kThreads) sb2[i] = b2[i];
+  for (int i = tid; i < kW2Bytes / 16; i += kThreads) sw2[i] = w2t[i];
+  // wgmma reads sw2 through the async proxy: order these stores before it
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+
+  // conv1's B fragments, in registers for the life of the block
+  uint2 w1r[kK1Steps][kN1Tiles];
+#pragma unroll
+  for (int s = 0; s < kK1Steps; ++s)
+#pragma unroll
+    for (int nt = 0; nt < kN1Tiles; ++nt) w1r[s][nt] = w1f[(s * kN1Tiles + nt) * 32 + lane];
+
+  // the biases of this lane's channels nt*8 + 2t, + 1 of each conv
+  float bias1[kN1Tiles][2];
+#pragma unroll
+  for (int nt = 0; nt < kN1Tiles; ++nt) {
+    bias1[nt][0] = b1[nt * 8 + 2 * t];
+    bias1[nt][1] = b1[nt * 8 + 2 * t + 1];
+  }
+  float bias2[kN2Tiles][2];
+#pragma unroll
+  for (int nt = 0; nt < kN2Tiles; ++nt) {
+    bias2[nt][0] = b2[nt * 8 + 2 * t];
+    bias2[nt][1] = b2[nt * 8 + 2 * t + 1];
+  }
 
   // conv1's A fragment: this lane's 8 values of k (4 a K step) and where
   // each lies in the input patch relative to the pixel; k >= 27 is padding
@@ -168,13 +268,29 @@ stem_kernel(const uint16_t* __restrict__ x, const uint2* __restrict__ w1f,
     const int k = (q >= 4 ? 16 : 0) + 2 * t + (q & 1) + ((q & 2) ? 8 : 0);
     const int tap = k / 3;
     kval[q] = k < 27;
-    koff[q] = kval[q] ? ((tap / 3) * kInCols + tap % 3) * 3 + k % 3 : 0;
+    koff[q] = kval[q] ? (tap / 3) * kInStride + (tap % 3) * 3 + k % 3 : 0;
   }
+
+  // the input load: thread tid < kInLoaders moves word lw of patch rows
+  // lr, lr + 2, ...; the word's two values are of patch columns lpx0 and
+  // lpx1 (-1: the value before column 0)
+  const int lw = tid % kInWords, lr = tid / kInWords;
+  const int lpx0 = lw == 0 ? -1 : (2 * lw - 1) / 3, lpx1 = 2 * lw / 3;
 
   const int H2 = H / 2, W2 = W / 2, H4 = H / 4, W4 = W / 4;
   const int per_image = tiles_y * tiles_x;
   const int tiles = N * per_image;
   const uint32_t p1_base = static_cast<uint32_t>(__cvta_generic_to_shared(sp1));
+  const uint64_t w2_desc =
+      w2_descriptor(static_cast<uint32_t>(__cvta_generic_to_shared(sw2)));
+
+  // conv2: warpgroup wg takes row pairs wg, wg + kWarpGroups, ...; this
+  // lane's ldmatrix row of its warp's M tile in the first row pair
+  const int wg = warp >> 2, wl = warp & 3;
+  const int m = lane & 15;
+  const uint32_t a2_lane =
+      p1_base +
+      (((m >> 3) * kP1Cols + 8 * wl + (m & 7)) * kP1Stride + (lane >> 4) * 8) * 2;
 
   for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
     const int n = tile / per_image;
@@ -184,19 +300,31 @@ stem_kernel(const uint16_t* __restrict__ x, const uint2* __restrict__ w1f,
 
     __syncthreads();  // the weights are in; the last tile is done with sxin, sp1
 
-    // input patch: global rows 4*oy0 - 3 ..., columns 4*ox0 - 3 ...
-    {
+    // input patch: global rows 4*oy0 - 3 ..., columns 4*ox0 - 3 ...; the
+    // value before column 0 of a patch row starts a word of x (W and the
+    // 3 channels make a row an even count of values, 3*ix0 - 1 is even).
+    // All loads are issued before the stores; zeros outside the image.
+    if (tid < kInLoaders) {
       const int iy0 = 4 * oy0 - 3, ix0 = 4 * ox0 - 3;
-      const uint16_t* xn = x + static_cast<size_t>(n) * H * W * 3;
-      for (int i = tid; i < kInRows * kInCols * 3; i += kThreads) {
-        const int r = i / (kInCols * 3);
-        const int c3 = i - r * (kInCols * 3);
-        const int gy = iy0 + r, gx = ix0 + c3 / 3;
-        uint16_t v = 0;
-        if (gy >= 0 && gy < H && gx >= 0 && gx < W)
-          v = xn[static_cast<size_t>(gy) * W * 3 + ix0 * 3 + c3];
-        sxin[i] = v;
+      const bool col0 = static_cast<unsigned>(ix0 + lpx0) < static_cast<unsigned>(W);
+      const bool col1 = static_cast<unsigned>(ix0 + lpx1) < static_cast<unsigned>(W);
+      const long long row_values = 3LL * W;
+      const long long first =
+          (static_cast<long long>(n) * H + iy0 + lr) * row_values + 3 * ix0 - 1 + 2 * lw;
+      uint32_t v[kInRows / 2];
+#pragma unroll
+      for (int i = 0; i < kInRows / 2; ++i) {
+        const long long at = first + 2 * i * row_values;
+        v[i] = 0;
+        if (static_cast<unsigned>(iy0 + lr + 2 * i) < static_cast<unsigned>(H)) {
+          if (col0 && col1)
+            v[i] = *reinterpret_cast<const uint32_t*>(x + at);
+          else
+            v[i] = pack_bits(col0 ? x[at] : uint16_t(0), col1 ? x[at + 1] : uint16_t(0));
+        }
       }
+#pragma unroll
+      for (int i = 0; i < kInRows / 2; ++i) sxin_words[(lr + 2 * i) * kInWords + lw] = v[i];
     }
     __syncthreads();
 
@@ -206,8 +334,8 @@ stem_kernel(const uint16_t* __restrict__ x, const uint2* __restrict__ w1f,
     const int py0 = 2 * oy0 - 1, px0 = 2 * ox0 - 1;
     for (int mt = warp; mt < kM1Tiles; mt += kWarps) {
       const int pr = mt / kP1Groups, pg = mt - pr * kP1Groups;
-      const int base0 = ((2 * pr) * kInCols + 8 * pg + g) * 3;
-      const int base1 = base0 + kInCols * 3;
+      const int base0 = 2 * pr * kInStride + 1 + (8 * pg + g) * 3;
+      const int base1 = base0 + kInStride;
       float acc[kN1Tiles][4] = {};
 #pragma unroll
       for (int s = 0; s < kK1Steps; ++s) {
@@ -222,8 +350,7 @@ stem_kernel(const uint16_t* __restrict__ x, const uint2* __restrict__ w1f,
         const uint32_t a2 = pack_bits(e0[2], e0[3]), a3 = pack_bits(e1[2], e1[3]);
 #pragma unroll
         for (int nt = 0; nt < kN1Tiles; ++nt) {
-          const uint2 b = sw1[(s * kN1Tiles + nt) * 32 + lane];
-          mma_bf16(acc[nt], a0, a1, a2, a3, b.x, b.y);
+          mma_bf16(acc[nt], a0, a1, a2, a3, w1r[s][nt].x, w1r[s][nt].y);
         }
       }
       const int pc = 4 * pg + (g >> 1);
@@ -237,57 +364,47 @@ stem_kernel(const uint16_t* __restrict__ x, const uint2* __restrict__ w1f,
         const int ch = nt * 8 + 2 * t;
         if (keep)
           *reinterpret_cast<uint32_t*>(sp1 + (pr * kP1Cols + pc) * kP1Stride + ch) =
-              inside ? epilogue(v0, v1, sb1[ch], sb1[ch + 1]) : 0u;
+              inside ? epilogue(v0, v1, bias1[nt][0], bias1[nt][1]) : 0u;
       }
     }
     __syncthreads();
 
     // stage 2: conv2 pixel local (r, c) is global p1 (2*oy0 + r, 2*ox0 + c);
-    // tap (dy, dx) reads p1 local (r + dy, c + dx). M tile mt covers rows
-    // 2*(mt/kM2Cols) and the one below, columns 8*(mt%kM2Cols) ... + 7.
-    const int m = lane & 15;
-    for (int pass = 0; pass < kM2Tiles / (kWarps * kM2PerPass); ++pass) {
-      uint32_t aaddr[kM2PerPass];
+    // tap (dy, dx) reads p1 local (r + dy, c + dx). Row pair rp is output
+    // row oy0 + rp: pre-pool rows 2 rp and 2 rp + 1. A tap is two K steps
+    // of 16 channels; each is committed as a group, and the wait for the
+    // group before frees the A registers the next tap loads.
+    for (int rp = wg; rp < kTileRows; rp += kWarpGroups) {
+      const uint32_t aaddr = a2_lane + 2 * rp * kP1Cols * kP1Stride * 2;
+      float acc[kN2Tiles][4];
 #pragma unroll
-      for (int mi = 0; mi < kM2PerPass; ++mi) {
-        const int mt = warp + kWarps * (kM2PerPass * pass + mi);
-        const int r = 2 * (mt / kM2Cols) + (m >> 3), c = 8 * (mt % kM2Cols) + (m & 7);
-        aaddr[mi] = p1_base + ((r * kP1Cols + c) * kP1Stride + (lane >> 4) * 8) * 2;
-      }
-      float acc[kM2PerPass][kN2Tiles][4] = {};
+      for (int nt = 0; nt < kN2Tiles; ++nt)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) acc[nt][j] = 0.0f;
 #pragma unroll
       for (int tap = 0; tap < 9; ++tap) {
         const uint32_t toff = ((tap / 3) * kP1Cols + tap % 3) * kP1Stride * 2;
-#pragma unroll
-        for (int kc = 0; kc < 2; ++kc) {
-          const int s = 2 * tap + kc;
-          uint2 b[kN2Tiles];
-#pragma unroll
-          for (int nt = 0; nt < kN2Tiles; ++nt) b[nt] = sw2[(s * kN2Tiles + nt) * 32 + lane];
-#pragma unroll
-          for (int mi = 0; mi < kM2PerPass; ++mi) {
-            uint32_t a[4];
-            ldmatrix_x4(a, aaddr[mi] + toff + kc * 32);
-#pragma unroll
-            for (int nt = 0; nt < kN2Tiles; ++nt)
-              mma_bf16(acc[mi][nt], a[0], a[1], a[2], a[3], b[nt].x, b[nt].y);
-          }
-        }
+        uint32_t a0[4], a1[4];
+        ldmatrix_x4(a0, aaddr + toff);
+        ldmatrix_x4(a1, aaddr + toff + 32);
+        wgmma_fence();
+        wgmma_m64n64k16(acc, a0, w2_desc + (2 * tap) * (kW2StepBytes >> 4));
+        wgmma_m64n64k16(acc, a1, w2_desc + (2 * tap + 1) * (kW2StepBytes >> 4));
+        wgmma_commit();
+        wgmma_wait<1>();
       }
+      wgmma_wait<0>();
+      fence_accumulators(acc);
+      const int oy = oy0 + rp, ox = ox0 + 4 * wl + (g >> 1);
+      const bool keep = (g & 1) == 0 && oy < H4 && ox < W4;
+      uint16_t* o = out + ((static_cast<size_t>(n) * H4 + oy) * W4 + ox) * kC2;
 #pragma unroll
-      for (int mi = 0; mi < kM2PerPass; ++mi) {
-        const int mt = warp + kWarps * (kM2PerPass * pass + mi);
-        const int oy = oy0 + mt / kM2Cols, ox = ox0 + 4 * (mt % kM2Cols) + (g >> 1);
-        const bool keep = (g & 1) == 0 && oy < H4 && ox < W4;
-        uint16_t* o = out + ((static_cast<size_t>(n) * H4 + oy) * W4 + ox) * kC2;
-#pragma unroll
-        for (int nt = 0; nt < kN2Tiles; ++nt) {
-          float v0, v1;
-          pool2(acc[mi][nt], v0, v1);
-          const int ch = nt * 8 + 2 * t;
-          if (keep)
-            *reinterpret_cast<uint32_t*>(o + ch) = epilogue(v0, v1, sb2[ch], sb2[ch + 1]);
-        }
+      for (int nt = 0; nt < kN2Tiles; ++nt) {
+        float v0, v1;
+        pool2(acc[nt], v0, v1);
+        const int ch = nt * 8 + 2 * t;
+        if (keep)
+          *reinterpret_cast<uint32_t*>(o + ch) = epilogue(v0, v1, bias2[nt][0], bias2[nt][1]);
       }
     }
   }
@@ -295,11 +412,12 @@ stem_kernel(const uint16_t* __restrict__ x, const uint2* __restrict__ w1f,
 
 }  // namespace
 
-// x (N, H, W, 3) bf16; w1f (2, 4, 32, 4) and w2f (18, 8, 32, 4) bf16 B
-// fragments; b1 (32,), b2 (64,) float32; out (N, H/4, W/4, 64) bf16. All
-// contiguous, on the current device. H and W multiples of 4.
+// x (N, H, W, 3) bf16; w1f (2, 4, 32, 4) bf16 B fragments; w2t (18, 8, 2,
+// 8, 8) bf16 wgmma B tiles; b1 (32,), b2 (64,) float32; out (N, H/4, W/4,
+// 64) bf16. All contiguous, on the current device, x 4-byte aligned. H and
+// W multiples of 4.
 extern "C" cudaError_t tfy2_fused_stem(const void* x, const void* w1f, const void* b1,
-                                       const void* w2f, const void* b2, void* out, int N,
+                                       const void* w2t, const void* b2, void* out, int N,
                                        int H, int W, cudaStream_t stream) {
   if (N <= 0 || H <= 0 || W <= 0 || H % 4 || W % 4) return cudaErrorInvalidValue;
   int dev = 0;
@@ -329,7 +447,7 @@ extern "C" cudaError_t tfy2_fused_stem(const void* x, const void* w1f, const voi
                                                   : blocks_per_device[dev];
   stem_kernel<<<grid, kThreads, kSmemBytes, stream>>>(
       static_cast<const uint16_t*>(x), static_cast<const uint2*>(w1f),
-      static_cast<const float*>(b1), static_cast<const uint2*>(w2f),
+      static_cast<const float*>(b1), static_cast<const uint4*>(w2t),
       static_cast<const float*>(b2), static_cast<uint16_t*>(out), N, H, W, tiles_y,
       tiles_x);
   return cudaGetLastError();

@@ -4,7 +4,7 @@ tensorflow_yolo2_tpu/data/augment.py).
 Images are read with cv2 in BGR (``rgb=True`` swaps to RGB), warp-resized
 to image_size² with cv2's bilinear resize, optionally flipped, and scaled
 to [-1, 1] as ``(x/255)·2 − 1``, or kept as uint8 for the on-device
-normalize (``train.trainer.device_normalize``). cv2 is imported inside
+normalize (``utils.device.device_normalize``). cv2 is imported inside
 the functions: the card machine has none. The JAX package's native C++
 resize and the augmentation chain are not ported yet.
 """

@@ -60,7 +60,10 @@ from tensorflow_yolo2_torch.ops.cuda_stem import (
     fused_detect_forward,
     pack_stem_weights,
 )
-from tensorflow_yolo2_torch.utils.device import resolve_device
+from tensorflow_yolo2_torch.utils.device import (
+    device_normalize,
+    resolve_device,
+)
 
 
 def as_state_dict(params_or_state_dict: Mapping[str, Any],
@@ -176,9 +179,7 @@ def make_detect_fn(yolo: YoloConfig, params_or_state_dict, batch_stats=None,
 
     @torch.inference_mode()
     def detect(images) -> Detections:
-        images = torch.as_tensor(images).to(device)
-        if images.dtype == torch.uint8:
-            images = images.float() / 255.0 * 2.0 - 1.0
+        images = device_normalize(torch.as_tensor(images).to(device))
         images = images.to(dtype)
         if pallas_stem:
             grid = fused_detect_forward(model, images.contiguous(), stem)

@@ -11,6 +11,8 @@ flax's running-statistic update (``BatchNorm``).
 
 from __future__ import annotations
 
+import functools
+
 import torch
 import torch.nn.functional as F
 from torch import nn
@@ -22,9 +24,16 @@ BN_EPSILON = 1e-3
 BN_MOMENTUM = 0.99
 
 
+@functools.cache
+def _rounded(alpha: float, dtype: torch.dtype) -> float:
+    return torch.tensor(alpha, dtype=dtype).item()
+
+
 def leaky_relu(x: torch.Tensor, alpha: float = LEAKY_ALPHA) -> torch.Tensor:
-    """max(alpha·x, x) — the reference's hand-rolled leaky ReLU."""
-    return torch.maximum(alpha * x, x)
+    """max(alpha·x, x) — the reference's hand-rolled leaky ReLU. alpha is
+    rounded to x's type first, as JAX rounds its weak-typed scalar (in
+    bf16, 0.1 is 0.10009765625)."""
+    return torch.maximum(_rounded(alpha, x.dtype) * x, x)
 
 
 def space_to_depth(x: torch.Tensor) -> torch.Tensor:

@@ -8,7 +8,17 @@ trunk, conv1 3×3 3→32 + bias + leaky + 2×2 max pool, then conv2 3×3
 card it is the kernel of ``csrc/stem.cu`` (B4, replacing ``_stem_kernel``):
 one block a tile of 8×16 output pixels, the stage-1 map kept in shared
 memory, both convs on the tensor cores. Its work, 2.2 GFLOP an image at
-448², bounds it, not its bytes (the source says more).
+448², bounds it, not its bytes: 0.569 ms at batch 256 on an H100.
+
+conv1 runs on ``mma.sync`` with its B fragments and bias held in
+registers for the life of a block; conv2, 84% of the work, on Hopper's
+``wgmma`` (m64n64k16, A from registers, B from shared memory through a
+descriptor), which replaced ``mma.sync`` there and took the B-fragment
+reloads of every K step off the shared-memory port; the input patch
+comes in 4-byte words. What is left (the source says more): conv1 takes
+the largest share of the time, its K padded from 27 to 32 and its halo
+recomputed 1.27×; a tile's loads do not overlap its own math (no TMA or
+``cp.async`` pipeline, no warp specialisation).
 
 The kernel rounds where ``_stem_kernel`` rounds: bf16 inputs and weights,
 float32 sums, bias and leaky ``max(0.1·x, x)`` in float32, the stage-1
@@ -21,8 +31,10 @@ launches the kernel, which takes bfloat16 only, or raises.
 ``STEM_LAUNCHES`` counts kernel launches.
 
 ``pack_stem_weights`` builds the kernel's operands once: the HWIO kernels
-reshaped to (9·C, O), k = (dy·3 + dx)·C + c, conv1's K zero-padded from 27
-to 32, in the order of ``mma.sync``'s B fragments, and float32 biases.
+reshaped to (9·C, O), k = (dy·3 + dx)·C + c; conv1's K zero-padded from
+27 to 32 in the order of ``mma.sync``'s B fragments (``mma_fragments``),
+conv2's in ``wgmma``'s K-major layout without swizzle (``wgmma_tiles``);
+float32 biases.
 """
 
 from __future__ import annotations
@@ -48,9 +60,9 @@ def reset_launch_counts() -> None:
     STEM_LAUNCHES = 0
 
 
-@functools.cache
-def _lib() -> ctypes.CDLL:
-    lib = cuda_build.load("stem")
+def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Declares the C entry ``tfy2_fused_stem`` of a library built from
+    ``csrc/stem.cu``."""
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
     lib.tfy2_fused_stem.argtypes = [ptr, ptr, ptr, ptr, ptr, ptr, i32, i32,
                                     i32, ptr]
@@ -58,15 +70,21 @@ def _lib() -> ctypes.CDLL:
     return lib
 
 
+@functools.cache
+def _lib() -> ctypes.CDLL:
+    return bind(cuda_build.load("stem"))
+
+
 class StemWeights(NamedTuple):
     """The stem's weights: HWIO kernels and biases (float32) for the plain
-    version, and the kernel's bf16 B fragments."""
+    version, and the kernel's bf16 B operands: conv1's as ``mma.sync``
+    fragments, conv2's as ``wgmma`` tiles."""
     w1: torch.Tensor  # (3, 3, 3, 32)
     b1: torch.Tensor  # (32,)
     w2: torch.Tensor  # (3, 3, 32, 64)
     b2: torch.Tensor  # (64,)
     w1_frags: torch.Tensor  # (2, 4, 32, 4) bf16
-    w2_frags: torch.Tensor  # (18, 8, 32, 4) bf16
+    w2_tiles: torch.Tensor  # (18, 8, 2, 8, 8) bf16
 
 
 def mma_fragments(w: torch.Tensor) -> torch.Tensor:
@@ -84,6 +102,31 @@ def mma_fragments(w: torch.Tensor) -> torch.Tensor:
     return b.reshape(k // 16, o // 8, 32, 4).contiguous()
 
 
+# conv2's B operand in wgmma's K-major layout without swizzle, as
+# csrc/stem.cu's descriptor reads it: core matrices of 8 columns n × 8 rows
+# k (16 bytes a column, 128 contiguous bytes), WGMMA_LBO bytes apart along
+# K and WGMMA_SBO bytes apart along N; one K step of 16 takes
+# O/8 · WGMMA_SBO bytes.
+WGMMA_LBO = 128
+WGMMA_SBO = 256
+
+
+def wgmma_tiles(w: torch.Tensor) -> torch.Tensor:
+    """A (3, 3, C, O) kernel as the B operand of
+    ``wgmma.m64nOk16`` in shared memory: the (9C, O) matrix, K
+    zero-padded to a multiple of 16, as (K/16, O/8, 2, 8, 8) bfloat16,
+    element [s, j, h, n % 8, k % 8] = B[16s + 8h + k % 8, 8j + n % 8], so
+    that (k, n) lies at byte s·(O/8)·WGMMA_SBO + (n/8)·WGMMA_SBO +
+    ((k % 16)/8)·WGMMA_LBO + (n % 8)·16 + (k % 8)·2."""
+    kh, kw, c, o = w.shape
+    b = w.reshape(kh * kw * c, o).to(torch.bfloat16)
+    k = -(-b.shape[0] // 16) * 16
+    b = F.pad(b, (0, 0, 0, k - b.shape[0]))
+    # k = 16s + 8h + kk, n = 8j + nn → (s, j, h, nn, kk)
+    b = b.reshape(k // 16, 2, 8, o // 8, 8).permute(0, 3, 1, 4, 2)
+    return b.contiguous()
+
+
 def pack_stem_weights(w1: torch.Tensor, b1: torch.Tensor, w2: torch.Tensor,
                       b2: torch.Tensor, device=None) -> StemWeights:
     """The folded conv1 (3, 3, 3, 32) and conv2 (3, 3, 32, 64) HWIO kernels
@@ -98,7 +141,7 @@ def pack_stem_weights(w1: torch.Tensor, b1: torch.Tensor, w2: torch.Tensor,
     device = w1.device if device is None else torch.device(device)
     w1, b1, w2, b2 = (t.to(device=device, dtype=torch.float32)
                       for t in (w1, b1, w2, b2))
-    return StemWeights(w1, b1, w2, b2, mma_fragments(w1), mma_fragments(w2))
+    return StemWeights(w1, b1, w2, b2, mma_fragments(w1), wgmma_tiles(w2))
 
 
 def _check_images(x: torch.Tensor) -> None:
@@ -111,7 +154,7 @@ def _check_images(x: torch.Tensor) -> None:
 
 _PACKED = {"b1": ((C1,), torch.float32), "b2": ((C2,), torch.float32),
            "w1_frags": ((2, C1 // 8, 32, 4), torch.bfloat16),
-           "w2_frags": ((18, C2 // 8, 32, 4), torch.bfloat16)}
+           "w2_tiles": ((18, C2 // 8, 2, 8, 8), torch.bfloat16)}
 
 
 def _check_packed(weights: StemWeights, device: torch.device) -> None:
@@ -187,6 +230,9 @@ def fused_stem_packed(x: torch.Tensor, weights: StemWeights) -> torch.Tensor:
                         f"(float32 is not ported to the card)")
     if not x.is_contiguous():
         raise ValueError("the CUDA stem reads a contiguous NHWC batch")
+    if x.data_ptr() % 4:
+        raise ValueError("the CUDA stem reads its images in 4-byte words: "
+                         "x must start 4-byte aligned")
     _check_packed(weights, x.device)
     n, h, w, _ = x.shape
     out = torch.empty((n, h // 4, w // 4, C2), dtype=torch.bfloat16,
@@ -196,7 +242,7 @@ def fused_stem_packed(x: torch.Tensor, weights: StemWeights) -> torch.Tensor:
     with torch.cuda.device(x.device):
         err = _lib().tfy2_fused_stem(
             x.data_ptr(), weights.w1_frags.data_ptr(), weights.b1.data_ptr(),
-            weights.w2_frags.data_ptr(), weights.b2.data_ptr(),
+            weights.w2_tiles.data_ptr(), weights.b2.data_ptr(),
             out.data_ptr(), n, h, w,
             ctypes.c_void_p(torch.cuda.current_stream(x.device).cuda_stream))
     if err != 0:

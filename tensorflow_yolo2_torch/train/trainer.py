@@ -34,17 +34,12 @@ from tensorflow_yolo2_torch.train.optimizers import (
     global_norm,
     make_optimizer,
 )
-from tensorflow_yolo2_torch.utils.device import resolve_device
+from tensorflow_yolo2_torch.utils.device import (
+    device_normalize,
+    resolve_device,
+)
 
 Metrics = dict[str, torch.Tensor]
-
-
-def device_normalize(images: torch.Tensor) -> torch.Tensor:
-    """uint8 batches → float32 in [-1, 1] as (x/255)·2 − 1, on the
-    batch's device; float batches pass through."""
-    if images.dtype == torch.uint8:
-        return (images.float() / 255.0) * 2.0 - 1.0
-    return images
 
 
 @dataclass

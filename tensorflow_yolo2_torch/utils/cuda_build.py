@@ -2,7 +2,8 @@
 
 Each ``csrc/<name>.cu`` compiles to its own shared library with a plain C
 interface, ``_build/lib<name>-<digest>.so``, where the digest covers the
-source and the flags, so an edited source builds anew. The build happens
+source and the flags, so an edited source builds anew; the compiler's
+output is kept beside it, ``lib<name>-<digest>.log``. The build happens
 at first use; ``build()`` compiles several sources at once, one nvcc
 process each. Nothing here touches CUDA at import time.
 """
@@ -45,33 +46,58 @@ def find_nvcc() -> str:
     return nvcc
 
 
+def source_path(name: str) -> str:
+    """``csrc/<name>.cu``; a name that ends in ``.cu`` is a source's path."""
+    if name.endswith(".cu"):
+        return name
+    return os.path.join(CSRC_DIR, name + ".cu")
+
+
 def library_path(name: str) -> str:
-    with open(os.path.join(CSRC_DIR, name + ".cu"), "rb") as f:
+    src = source_path(name)
+    with open(src, "rb") as f:
         digest = hashlib.sha1(f.read() + " ".join(NVCC_FLAGS).encode())
-    return os.path.join(BUILD_DIR, f"lib{name}-{digest.hexdigest()[:12]}.so")
+    stem = os.path.basename(src)[:-3]
+    return os.path.join(BUILD_DIR, f"lib{stem}-{digest.hexdigest()[:12]}.so")
+
+
+def _log_path(name: str) -> str:
+    return library_path(name)[:-3] + ".log"
 
 
 def build(names: list[str] | None = None) -> dict[str, str]:
-    """Compile the named sources (default: all) that are not built yet.
+    """Compile the named sources (default: all of ``csrc/``) that are not
+    built yet.
 
-    All nvcc processes start together and run in parallel. Returns
-    ``{name: compiler output}`` for the sources compiled by this call;
-    raises ``RuntimeError`` with the compiler output if any build fails.
+    All nvcc processes start together and run in parallel. Each build's
+    compiler output (``-Xptxas -v``: registers, spills, ptxas's warnings)
+    is kept beside its library. Returns ``{name: compiler output}`` for
+    every name, from the build that made its library, whether that was
+    this call or an earlier one; raises ``RuntimeError`` with the compiler
+    output if any build fails.
     """
     names = sources() if names is None else names
-    todo = [n for n in names if not os.path.exists(library_path(n))]
-    if not todo:
-        return {}
+    todo = [n for n in names if not (os.path.exists(library_path(n))
+                                     and os.path.exists(_log_path(n)))]
+    if todo:
+        _compile(todo)
+    logs = {}
+    for name in names:
+        with open(_log_path(name)) as f:
+            logs[name] = f.read()
+    return logs
+
+
+def _compile(names: list[str]) -> None:
     os.makedirs(BUILD_DIR, exist_ok=True)
     nvcc = find_nvcc()
     procs = {}
-    for name in todo:
+    for name in names:
         # build under a temporary name, then rename: a concurrent process
-        # never loads a half-written library
+        # never loads a half-written library or reads a half-written log
         fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
         os.close(fd)
-        cmd = [nvcc, *NVCC_FLAGS, "-o", tmp,
-               os.path.join(CSRC_DIR, name + ".cu")]
+        cmd = [nvcc, *NVCC_FLAGS, "-o", tmp, source_path(name)]
         procs[name] = (tmp, time.perf_counter(), subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
     logs, failed = {}, []
@@ -80,13 +106,15 @@ def build(names: list[str] | None = None) -> dict[str, str]:
         logs[name] = f"{out}[{name}: {time.perf_counter() - t0:.1f} s]\n"
         if proc.returncode == 0:
             os.replace(tmp, library_path(name))
+            with open(tmp[:-3] + ".log", "w") as f:
+                f.write(logs[name])
+            os.replace(tmp[:-3] + ".log", _log_path(name))
         else:
             os.unlink(tmp)
             failed.append(name)
     if failed:
         raise RuntimeError("nvcc failed for " + ", ".join(failed) + ":\n"
                            + "".join(logs[n] for n in failed))
-    return logs
 
 
 @functools.cache

@@ -32,6 +32,7 @@ from tensorflow_yolo2_torch.models.darknet import (
     randomize_,
 )
 from tensorflow_yolo2_torch.ops import cuda_decode, cuda_pool, cuda_stem
+from tensorflow_yolo2_torch.utils.device import device_normalize
 
 pytestmark = pytest.mark.cuda
 K = 32
@@ -243,6 +244,45 @@ def test_stem_kernel_never_falls_back(card):
         cuda_stem.fused_stem_packed(
             torch.zeros((1, 32, 32, 3), device=card, dtype=torch.bfloat16),
             cuda_stem.pack_stem_weights(*weights[:4], device="cpu"))
+
+
+def test_stem_kernel_refuses_misaligned_images(card):
+    """The kernel reads x in 4-byte words: a contiguous batch that starts
+    2 bytes into a word raises, never falls back."""
+    weights = cuda_stem.pack_stem_weights(
+        *chip_smoke.random_stem_weights(torch.Generator().manual_seed(0)),
+        device=card)
+    flat = torch.zeros(32 * 32 * 3 + 1, device=card, dtype=torch.bfloat16)
+    x = flat[1:].view(1, 32, 32, 3)
+    assert x.is_contiguous() and x.data_ptr() % 4 == 2
+    cuda_stem.reset_launch_counts()
+    with pytest.raises(ValueError, match="4-byte aligned"):
+        cuda_stem.fused_stem_packed(x, weights)
+    assert cuda_stem.STEM_LAUNCHES == 0
+
+
+def test_detect_normalizes_uint8_as_the_host_does(card):
+    """On the card a uint8 batch is divided by a device tensor of 255, the
+    IEEE quotient (a division by the Python number 255.0 multiplies by
+    its reciprocal there): all 256 levels equal the host's x / 255 * 2 - 1
+    in float32, and ``make_detect_fn`` on a uint8 batch gives the same
+    dense detections, bit for bit, as the same detector fed those
+    host-normalized floats, on the stock path and through B4."""
+    levels = torch.arange(256).to(torch.uint8)
+    host = levels.float() / 255.0 * 2.0 - 1.0
+    assert torch.equal(device_normalize(levels.to(card)).cpu(), host)
+    images = torch.randint(0, 256, (2, 64, 64, 3), dtype=torch.uint8,
+                           generator=torch.Generator().manual_seed(1))
+    images.view(-1)[:256] = levels
+    state = randomize_(Darknet19Detector(), torch.Generator().manual_seed(0)
+                       ).state_dict()
+    for pallas_stem in (False, True):
+        detect = make_detect_fn(YoloConfig(S=2, image_size=64), state,
+                                object_thresh=0.0, pallas_stem=pallas_stem)
+        got = detect(images)
+        want = detect(images.float() / 255.0 * 2.0 - 1.0)
+        for a, b in zip(got, want):
+            assert torch.equal(a, b)
 
 
 def test_detect_runs_through_the_stem_kernel(card):

@@ -76,6 +76,22 @@ def test_leaky_relu_matches_jax():
         np.asarray(jx_layers.leaky_relu(jnp.asarray(x))))
 
 
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+def test_leaky_relu_bits_match_jax(dtype):
+    """Bit for bit on 2**16 seeded N(0, 4²) values. In bf16 alpha is
+    rounded to 0.10009765625 before the product, as JAX rounds its
+    weak-typed 0.1; a float32 0.1 put 6805 of these values one bf16 ulp
+    off. float32 is unchanged."""
+    x = np.random.RandomState(12).normal(0, 4, 2 ** 16).astype(np.float32)
+    got = pt_layers.leaky_relu(torch.from_numpy(x).to(getattr(torch, dtype)))
+    want = np.asarray(jx_layers.leaky_relu(
+        jnp.asarray(x).astype(getattr(jnp, dtype))))
+    bits = (torch.int16, np.int16) if dtype == "bfloat16" else \
+        (torch.int32, np.int32)
+    np.testing.assert_array_equal(got.view(bits[0]).numpy(),
+                                  want.view(bits[1]))
+
+
 def test_space_to_depth_matches_jax():
     x = np.random.RandomState(2).normal(0, 1, (2, 6, 4, 3)).astype(np.float32)
     np.testing.assert_array_equal(
@@ -154,6 +170,36 @@ def test_folded_detector_matches_unfolded_and_jax(detector):
                                         jnp.asarray(x), train=False))
     assert rel_err(folded, want_folded) <= REL_TOL_DETECTOR
     assert rel_err(folded, want) <= REL_TOL_DETECTOR
+
+
+def test_folded_bf16_detector_matches_flax(detector):
+    """The folded detector served in bf16 (``build_detector``'s cast) at
+    64² against flax's bf16 forward of the same folded weights (float32
+    parameters cast in each conv), relative norm. The two round their
+    float32 conv sums, summed in another order, to bf16 at each of 22
+    layers: measured 7.1e-3 (7.3e-3 with a float32 leaky slope), about
+    what each is from the float32 forward (flax 7.4e-3, the port 6.4e-3);
+    bound 1.5e-2."""
+    from tensorflow_yolo2_torch.config import YoloConfig
+    from tensorflow_yolo2_torch.entries.pascal_detect_darknet import (
+        build_detector,
+    )
+
+    x, variables, _ = detector
+    jfolded = jx_fold(variables["params"], variables["batch_stats"])
+    want = np.asarray(jx_darknet.Darknet19Detector(
+        output_channels=30, fold_bn=True, dtype=jnp.bfloat16).apply(
+        {"params": jfolded}, jnp.asarray(x).astype(jnp.bfloat16),
+        train=False))
+    model = build_detector(YoloConfig(S=2, image_size=64),
+                           convert.state_dict_from_flax(
+                               variables["params"], variables["batch_stats"]),
+                           dtype=torch.bfloat16, device="cpu")
+    with torch.no_grad():
+        got = model(torch.from_numpy(x).bfloat16())
+    assert got.shape == want.shape == (2, 2, 2, 30)
+    assert got.dtype == torch.float32 and want.dtype == np.float32
+    assert rel_err(got.numpy(), want) <= 1.5e-2
 
 
 def test_fold_params_matches_jax(detector):

@@ -37,6 +37,7 @@ from tensorflow_yolo2_torch.models import darknet as pt_darknet
 from tensorflow_yolo2_torch.models import fast_stem as pt_fast
 from tensorflow_yolo2_torch.models.layers import space_to_depth
 from tensorflow_yolo2_torch.ops import cuda_stem
+from tensorflow_yolo2_torch.utils import cuda_build
 from tensorflow_yolo2_tpu import config as jx_config
 from tensorflow_yolo2_tpu.entries import pascal_detect_darknet as jx_detect
 from tensorflow_yolo2_tpu.models import darknet as jx_darknet
@@ -222,6 +223,34 @@ def test_mma_fragment_layout():
                     assert torch.equal(frags[s, j, lane], b[k, 8 * j + g])
 
 
+@pytest.mark.parametrize("cin", [3, 32])
+def test_wgmma_tile_layout(cin):
+    """Every (k, n) of the (9·cin, O) bf16 matrix lies at the byte offset
+    that csrc/stem.cu's descriptor implies for wgmma's K-major B without
+    swizzle: core matrices of 8 columns × 16 bytes of k, WGMMA_LBO bytes
+    apart along K and WGMMA_SBO along N, a K step of 16 every
+    O/8·WGMMA_SBO bytes; K's padding to a multiple of 16 is zero."""
+    w = stem_weights(3)[0 if cin == 3 else 2]
+    k_rows, o = 9 * cin, w.shape[-1]
+    tiles = cuda_stem.wgmma_tiles(torch.from_numpy(w))
+    k_pad = -(-k_rows // 16) * 16
+    assert tiles.shape == (k_pad // 16, o // 8, 2, 8, 8)
+    assert tiles.dtype == torch.bfloat16 and tiles.is_contiguous()
+    flat = tiles.reshape(-1).view(torch.int16).numpy()
+    k, n = np.meshgrid(np.arange(k_rows), np.arange(o), indexing="ij")
+    byte = ((k // 16) * (o // 8) * cuda_stem.WGMMA_SBO
+            + (n // 8) * cuda_stem.WGMMA_SBO
+            + (k % 16) // 8 * cuda_stem.WGMMA_LBO + (n % 8) * 16
+            + (k % 8) * 2)
+    b = torch.from_numpy(w).reshape(k_rows, o).bfloat16()
+    np.testing.assert_array_equal(flat[byte // 2],
+                                  b.view(torch.int16).numpy())
+    pad = np.ones(flat.size, bool)
+    pad[byte.ravel() // 2] = False
+    assert pad.sum() == (k_pad - k_rows) * o
+    assert not flat[pad].any()
+
+
 def test_stem_on_folded_backbone_weights():
     """The stem on the folded conv1 / conv2 of a Darknet19Backbone, carried
     by the converter: the port's ``stem_weights`` against the JAX
@@ -270,6 +299,58 @@ def test_fused_detect_forward_matches_pallas(linear_output):
     assert got.shape == (2, 2, 2, cfg.cell_channels)
     np.testing.assert_allclose(got.numpy(), want, rtol=2e-4, atol=2e-4)
     assert rel_err(got.numpy(), stock.numpy()) <= 1e-5
+
+
+# what only each phase of a tile's work in csrc/stem.cu holds
+PHASE_MARKS = {"load": "sxin_words[(lr + 2 * i)", "conv1": "mma_bf16(acc[nt]",
+               "conv2": "wgmma_m64n64k16(acc"}
+
+
+@pytest.mark.parametrize("phase", sorted(chip_smoke.STEM_PHASES))
+def test_stem_phase_left_out(phase):
+    """``chip_smoke.py --stem-ab``'s copies of B4's source: leaving a
+    phase out takes its block, from its comment through its closing brace,
+    and nothing else, and the braces still balance."""
+    with open(cuda_build.source_path("stem")) as f:
+        text = f.read()
+    cut = chip_smoke.without_phases(text, [phase])
+    gone = set(text.split("\n")) - set(cut.split("\n"))
+    assert cut.count("{") == cut.count("}")
+    assert text.count("{") - cut.count("{") >= 2
+    assert any(line.startswith(chip_smoke.STEM_PHASES[phase])
+               for line in gone)
+    for other, mark in PHASE_MARKS.items():
+        assert (mark in cut) == (other != phase), other
+    assert chip_smoke.without_phases(text, []) == text
+
+
+def test_stem_variants(tmp_path):
+    """Each source whole (built from itself), each phase left out and each
+    alone (copies written out), and the weight layout it reads: wgmma
+    tiles, or mma.sync fragments for a source without wgmma."""
+    src = cuda_build.source_path("stem")
+    old = tmp_path / "stem_old.cu"
+    old.write_text(open(src).read().replace("wgmma.mma_async", "mma.sync"))
+    variants = chip_smoke.stem_variants([src, str(old)],
+                                        str(tmp_path / "ab"))
+    assert [v["name"] for v in variants[:7]] == [
+        "stem", "stem -load", "stem -conv1", "stem -conv2",
+        "stem, load alone", "stem, conv1 alone", "stem, conv2 alone"]
+    assert variants[0]["build"] == src and variants[7]["build"] == str(old)
+    assert [v["wgmma"] for v in variants] == [True] * 7 + [False] * 7
+    for v in variants:
+        assert v["source"] in (src, str(old))
+        if v["left_out"]:
+            assert open(v["build"]).read() == chip_smoke.without_phases(
+                open(v["source"]).read(), v["left_out"])
+
+
+@pytest.mark.parametrize("argv", [[], ["--stem-ab"], ["--stem-ab", "a.cu"]])
+def test_chip_smoke_refuses_without_a_card(argv, monkeypatch):
+    """Without a CUDA device the smoke run and the A/B run return 2 before
+    building or running anything."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    assert chip_smoke.main(argv) == 2
 
 
 def test_wrapper_checks_its_input():
