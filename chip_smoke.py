@@ -65,6 +65,15 @@ B4's plain version, and times them all in turns at batch 256, 448²
 how the phases are timed; an older B4 to compare with is written out with
 ``git show <commit>:tensorflow_yolo2_torch/csrc/stem.cu``.
 
+    python3 chip_smoke.py --decode-ab [OTHER_DECODE_CU ...]
+
+runs no smoke either: it builds csrc/decode.cu and the other decode
+sources given, holds each one's B1 and B2 to their plain versions on the
+real v1 448² and v2p 416² grids, and times them in turns at thresholds
+0.5 and 0.05, K=32 and K=1, batches 1, 32 and 256 (``decode_ab``); an
+older source is written out with ``git show
+<commit>:tensorflow_yolo2_torch/csrc/decode.cu``.
+
 Each path is driven with the launch counts set to 0 just before it and
 read just after; the ``launches`` of a kernel are those of its path.
 Exits non-zero, printing no result, without a CUDA device or if any phase
@@ -991,12 +1000,206 @@ def grid_rel_err(yolo, state, images, dev, pallas_stem: bool = False,
     return ((on_card - on_cpu).norm() / on_cpu.norm()).item()
 
 
+def serving_images() -> tuple[torch.Tensor, torch.Tensor]:
+    """Seeded uint8 batches of the serving paths: 448² and 416²."""
+    rng = np.random.RandomState(0)
+    return tuple(torch.from_numpy(rng.randint(
+        0, 256, (max(PATH_BATCHES), size, size, 3)).astype(np.uint8))
+        for size in (448, 416))
+
+
+def v1_detector():
+    """The v1 448² detector (S=14, B=2, C=20) with seeded weights: its
+    config and state dict."""
+    from tensorflow_yolo2_torch.config import YoloConfig
+    from tensorflow_yolo2_torch.models.darknet import (
+        Darknet19Detector,
+        randomize_,
+    )
+
+    yolo = YoloConfig(S=14, image_size=448)
+    model = Darknet19Detector(output_channels=yolo.cell_channels)
+    state = randomize_(model, torch.Generator().manual_seed(0)).state_dict()
+    # larger w, h roots (channels 24-25, 28-29: boxes ~0.3 wide, several
+    # cells at S=14) so that neighbouring boxes overlap and NMS has work
+    state["detection.output.bn.bias"][[24, 25, 28, 29]] += 0.5
+    return yolo, state
+
+
+def v2_detector(passthrough: bool):
+    """YOLOv2's VOC detector at 416² (S=13, B=5, C=20: 125 channels), the
+    passthrough head or the linear-output ``--v2`` head, with seeded
+    weights: its config and state dict."""
+    from tensorflow_yolo2_torch.config import yolo_v2_config
+    from tensorflow_yolo2_torch.models.darknet import (
+        Darknet19Detector,
+        Darknet19DetectorV2,
+        randomize_,
+    )
+
+    v2cfg = yolo_v2_config(416)
+    model = (Darknet19DetectorV2(v2cfg.cell_channels) if passthrough
+             else Darknet19Detector(v2cfg.cell_channels, bn_on_output=False))
+    state = randomize_(model, torch.Generator().manual_seed(1)).state_dict()
+    # a trained head's logits stay near its biases: scale the linear
+    # output conv, make every slot confident (conf logit +2) and class 0
+    # likely (+4), so that the grid keeps boxes at 0.05 and 0.5
+    state["detection.output.conv.weight"] *= 0.1
+    bias = state["detection.output.conv.bias"].view(5, 25)
+    bias[:, 4] += 2.0
+    bias[:, 5] += 4.0
+    return v2cfg, state
+
+
+# ``--decode-ab``: B1 and B2 from several decode sources, side by side
+DECODE_AB_BATCHES = (1, 32, BATCH)
+DECODE_AB_THRESHOLDS = (0.5, 0.05)
+DECODE_AB_KS = (K, 1)
+
+
+def kernel_registers(log: str, kernel: str) -> dict[str, str]:
+    """ptxas's registers and spills for each instance of ``kernel`` in a
+    build's output, by mangled name."""
+    out, name = {}, None
+    for line in log.splitlines():
+        if "Compiling entry function" in line:
+            name = line.split("'")[1] if kernel in line else None
+        elif name and ("registers" in line or "spill" in line):
+            out[name] = (out.get(name, "") + " " + line.split(":", 1)[-1]
+                         .strip()).strip()
+    return out
+
+
+def decode_ab(sources: list[str], card: str) -> int:
+    """Builds each decode source (csrc/decode.cu first), prints ptxas's
+    registers and spills for ``decode_nms_kernel`` and, where the source
+    exports it, the launch geometry and blocks an SM at v1 448² and v2p
+    416²; holds each source's B1 and B2 to their plain versions on the
+    real v1 448² and v2p 416² grids at batch 256 (thresholds 0.05 and 0.5,
+    K=32 and K=n, class-aware NMS on and off); prints how many candidates
+    an image has and how many the greedy scan visits before its K-th pick;
+    then times B1 and B2 of every source in AB_ROUNDS rounds, in turns
+    (CUDA-graph replays), at each of DECODE_AB_THRESHOLDS ×
+    DECODE_AB_KS × DECODE_AB_BATCHES. Prints a line a cell, then one JSON
+    object. Returns 1 if a source fails its check, else 0."""
+    from tensorflow_yolo2_torch.ops import cuda_decode as cd
+    from tensorflow_yolo2_torch.ops.boxes import decode_grid_v2
+    from tensorflow_yolo2_torch.utils import cuda_build
+
+    dev = torch.device("cuda")
+    t0 = time.perf_counter()
+    logs = cuda_build.build(sources)
+    print(f"build: {time.perf_counter() - t0:.1f} s for {len(sources)} "
+          f"sources")
+    libs, rows = {}, {}
+    for src in sources:
+        libs[src] = cd.bind(ctypes.CDLL(cuda_build.library_path(src)))
+        rows[src] = {"source": src, "registers": kernel_registers(
+            logs[src], "decode_nms_kernel")}
+        for name, regs in rows[src]["registers"].items():
+            print(f"[{src}] {name}: {regs}")
+        if hasattr(libs[src], "tfy2_decode_nms_occupancy"):
+            rows[src]["geometry"] = {}
+            for head, shape in (("v1 448²", (14, 2, 20, 0)),
+                                ("v2p 416²", (13, 5, 20, 1))):
+                out = (ctypes.c_int * 4)()
+                err = libs[src].tfy2_decode_nms_occupancy(*shape, out)
+                check(err == 0, f"tfy2_decode_nms_occupancy {shape}")
+                geo = dict(zip(("threads", "smem_bytes", "chunks",
+                                "blocks_per_sm"), out))
+                rows[src]["geometry"][head] = geo
+                print(f"[{src}] {head}: {geo}")
+
+    images, v2_images = serving_images()
+    yolo, v1_state = v1_detector()
+    v2cfg, v2_state = v2_detector(passthrough=True)
+    heads = {
+        "decode_nms": (yolo, card_grid(yolo, v1_state, images[:BATCH], dev),
+                       cd.decode_nms_plain),
+        "decode_nms_v2": (v2cfg, card_grid(v2cfg, v2_state,
+                                           v2_images[:BATCH], dev, v2=True,
+                                           passthrough=True),
+                          cd.decode_nms_v2_plain)}
+    stats = {}
+    for name, (cfg, grid, plain) in heads.items():
+        n = cfg.S * cfg.S * cfg.B
+        for thresh in DECODE_AB_THRESHOLDS:
+            dense = (decode_grid_v2(grid, cfg, thresh) if cfg.per_slot_classes
+                     else cd.decode_grid_plain(grid, cfg, thresh))
+            alive = dense.scores.sort(dim=1, descending=True).values
+            m = (alive > 0).sum(1)
+            kept = plain(grid, cfg, thresh, 0.5, K).scores
+            # the scan's last candidate: the K-th pick, or the end
+            last = kept[:, -1:].clamp(min=1e-30)
+            visited = torch.where(kept[:, -1] > 0, (alive >= last).sum(1), m)
+            survivors = (plain(grid, cfg, thresh, 0.5, n).scores > 0).sum(1)
+            stats[f"{name} {thresh}"] = s = {
+                "candidates": m.float().mean().item(),
+                "visited_before_kth_pick": visited.float().mean().item(),
+                "survivors_at_k_n": survivors.float().mean().item()}
+            print(f"{name}, threshold {thresh}: {s['candidates']:.1f} "
+                  f"candidates an image, the scan visits "
+                  f"{s['visited_before_kth_pick']:.1f} up to its {K}th pick "
+                  f"(at or above its score), {s['survivors_at_k_n']:.1f} "
+                  f"survive NMS at K=n")
+
+    ok = True
+    for name, (cfg, grid, plain) in heads.items():
+        n = cfg.S * cfg.S * cfg.B
+        for thresh, k, class_aware in itertools.product(
+                DECODE_AB_THRESHOLDS, (K, n), (True, False)):
+            want = plain(grid, cfg, thresh, 0.5, k, class_aware)
+            for src, lib in libs.items():
+                with mock.patch.object(cd, "_lib", lambda: lib):
+                    try:
+                        compare_kept(cd.decode_nms_fused(
+                            grid, cfg, thresh, 0.5, k, class_aware), want,
+                            name)
+                    except RuntimeError as e:
+                        print(f"[{src}] {e} (threshold {thresh}, K={k}, "
+                              f"class_aware {class_aware})")
+                        rows[src]["check"] = False
+                        ok = False
+        torch.cuda.synchronize()
+    for row in rows.values():
+        row.setdefault("check", True)
+
+    cells = []
+    for (name, (cfg, grid, _)), thresh, k, batch in itertools.product(
+            heads.items(), DECODE_AB_THRESHOLDS, DECODE_AB_KS,
+            DECODE_AB_BATCHES):
+        g = grid[:batch]
+        runs = {src: [] for src in sources}
+        for r in range(AB_ROUNDS):
+            for src in (sources if r % 2 == 0 else sources[::-1]):
+                with mock.patch.object(cd, "_lib", lambda: libs[src]):
+                    runs[src].append(graph_ms(lambda: cd.decode_nms_fused(
+                        g, cfg, thresh, 0.5, k)))
+        means = {src: sum(v) / len(v) for src, v in runs.items()}
+        cells.append({"kernel": name, "threshold": thresh, "K": k,
+                      "batch": batch, "us": {s: t * 1e3 for s, t in
+                                             means.items()},
+                      "runs_us": {s: [t * 1e3 for t in v]
+                                  for s, v in runs.items()}})
+        print(f"{name}, threshold {thresh}, K={k}, batch {batch}: " + ", ".join(
+            f"{os.path.basename(src)} {means[src] * 1e3:.2f} us"
+            for src in sources))
+    print(json.dumps({"card": card, "sources": list(rows.values()),
+                      "scan": stats, "cells": cells}))
+    return 0 if ok else 1
+
+
 def main(argv: list[str] | None = None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument(
         "--stem-ab", nargs="*", metavar="STEM_CU",
         help="instead of the smoke run, time csrc/stem.cu and these other "
         "B4 sources side by side, whole and by phase (stem_ab)")
+    parser.add_argument(
+        "--decode-ab", nargs="*", metavar="DECODE_CU",
+        help="instead of the smoke run, check and time B1 and B2 of "
+        "csrc/decode.cu and these other decode sources side by side "
+        "(decode_ab)")
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
@@ -1005,11 +1208,6 @@ def main(argv: list[str] | None = None) -> int:
     from tensorflow_yolo2_torch.config import YoloConfig, yolo_v2_config
     from tensorflow_yolo2_torch.entries.pascal_detect_darknet import (
         make_detect_fn,
-    )
-    from tensorflow_yolo2_torch.models.darknet import (
-        Darknet19Detector,
-        Darknet19DetectorV2,
-        randomize_,
     )
     from tensorflow_yolo2_torch.ops import cuda_decode as cd
     from tensorflow_yolo2_torch.ops.boxes import decode_grid_v2
@@ -1031,6 +1229,9 @@ def main(argv: list[str] | None = None) -> int:
     if args.stem_ab is not None:
         return stem_ab([os.path.join(cuda_build.CSRC_DIR, "stem.cu"),
                         *args.stem_ab], card)
+    if args.decode_ab is not None:
+        return decode_ab([cuda_build.source_path("decode"), *args.decode_ab],
+                         card)
     t0 = time.perf_counter()
     logs = cuda_build.build()
     print(f"build: {time.perf_counter() - t0:.1f} s for "
@@ -1082,17 +1283,10 @@ def main(argv: list[str] | None = None) -> int:
           f"float32), on ties, odd C and small maps (max abs err "
           f"{errs['max_pool2_bwd']})")
 
-    rng = np.random.RandomState(0)
-    images = torch.from_numpy(rng.randint(
-        0, 256, (max(PATH_BATCHES), 448, 448, 3)).astype(np.uint8))
+    images, v2_images = serving_images()
 
     # 3. the v1 serving path at full width (the main path) -------------------
-    yolo = YoloConfig(S=14, image_size=448)
-    model = Darknet19Detector(output_channels=yolo.cell_channels)
-    state = randomize_(model, torch.Generator().manual_seed(0)).state_dict()
-    # larger w, h roots (channels 24-25, 28-29: boxes ~0.3 wide, several
-    # cells at S=14) so that neighbouring boxes overlap and NMS has work
-    state["detection.output.bn.bias"][[24, 25, 28, 29]] += 0.5
+    yolo, state = v1_detector()
     v1_state = state
     batch = images[:16]
 
@@ -1150,24 +1344,10 @@ def main(argv: list[str] | None = None) -> int:
           f"{errs})")
 
     # 4. the anchor serving paths at full width: YOLOv2 at 416² -------------
-    v2cfg = yolo_v2_config(416)  # S=13, B=5, C=20: 125 channels
-    n = v2cfg.S * v2cfg.S * v2cfg.B
-    v2_images = torch.from_numpy(rng.randint(
-        0, 256, (max(PATH_BATCHES), 416, 416, 3)).astype(np.uint8))
     for head in ("v2p", "v2"):
         passthrough = head == "v2p"
-        model = (Darknet19DetectorV2(v2cfg.cell_channels) if passthrough
-                 else Darknet19Detector(v2cfg.cell_channels,
-                                        bn_on_output=False))
-        state = randomize_(model, torch.Generator().manual_seed(1)
-                           ).state_dict()
-        # a trained head's logits stay near its biases: scale the linear
-        # output conv, make every slot confident (conf logit +2) and class
-        # 0 likely (+4), so that the grid keeps boxes at 0.05 and 0.5
-        state["detection.output.conv.weight"] *= 0.1
-        bias = state["detection.output.conv.bias"].view(5, 25)
-        bias[:, 4] += 2.0
-        bias[:, 5] += 4.0
+        v2cfg, state = v2_detector(passthrough)
+        n = v2cfg.S * v2cfg.S * v2cfg.B
         kw = {"v2": True, "passthrough": passthrough}
         detect_nms = make_detect_fn(v2cfg, state, object_thresh=0.5,
                                     use_nms=True, **kw)

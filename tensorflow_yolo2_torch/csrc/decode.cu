@@ -26,8 +26,12 @@
 namespace {
 
 constexpr int kDecodeThreads = 128;
-constexpr int kMaxBlockThreads = 1024;
+constexpr int kNmsMaxThreads = 512;  // two blocks an SM at <= 64 registers a thread
+constexpr int kMaxSlots = 4096;      // slots an image that decode + NMS takes
 constexpr int kMaxSharedBytes = 227 * 1024;
+constexpr int kChunkBytes = 48 * 1024;  // at most a chunk of the grid staged at once
+constexpr int kBuckets = 256;           // of the sort by score
+constexpr unsigned kFull = 0xFFFFFFFFu;
 
 struct Box {
   float x1, y1, x2, y2, area;
@@ -59,15 +63,6 @@ __device__ __forceinline__ Box decode_box(const float* cell, int C, int B, int b
 // 1 / (1 + exp(-x)), as ops.boxes.sigmoid writes it.
 __device__ __forceinline__ float sigmoid(float x) {
   return __fdiv_rn(1.0f, __fadd_rn(1.0f, expf(-x)));
-}
-
-// Maximum of v over the warp, in every lane.
-__device__ __forceinline__ unsigned long long warp_max(unsigned long long v) {
-  for (int off = 16; off > 0; off >>= 1) {
-    const unsigned long long other = __shfl_xor_sync(0xFFFFFFFFu, v, off);
-    v = other > v ? other : v;
-  }
-  return v;
 }
 
 // Strict '>' sweep from class 0: the first maximum wins.
@@ -115,7 +110,8 @@ __global__ void decode_grid_kernel(const float* __restrict__ net,
   }
 }
 
-// One decoded slot: corners and area, thresholded score, class.
+// One decoded slot: corners and area, thresholded score, class. The box
+// and class are set only for a score > 0: no other slot takes part in NMS.
 struct Slot {
   Box box;
   float score;
@@ -130,225 +126,447 @@ struct DecodeArgs {
 };
 
 // v1 decode: bare-confidence threshold, one argmax per cell for its B
-// slots. The B slots of a cell read the same class scores, so the image's
-// grid is staged in shared memory first.
+// slots. cell points at the channels of cell cell_idx.
 struct GridDecode {
-  static constexpr bool kStage = true;
   __host__ __device__ static int channels(int B, int C) { return C + 5 * B; }
-  __device__ static Slot slot(const float* grid, const DecodeArgs& a, int b,
-                              int cell_idx) {
-    const float* cell = grid + cell_idx * channels(a.B, a.C);
+  __device__ static Slot slot(const float* cell, const DecodeArgs& a, int b, int cell_idx) {
     Slot s;
-    s.box = decode_box(cell, a.C, a.B, b, cell_idx / a.S, cell_idx % a.S, (float)a.S);
-    s.cls = class_argmax(cell, a.C);
     const float conf = cell[a.C + b];
     s.score = conf > a.thresh ? conf : 0.0f;
+    if (s.score > 0.0f) {
+      s.box = decode_box(cell, a.C, a.B, b, cell_idx / a.S, cell_idx % a.S, (float)a.S);
+      s.cls = class_argmax(cell, a.C);
+    }
     return s;
   }
 };
 
 // Anchor decode (_decode_nms_v2_kernel): sigmoid xy + offsets,
 // (anchor * exp(clip(t, -8, 8))) / S wh, per-slot argmax, score
-// sigmoid(conf) / sum_c exp(l_c - l_max) summed from c = 0. Each slot owns
-// its 5 + C channels, so a thread reads them from global memory itself
-// and shared memory holds only the decoded slots: every grid of at most
-// 4096 slots runs (S <= 28 at B = 5; 608² is S = 19).
+// sigmoid(conf) / sum_c exp(l_c - l_max) summed from c = 0. The sum holds
+// exp(0) = 1 and rounds up from there, so the score is at most
+// sigmoid(conf): a slot whose sigmoid(conf) is not above the threshold
+// scores 0 whatever its logits, and is not decoded further.
 struct AnchorDecode {
-  static constexpr bool kStage = false;
   __host__ __device__ static int channels(int B, int C) { return B * (5 + C); }
-  __device__ static Slot slot(const float* grid, const DecodeArgs& a, int b,
-                              int cell_idx) {
-    const float* raw = grid + (size_t)cell_idx * channels(a.B, a.C) + b * (5 + a.C);
-    const float fS = (float)a.S;
-    const float tw = fminf(fmaxf(raw[2], -8.0f), 8.0f);
-    const float th = fminf(fmaxf(raw[3], -8.0f), 8.0f);
+  __device__ static Slot slot(const float* cell, const DecodeArgs& a, int b, int cell_idx) {
+    const float* raw = cell + b * (5 + a.C);
     Slot s;
-    s.box = corners(__fdiv_rn(__fadd_rn(sigmoid(raw[0]), (float)(cell_idx % a.S)), fS),
-                    __fdiv_rn(__fadd_rn(sigmoid(raw[1]), (float)(cell_idx / a.S)), fS),
-                    __fdiv_rn(__fmul_rn(a.anchors[2 * b], expf(tw)), fS),
-                    __fdiv_rn(__fmul_rn(a.anchors[2 * b + 1], expf(th)), fS));
+    s.score = 0.0f;
+    const float obj = sigmoid(raw[4]);
+    if (!(obj > a.thresh && obj > 0.0f)) return s;
     const float* logits = raw + 5;
     s.cls = class_argmax(logits, a.C);
     const float best = logits[s.cls];
     float denom = 0.0f;
     for (int c = 0; c < a.C; ++c) denom = __fadd_rn(denom, expf(__fsub_rn(logits[c], best)));
-    const float score = __fdiv_rn(sigmoid(raw[4]), denom);
+    const float score = __fdiv_rn(obj, denom);
     s.score = score > a.thresh ? score : 0.0f;
+    if (s.score > 0.0f) {
+      const float fS = (float)a.S;
+      const float tw = fminf(fmaxf(raw[2], -8.0f), 8.0f);
+      const float th = fminf(fmaxf(raw[3], -8.0f), 8.0f);
+      s.box = corners(__fdiv_rn(__fadd_rn(sigmoid(raw[0]), (float)(cell_idx % a.S)), fS),
+                      __fdiv_rn(__fadd_rn(sigmoid(raw[1]), (float)(cell_idx / a.S)), fS),
+                      __fdiv_rn(__fmul_rn(a.anchors[2 * b], expf(tw)), fS),
+                      __fdiv_rn(__fmul_rn(a.anchors[2 * b + 1], expf(th)), fS));
+    }
     return s;
   }
 };
 
-// Decode + greedy NMS, for either decode. One block per image; thread t
-// owns the slots with key t, t + blockDim, ... (key = b*S*S + cell, the TPU
-// kernel's order) and keeps their corners, area, score, class and alive
-// flag in registers.
+// A box as the NMS sees it: corners, the decode's w*h (its area as a
+// candidate), the area from its corners (its area as the picked box), class.
+struct Cand {
+  float x1, y1, x2, y2, area, carea;
+  int cls;
+};
+
+// Whether the picked box p suppresses the candidate c: the TPU sweep's
+// IoU, bit for bit, and its class rule. Two shortcuts give the same
+// answer: a class mismatch under class_aware, and inter == 0, where
+// 0 / max(uni, 1e-10) is 0 for every uni, so the IoU exceeds only a
+// negative threshold.
+__device__ __forceinline__ bool suppresses(const Cand& p, const Cand& c, float iou_thresh,
+                                           int class_aware) {
+  if (class_aware && c.cls != p.cls) return false;
+  const float iw = fmaxf(0.0f, __fsub_rn(fminf(c.x2, p.x2), fmaxf(c.x1, p.x1)));
+  const float ih = fmaxf(0.0f, __fsub_rn(fminf(c.y2, p.y2), fmaxf(c.y1, p.y1)));
+  const float inter = __fmul_rn(iw, ih);
+  if (inter == 0.0f) return 0.0f > iou_thresh;
+  const float uni = fmaxf(__fsub_rn(__fadd_rn(c.area, p.carea), inter), 1e-10f);
+  return fminf(fmaxf(__fdiv_rn(inter, uni), 0.0f), 1.0f) > iou_thresh;
+}
+
+__device__ __forceinline__ Cand shfl_cand(const Cand& c, int src) {
+  Cand o;
+  o.x1 = __shfl_sync(kFull, c.x1, src);
+  o.y1 = __shfl_sync(kFull, c.y1, src);
+  o.x2 = __shfl_sync(kFull, c.x2, src);
+  o.y2 = __shfl_sync(kFull, c.y2, src);
+  o.area = __shfl_sync(kFull, c.area, src);
+  o.carea = __shfl_sync(kFull, c.carea, src);
+  o.cls = __shfl_sync(kFull, c.cls, src);
+  return o;
+}
+
+// Copies from global to shared memory that run while the block computes
+// (cp.async, 4 or 16 bytes), waited for a committed group at a time.
+template <int Bytes>
+__device__ __forceinline__ void copy_async(float* dst, const float* src) {
+  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+  if (Bytes == 16)
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d), "l"(src) : "memory");
+  else
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(d), "l"(src) : "memory");
+}
+
+__device__ __forceinline__ void copy_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int Pending>
+__device__ __forceinline__ void copy_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(Pending) : "memory");
+}
+
+// Floats of a buffer that stages chunk_cells cells of CC channels: up to
+// 3 floats of alignment shift before them, rounded up to 16 bytes.
+__host__ __device__ inline int chunk_floats(int chunk_cells, int CC) {
+  return (chunk_cells * CC + 6) & ~3;
+}
+
+// Shared memory of decode_nms_kernel, in bytes from its start: a region
+// that holds the two chunk buffers during the decode, then the sort's
+// scattered keys and buckets, then the picks; the list of keys; the
+// decoded slots by key; a few words.
+struct NmsSmem {
+  size_t keys, slots, words, total;
+  __host__ __device__ NmsSmem(int n, int buffer_floats) {
+    const size_t sort = 8 * (size_t)n + 2 * kBuckets * sizeof(int);
+    const size_t region = 8 * (size_t)buffer_floats > sort ? 8 * (size_t)buffer_floats : sort;
+    keys = (region + 15) & ~(size_t)15;
+    slots = keys + 8 * (size_t)n;
+    words = slots + 24 * (size_t)n;
+    total = words + 5 * 32 * sizeof(int) + 16;
+  }
+};
+
+// Decode + greedy NMS for either decode, one block per image.
 //
-// Each of the K steps is one block-wide max of the packed 64-bit key
-// (float bits of the score << 32) | (0xFFFFFFFF - key): alive scores are
-// > 0, so their bit patterns order like the floats and the maximum is
-// "highest score, then lowest key". The per-warp maxima go through a
-// double-buffered shared array, so a step costs one __syncthreads, and
-// each warp reduces them with shuffles rather than every thread reading
-// all of them in turn.
-// The picked box is read back from the decoded slots in shared memory.
-// The sweep, not the decode or the bytes, bounds the kernel.
-// __launch_bounds__ caps registers at 64 a thread so that 1024 threads
-// fit on an SM: without it the 4-slot variant does not launch.
-template <class Decode, int SPT>
-__global__ void __launch_bounds__(kMaxBlockThreads)
+// 1. The image's grid is staged in shared memory a chunk of chunk_cells
+//    cells at a time, by asynchronous 16-byte copies on neighbouring
+//    addresses into two buffers: the block decodes a chunk while the next
+//    one arrives.
+// 2. The block's threads decode a chunk's slots (key = b*S*S + cell, the
+//    TPU kernel's order), neighbouring threads on neighbouring cells. An
+//    alive slot (score > 0) keeps its box by key and appends its packed
+//    key (float bits of the score << 32) | (0xFFFFFFFF - key) to a list.
+//    Alive scores are > 0, so the packed keys order like "highest score,
+//    then lowest key", the order in which the TPU sweep picks, and they
+//    are unique.
+// 3. The list is sorted once, highest first, by buckets of the score's
+//    bits: a histogram of 256 buckets between the highest and lowest
+//    score, a prefix sum, a scatter, and each key ranked by counting the
+//    larger keys of its own bucket (a few, unless many scores are equal).
+// 4. The greedy scan walks the sorted list in chunks of 32. A candidate is
+//    picked when no earlier pick suppresses it. For a chunk, every warp
+//    tests chunk members against the picks so far and against the members
+//    before them (one test a lane, the results as ballots); then every warp
+//    resolves the chunk from those bits alone: a member is picked once all
+//    members before it that could suppress it are decided and none was
+//    picked. Two block barriers a chunk, none a pick; the scan stops at K
+//    picks or at the end of the list, which is the TPU sweep's result: its
+//    next pick is always the highest alive key.
+//
+// The scan's work is the candidates it visits times the picks before
+// them, not K times all slots. What bounds the kernel: the grid's bytes
+// (staging), then the scan's chunks, two barriers each, of the image that
+// visits the most candidates before its K-th pick.
+template <class Decode>
+__global__ void __launch_bounds__(kNmsMaxThreads, 2)
     decode_nms_kernel(DecodeArgs a, float* __restrict__ out_boxes,
                       float* __restrict__ out_scores, int* __restrict__ out_classes,
-                      float iou_thresh, int K, int class_aware) {
-  extern __shared__ unsigned long long smem[];
+                      float iou_thresh, int K, int class_aware, int chunk_cells) {
+  extern __shared__ __align__(16) unsigned char smem[];
   const int SS = a.S * a.S, CC = Decode::channels(a.B, a.C), n = SS * a.B;
-  unsigned long long* warp_best = smem;  // 2 x 32
-  float* staged = reinterpret_cast<float*>(smem + 64);
-  float* sx1 = staged + (Decode::kStage ? SS * CC : 0);
-  float* sy1 = sx1 + n;
-  float* sx2 = sy1 + n;
-  float* sy2 = sx2 + n;
-  int* scls = reinterpret_cast<int*>(sy2 + n);
+  const int tid = threadIdx.x, T = blockDim.x;
+  const int lane = tid & 31, warp = tid >> 5, nwarps = T >> 5;
+  const int buffer_floats = chunk_floats(chunk_cells, CC);
+  const NmsSmem lay(n, buffer_floats);
+  unsigned long long* region = reinterpret_cast<unsigned long long*>(smem);
+  unsigned long long* keys = reinterpret_cast<unsigned long long*>(smem + lay.keys);
+  float* fx1 = reinterpret_cast<float*>(smem + lay.slots);
+  float* fy1 = fx1 + n;
+  float* fx2 = fy1 + n;
+  float* fy2 = fx2 + n;
+  float* farea = fy2 + n;
+  int* fcls = reinterpret_cast<int*>(farea + n);
+  unsigned* smask = reinterpret_cast<unsigned*>(smem + lay.words);  // 32
+  int* sdead = reinterpret_cast<int*>(smask + 32);                   // 32
+  unsigned* wmax = reinterpret_cast<unsigned*>(sdead + 32);          // 32
+  unsigned* wmin = wmax + 32;                                        // 32
+  int* scount = reinterpret_cast<int*>(wmin + 32);
 
   const int img = blockIdx.x;
   const float* grid = a.net + (size_t)img * SS * CC;
-  if (Decode::kStage) {
-    for (int i = threadIdx.x; i < SS * CC; i += blockDim.x) staged[i] = grid[i];
-    grid = staged;
-    __syncthreads();
-  }
+  if (tid == 0) *scount = 0;
 
-  float x1[SPT], y1[SPT], x2[SPT], y2[SPT], area[SPT], score[SPT];
-  int cls[SPT];
-  bool alive[SPT];
+  // chunk ch: cells [ch * chunk_cells, ...) into buffer ch % 2, at the
+  // same offset mod 16 bytes as in global memory
+  const int nchunks = (SS + chunk_cells - 1) / chunk_cells;
+  const auto shift = [&](int ch) {
+    return (int)((reinterpret_cast<size_t>(grid + (size_t)ch * chunk_cells * CC) >> 2) & 3);
+  };
+  const auto buffer = [&](int ch) {
+    return reinterpret_cast<float*>(smem) + (ch & 1) * buffer_floats + shift(ch);
+  };
+  const auto stage = [&](int ch) {
+    const float* src = grid + (size_t)ch * chunk_cells * CC;
+    float* dst = buffer(ch);
+    const int count = (min(SS, (ch + 1) * chunk_cells) - ch * chunk_cells) * CC;
+    const int head = min((4 - shift(ch)) & 3, count);
+    const int nvec = (count - head) >> 2;
+    for (int q = tid; q < nvec; q += T) copy_async<16>(dst + head + 4 * q, src + head + 4 * q);
+    if (tid < head) copy_async<4>(dst + tid, src + tid);
+    if (head + 4 * nvec + tid < count)
+      copy_async<4>(dst + head + 4 * nvec + tid, src + head + 4 * nvec + tid);
+    copy_commit();
+  };
+
+  // decode; alive slots append their packed keys, a warp at a time
+  stage(0);
+  for (int ch = 0; ch < nchunks; ++ch) {
+    if (ch + 1 < nchunks) {
+      stage(ch + 1);
+      copy_wait<1>();
+    } else {
+      copy_wait<0>();
+    }
+    __syncthreads();
+    const int c0 = ch * chunk_cells, cells = min(SS - c0, chunk_cells);
+    const float* chunk = buffer(ch);
+    for (int base = 0; base < a.B * cells; base += T) {
+      const int i = base + tid;
+      unsigned long long packed = 0;
+      if (i < a.B * cells) {
+        const int b = i / cells, cell = c0 + i % cells, key = b * SS + cell;
+        const Slot s = Decode::slot(chunk + (cell - c0) * CC, a, b, cell);
+        if (s.score > 0.0f) {
+          fx1[key] = s.box.x1;
+          fy1[key] = s.box.y1;
+          fx2[key] = s.box.x2;
+          fy2[key] = s.box.y2;
+          farea[key] = s.box.area;
+          fcls[key] = s.cls;
+          packed = ((unsigned long long)__float_as_uint(s.score) << 32) | (0xFFFFFFFFu - key);
+        }
+      }
+      const unsigned alive = __ballot_sync(kFull, packed != 0);
+      int at = 0;
+      if (lane == 0 && alive != 0) at = atomicAdd(scount, __popc(alive));
+      at = __shfl_sync(kFull, at, 0);
+      if (packed != 0) keys[at + __popc(alive & ((1u << lane) - 1))] = packed;
+    }
+    __syncthreads();  // the buffer is staged into again two chunks on
+  }
+  const int m = *scount;
+
+  // sort, highest key first; the chunk buffers are no longer read
+  unsigned long long* spread = region;  // the keys, bucket by bucket
+  int* first = reinterpret_cast<int*>(region + n);  // each bucket's first position
+  int* next = first + kBuckets;                      // counts, then fill cursors
+  unsigned hi = 0, lo = 0xFFFFFFFFu;  // the scores' bits
+  for (int p = tid; p < m; p += T) {
+    const unsigned bits = (unsigned)(keys[p] >> 32);
+    hi = max(hi, bits);
+    lo = min(lo, bits);
+  }
+  hi = __reduce_max_sync(kFull, hi);
+  lo = __reduce_min_sync(kFull, lo);
+  if (lane == 0) {
+    wmax[warp] = hi;
+    wmin[warp] = lo;
+  }
+  for (int b = tid; b < kBuckets; b += T) next[b] = 0;
+  __syncthreads();
+  for (int w = 0; w < nwarps; ++w) {
+    hi = max(hi, wmax[w]);
+    lo = min(lo, wmin[w]);
+  }
+  // bucket 0 holds the highest scores; the span of the bits fits 8 bits
+  const unsigned span = hi - lo;
+  const int drop = span < kBuckets ? 0 : 24 - __clz(span);
+  const auto bucket = [&](unsigned long long key) {
+    return (int)((hi - (unsigned)(key >> 32)) >> drop);
+  };
+  for (int p = tid; p < m; p += T) atomicAdd(&next[bucket(keys[p])], 1);
+  __syncthreads();
+  if (warp == 0) {  // exclusive prefix sum of the counts, 8 buckets a lane
+    constexpr int kEach = kBuckets / 32;
+    int count[kEach], sum = 0;
 #pragma unroll
-  for (int j = 0; j < SPT; ++j) {
-    const int key = threadIdx.x + j * blockDim.x;
-    alive[j] = false;
-    score[j] = 0.0f;
-    x1[j] = y1[j] = x2[j] = y2[j] = area[j] = 0.0f;
-    cls[j] = 0;
-    if (key < n) {
-      const Slot s = Decode::slot(grid, a, key / SS, key % SS);
-      x1[j] = s.box.x1;
-      y1[j] = s.box.y1;
-      x2[j] = s.box.x2;
-      y2[j] = s.box.y2;
-      area[j] = s.box.area;
-      cls[j] = s.cls;
-      score[j] = s.score;
-      alive[j] = s.score > 0.0f;
-      sx1[key] = s.box.x1;
-      sy1[key] = s.box.y1;
-      sx2[key] = s.box.x2;
-      sy2[key] = s.box.y2;
-      scls[key] = s.cls;
+    for (int i = 0; i < kEach; ++i) sum += count[i] = next[kEach * lane + i];
+    int before = sum;
+    for (int d = 1; d < 32; d <<= 1) {
+      const int v = __shfl_up_sync(kFull, before, d);
+      if (lane >= d) before += v;
+    }
+    before -= sum;
+#pragma unroll
+    for (int i = 0; i < kEach; ++i) {
+      first[kEach * lane + i] = next[kEach * lane + i] = before;
+      before += count[i];
     }
   }
   __syncthreads();
+  for (int p = tid; p < m; p += T) {
+    const unsigned long long key = keys[p];
+    spread[atomicAdd(&next[bucket(key)], 1)] = key;
+  }
+  __syncthreads();
+  for (int p = tid; p < m; p += T) {  // rank within the bucket
+    const unsigned long long key = spread[p];
+    const int b = bucket(key), end = next[b];
+    int at = first[b];
+    for (int q = first[b]; q < end; ++q) at += spread[q] > key;
+    keys[at] = key;
+  }
+  __syncthreads();
+  const unsigned long long* sorted = keys;
+  int* picks = reinterpret_cast<int*>(region);  // the slots picked, in order
 
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int nwarps = blockDim.x >> 5;
   float* ob = out_boxes + (size_t)img * K * 4;
   float* os = out_scores + (size_t)img * K;
   int* oc = out_classes + (size_t)img * K;
-
-  for (int k = 0; k < K; ++k) {
-    unsigned long long best = 0;
-#pragma unroll
-    for (int j = 0; j < SPT; ++j) {
-      if (alive[j]) {
-        const unsigned key = threadIdx.x + j * blockDim.x;
-        const unsigned long long packed =
-            ((unsigned long long)__float_as_uint(score[j]) << 32) | (0xFFFFFFFFu - key);
-        best = packed > best ? packed : best;
+  // the decoded slot s as a candidate
+  const auto load = [&](int s) {
+    return Cand{fx1[s], fy1[s], fx2[s], fy2[s], farea[s],
+                __fmul_rn(__fsub_rn(fx2[s], fx1[s]), __fsub_rn(fy2[s], fy1[s])), fcls[s]};
+  };
+  int npicks = 0;
+  for (int t = 0; t < m && npicks < K; t += 32) {
+    const int c = min(32, m - t);
+    // lane l holds chunk member l
+    Cand mine{};
+    unsigned long long mkey = 0;
+    if (lane < c) {
+      mkey = sorted[t + lane];
+      mine = load((int)(0xFFFFFFFFu - (unsigned)mkey));
+    }
+    // tests, a member j a warp at a time: lane l tests whether member l
+    // (for l < j) and picks l, l + 32, ... suppress member j
+    Cand pick{};
+    if (lane < npicks) pick = load(picks[lane]);
+    for (int j = warp; j < c; j += nwarps) {
+      const Cand cj = shfl_cand(mine, j);
+      const bool by_member = lane < j && suppresses(mine, cj, iou_thresh, class_aware);
+      bool by_pick = lane < npicks && suppresses(pick, cj, iou_thresh, class_aware);
+      for (int i = lane + 32; i < npicks && !by_pick; i += 32)
+        by_pick = suppresses(load(picks[i]), cj, iou_thresh, class_aware);
+      const unsigned mask = __ballot_sync(kFull, by_member);
+      const bool dead = __any_sync(kFull, by_pick);
+      if (lane == 0) {
+        smask[j] = mask;
+        sdead[j] = dead;
       }
     }
-    best = warp_max(best);
-    unsigned long long* buf = warp_best + (k & 1) * 32;
-    if (lane == 0) buf[warp] = best;
     __syncthreads();
-    best = warp_max(lane < nwarps ? buf[lane] : 0ull);
-
-    if (best == 0) {  // nothing alive: this and every later slot stays empty
-      for (int i = k + threadIdx.x; i < K; i += blockDim.x) {
-        os[i] = 0.0f;
-        oc[i] = 0;
-        reinterpret_cast<float4*>(ob)[i] = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+    // every warp resolves the chunk from the bits
+    const unsigned before = lane < c ? smask[lane] : 0u;
+    unsigned picked = 0;
+    unsigned decided = __ballot_sync(kFull, lane >= c || sdead[lane]);
+    while (~(picked | decided) != 0) {
+      const unsigned open = ~(picked | decided);
+      const bool mine_open = (open >> lane) & 1u;
+      const bool take = mine_open && (before & (picked | open)) == 0;
+      const bool drop = mine_open && (before & picked) != 0;
+      picked |= __ballot_sync(kFull, take);
+      decided |= __ballot_sync(kFull, drop);
+    }
+    if (__popc(picked) > K - npicks) {  // the first K - npicks picks only
+      unsigned first = 0;
+      for (int i = npicks; i < K; ++i) {
+        first |= picked & (0u - picked);
+        picked &= picked - 1;
       }
-      return;
+      picked = first;
     }
-    const int pick = (int)(0xFFFFFFFFu - (unsigned)(best & 0xFFFFFFFFull));
-    const float bx1 = sx1[pick], by1 = sy1[pick], bx2 = sx2[pick], by2 = sy2[pick];
-    const int bcls = scls[pick];
-    // the picked box's area comes from its corners, as in the TPU kernel
-    const float barea = __fmul_rn(__fsub_rn(bx2, bx1), __fsub_rn(by2, by1));
-    if (threadIdx.x == 0) {
-      os[k] = __uint_as_float((unsigned)(best >> 32));
-      oc[k] = bcls;
-      reinterpret_cast<float4*>(ob)[k] = make_float4(bx1, by1, bx2, by2);
+    if (warp == 0 && ((picked >> lane) & 1u)) {
+      const int k = npicks + __popc(picked & ((1u << lane) - 1));
+      os[k] = __uint_as_float((unsigned)(mkey >> 32));
+      oc[k] = mine.cls;
+      reinterpret_cast<float4*>(ob)[k] = make_float4(mine.x1, mine.y1, mine.x2, mine.y2);
+      picks[k] = (int)(0xFFFFFFFFu - (unsigned)mkey);
     }
-
-#pragma unroll
-    for (int j = 0; j < SPT; ++j) {
-      if (!alive[j]) continue;
-      const float iw = fmaxf(0.0f, __fsub_rn(fminf(x2[j], bx2), fmaxf(x1[j], bx1)));
-      const float ih = fmaxf(0.0f, __fsub_rn(fminf(y2[j], by2), fmaxf(y1[j], by1)));
-      const float inter = __fmul_rn(iw, ih);
-      const float uni = fmaxf(__fsub_rn(__fadd_rn(area[j], barea), inter), 1e-10f);
-      const float iou = fminf(fmaxf(__fdiv_rn(inter, uni), 0.0f), 1.0f);
-      bool kill = iou > iou_thresh;
-      if (class_aware) kill = kill && cls[j] == bcls;
-      const int key = threadIdx.x + j * blockDim.x;
-      if (kill || key == pick) alive[j] = false;
-    }
+    npicks += __popc(picked);
+    __syncthreads();
+  }
+  for (int k = npicks + tid; k < K; k += T) {  // empty slots: zeros
+    os[k] = 0.0f;
+    oc[k] = 0;
+    reinterpret_cast<float4*>(ob)[k] = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
   }
 }
 
-template <class Decode, int SPT>
-cudaError_t launch_nms(const DecodeArgs& a, float* boxes, float* scores, int* classes,
-                       int batch, float iou_thresh, int K, int class_aware, int threads,
-                       size_t smem, cudaStream_t stream) {
-  if (smem > 48 * 1024) {
-    const cudaError_t err =
-        cudaFuncSetAttribute(decode_nms_kernel<Decode, SPT>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return err;
-  }
-  decode_nms_kernel<Decode, SPT><<<batch, threads, smem, stream>>>(
-      a, boxes, scores, classes, iou_thresh, K, class_aware);
-  return cudaGetLastError();
+// Threads, shared memory and chunks for one image: the grid is staged in
+// at least two chunks of at most kChunkBytes, so that loads and decode
+// overlap (two of 85 cells at 416², B = 5). threads = 0 for an empty
+// problem, more than 4096 slots an image, or more shared memory than a
+// block may have.
+struct NmsGeometry {
+  int threads, chunk_cells;
+  size_t smem;
+};
+
+template <class Decode>
+NmsGeometry nms_geometry(int S, int B, int C) {
+  const int SS = S * S, n = SS * B, CC = Decode::channels(B, C);
+  if (n <= 0 || n > kMaxSlots) return {0, 0, 0};
+  const int passes = (n + kNmsMaxThreads - 1) / kNmsMaxThreads;
+  const size_t bytes = 4 * (size_t)SS * CC;
+  const int chunks = max(2, (int)((bytes + kChunkBytes - 1) / kChunkBytes));
+  NmsGeometry g{((n + passes - 1) / passes + 31) / 32 * 32, (SS + chunks - 1) / chunks, 0};
+  g.smem = NmsSmem(n, chunk_floats(g.chunk_cells, CC)).total;
+  if (g.smem > kMaxSharedBytes) g.threads = 0;
+  return g;
 }
 
-// Block size, slots a thread and shared memory for one image, then the
-// launch. cudaErrorInvalidValue for an empty problem, more than 4096 slots
-// an image, or more shared memory than a block may have.
+template <class Decode>
+cudaError_t allow_smem(const NmsGeometry& g) {
+  if (g.smem <= 48 * 1024) return cudaSuccess;
+  return cudaFuncSetAttribute(decode_nms_kernel<Decode>,
+                              cudaFuncAttributeMaxDynamicSharedMemorySize, (int)g.smem);
+}
+
+// The launch; cudaErrorInvalidValue where nms_geometry has no threads.
 template <class Decode>
 cudaError_t decode_nms(const DecodeArgs& a, float* boxes, float* scores, int* classes,
                        int batch, float iou_thresh, int K, int class_aware,
                        cudaStream_t stream) {
-  const int SS = a.S * a.S, n = SS * a.B;
-  if (batch <= 0 || K <= 0 || n <= 0) return cudaErrorInvalidValue;
-  const int whole_warps = (n + 31) / 32 * 32;
-  const int threads = whole_warps < kMaxBlockThreads ? whole_warps : kMaxBlockThreads;
-  const int spt = (n + threads - 1) / threads;
-  const size_t staged = Decode::kStage ? (size_t)SS * Decode::channels(a.B, a.C) : 0;
-  const size_t smem =
-      64 * sizeof(unsigned long long) + (staged + (size_t)n * 5) * sizeof(float);
-  if (smem > kMaxSharedBytes) return cudaErrorInvalidValue;
-  switch (spt) {
-    case 1:
-      return launch_nms<Decode, 1>(a, boxes, scores, classes, batch, iou_thresh, K,
-                                   class_aware, threads, smem, stream);
-    case 2:
-      return launch_nms<Decode, 2>(a, boxes, scores, classes, batch, iou_thresh, K,
-                                   class_aware, threads, smem, stream);
-    case 3:
-    case 4:
-      return launch_nms<Decode, 4>(a, boxes, scores, classes, batch, iou_thresh, K,
-                                   class_aware, threads, smem, stream);
-    default:
-      return cudaErrorInvalidValue;  // more than 4096 slots per image
-  }
+  const NmsGeometry g = nms_geometry<Decode>(a.S, a.B, a.C);
+  if (batch <= 0 || K <= 0 || g.threads == 0) return cudaErrorInvalidValue;
+  const cudaError_t err = allow_smem<Decode>(g);
+  if (err != cudaSuccess) return err;
+  decode_nms_kernel<Decode><<<batch, g.threads, g.smem, stream>>>(
+      a, boxes, scores, classes, iou_thresh, K, class_aware, g.chunk_cells);
+  return cudaGetLastError();
+}
+
+// out = {threads a block, shared memory bytes, chunks the grid is staged
+// in, blocks an SM holds by the occupancy calculator}.
+template <class Decode>
+cudaError_t nms_occupancy(int S, int B, int C, int* out) {
+  const NmsGeometry g = nms_geometry<Decode>(S, B, C);
+  if (g.threads == 0) return cudaErrorInvalidValue;
+  cudaError_t err = allow_smem<Decode>(g);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&out[3], decode_nms_kernel<Decode>,
+                                                        g.threads, g.smem);
+  out[0] = g.threads;
+  out[1] = (int)g.smem;
+  out[2] = (S * S + g.chunk_cells - 1) / g.chunk_cells;
+  return err;
 }
 
 }  // namespace
@@ -386,4 +604,10 @@ extern "C" cudaError_t tfy2_decode_nms_v2(const float* net, const float* anchors
   const DecodeArgs a{net, anchors, S, B, C, thresh};
   return decode_nms<AnchorDecode>(a, boxes, scores, classes, batch, iou_thresh, K,
                                   class_aware, stream);
+}
+
+// The launch geometry of tfy2_decode_nms (v2 = 0) or tfy2_decode_nms_v2
+// (v2 = 1) for an S x S x B grid of C classes: out[4] as nms_occupancy.
+extern "C" cudaError_t tfy2_decode_nms_occupancy(int S, int B, int C, int v2, int* out) {
+  return v2 ? nms_occupancy<AnchorDecode>(S, B, C, out) : nms_occupancy<GridDecode>(S, B, C, out);
 }

@@ -11,16 +11,16 @@ Three kernels, in ``csrc/decode.cu``:
 - ``decode_nms_fused`` on a v1 grid replaces ``decode_nms_pallas``'s
   ``_decode_nms_kernel`` + ``_nms_sweep``: decode, confidence threshold
   and K greedy class-aware NMS steps, K kept slots per image. One block
-  per image with each slot in a thread's registers. Its bytes bound at
-  batch 256, 448² is ≈1.9 µs (6.02 MB in, 0.20 MB out), but what bounds
-  it is the chain of K dependent block-wide max reductions per image,
-  each ending in a __syncthreads.
+  per image: the grid staged in shared memory a chunk at a time while
+  the previous chunk is decoded, the candidates (score > 0) sorted once
+  by buckets of their scores, then a greedy scan over chunks of 32
+  sorted candidates with two block barriers a chunk. Its bytes bound at
+  batch 256, 448² is ≈1.9 µs (6.02 MB in, 0.20 MB out).
 - ``decode_nms_fused`` on a ``per_slot_classes`` grid replaces
   ``_decode_nms_v2_kernel``: the YOLOv2 anchor decode (σ xy, anchor ·
   exp(clip(t, ±8)) / S wh, per-slot argmax, score σ(conf) / Σ exp(l −
-  l_max)) feeding the same sweep. At batch 256, 416² (S=13, B=5) it
-  reads 21.6 MB, ≈6.5 µs at 3.35 TB/s; the K steps bound it as they
-  bound the v1 kernel.
+  l_max)) feeding the same sort and scan. At batch 256, 416² (S=13,
+  B=5) it reads 21.6 MB, ≈6.5 µs at 3.35 TB/s.
 
 ``*_plain`` are the same functions in plain PyTorch. A wrapper takes the
 plain version only for a tensor on the CPU; for a CUDA tensor it launches
@@ -66,9 +66,8 @@ def reset_launch_counts() -> None:
     DECODE_NMS_V2_LAUNCHES = 0
 
 
-@functools.cache
-def _lib() -> ctypes.CDLL:
-    lib = cuda_build.load("decode")
+def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Declares the C entries of a library built from ``csrc/decode.cu``."""
     ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     lib.tfy2_decode_grid.argtypes = [ptr, ptr, ptr, ptr, i32, i32, i32, i32,
                                      f32, ptr]
@@ -80,6 +79,11 @@ def _lib() -> ctypes.CDLL:
                                        i32, f32, f32, i32, i32, ptr]
     lib.tfy2_decode_nms_v2.restype = i32
     return lib
+
+
+@functools.cache
+def _lib() -> ctypes.CDLL:
+    return bind(cuda_build.load("decode"))
 
 
 def _check_grid(net: torch.Tensor, cfg: YoloConfig) -> None:

@@ -20,6 +20,9 @@ bounds, at least 99.9% bit-equal, each difference within one bf16 ulp of
 the value or of the output's RMS, relative norm 1e-4.
 """
 
+import ctypes
+
+import numpy as np
 import pytest
 import torch
 
@@ -32,6 +35,7 @@ from tensorflow_yolo2_torch.models.darknet import (
     randomize_,
 )
 from tensorflow_yolo2_torch.ops import cuda_decode, cuda_pool, cuda_stem
+from tensorflow_yolo2_torch.ops.boxes import decode_grid_v2
 from tensorflow_yolo2_torch.utils.device import device_normalize
 
 pytestmark = pytest.mark.cuda
@@ -59,8 +63,8 @@ def test_kernels_match_plain(card, S, class_aware):
 
 
 def test_kernels_take_odd_shapes(card):
-    """One image with K above its 50 slots, and a grid whose NMS threads
-    hold several slots each (S=33: 2178 slots, 171 KB of shared memory)."""
+    """One image with K above its 50 slots, and a larger grid (S=33:
+    2178 slots, staged in three chunks)."""
     for S, batch, k in ((5, 1, 64), (33, 3, 8)):
         cfg = YoloConfig(S=S, image_size=32 * S)
         net = torch.from_numpy(chip_smoke.synthetic_grid(cfg, batch, seed=1)
@@ -87,8 +91,9 @@ def test_anchor_kernel_matches_plain(card, S, class_aware):
 
 
 def test_anchor_kernel_takes_odd_shapes(card):
-    """K above the slots of an image; 3 anchors of our own; 4 slots a
-    thread (S=28: 3920 slots); and past 4096 slots an image, an error."""
+    """K above the slots of an image; 3 anchors of our own; 3920 slots
+    (S=28), staged in eight chunks; and past 4096 slots an image, an
+    error."""
     for cfg, batch, k in (
             (yolo_v2_config(224), 1, 300),
             (yolo_v2_config(320, ((0.5, 0.7), (2.0, 1.5), (4.0, 5.0))), 5, 32),
@@ -103,6 +108,184 @@ def test_anchor_kernel_takes_odd_shapes(card):
     with pytest.raises(RuntimeError, match="tfy2_decode_nms_v2"):
         cuda_decode.decode_nms_fused(
             torch.zeros((1, 29, 29, 125), device=card), cfg)
+
+
+def check_nms(net, cfg, thresh, iou_thresh, k, class_aware=True):
+    """The decode + NMS kernel against its plain version
+    (``compare_kept``'s rule); returns the plain version's result."""
+    plain = (cuda_decode.decode_nms_v2_plain if cfg.per_slot_classes
+             else cuda_decode.decode_nms_plain)
+    want = plain(net, cfg, thresh, iou_thresh, k, class_aware)
+    chip_smoke.compare_kept(cuda_decode.decode_nms_fused(
+        net, cfg, thresh, iou_thresh, k, class_aware), want)
+    torch.cuda.synchronize()
+    return want
+
+
+def dense_scores(net, cfg, thresh):
+    """The thresholded score of every slot of the grid."""
+    if cfg.per_slot_classes:
+        return decode_grid_v2(net, cfg, thresh).scores
+    return cuda_decode.decode_grid_plain(net, cfg, thresh).scores
+
+
+def head_grid(head, S, batch, seed):
+    """A seeded synthetic grid: the v1 head (B=2) or the anchor head
+    (B=5), and its config."""
+    if head == "v1":
+        cfg = YoloConfig(S=S, image_size=32 * S)
+        return chip_smoke.synthetic_grid(cfg, batch, seed), cfg
+    cfg = yolo_v2_config(32 * S)
+    return chip_smoke.synthetic_grid_v2(cfg, batch, seed), cfg
+
+
+def all_alive_grid(head, S, batch, seed):
+    """Every slot scores above 0 (the v1 confidences made positive;
+    an anchor score is positive anyway): with threshold 0 all n slots are
+    candidates."""
+    net, cfg = head_grid(head, S, batch, seed)
+    if head == "v1":
+        conf = net[..., cfg.num_class:cfg.num_class + cfg.B]
+        conf[...] = np.abs(conf) + 0.01
+    return net, cfg
+
+
+def tied_grid(head, S, batch, seed):
+    """Half the slots, picked at random, share one score exactly and
+    draw large boxes of one class, so which of them survives depends on
+    the tie order (lowest key b·S·S + cell first)."""
+    net, cfg = head_grid(head, S, batch, seed)
+    rng = np.random.RandomState(seed + 1)
+    C, B = cfg.num_class, cfg.B
+    tied = rng.rand(batch, S, S, B) < 0.5
+    if head == "v1":
+        cells = tied.any(-1)
+        net[..., :C][cells] = 0.0
+        net[..., 3][cells] = 2.0
+        conf = net[..., C:C + B]
+        conf[tied] = 0.75
+        wh = net[..., C + B:].reshape(batch, S, S, B, 4)[..., 2:]
+        wh[tied] = 0.7
+    else:
+        slots = net.reshape(batch, S, S, B, 5 + C)
+        slots[..., 5:][tied] = 0.0
+        slots[..., 5 + 3][tied] = 4.0
+        slots[..., 4][tied] = 1.5
+        slots[..., 2:4][tied] = 0.5
+    return net, cfg
+
+
+@pytest.mark.parametrize("head", ["v1", "anchor"])
+def test_nms_with_no_candidate(card, head):
+    """No slot above the threshold (m = 0): K empty kept slots, all 0."""
+    cfg = (YoloConfig(S=14, image_size=448) if head == "v1"
+           else yolo_v2_config(416))
+    net = torch.full((3, cfg.S, cfg.S, cfg.cell_channels), -4.0,
+                     device=card)
+    got = cuda_decode.decode_nms_fused(net, cfg, 0.5, 0.5, K)
+    assert not got.scores.any() and not got.boxes.any()
+    assert not got.classes.any()
+    check_nms(net, cfg, 0.5, 0.5, K)
+
+
+@pytest.mark.parametrize("head,S", [("v1", 14), ("anchor", 13),
+                                    ("anchor", 19)])
+def test_nms_every_slot_alive_with_k_n(card, head, S):
+    """Every slot a candidate and K = n: the scan walks the whole sorted
+    list (S=19 stages the grid in four chunks)."""
+    net, cfg = all_alive_grid(head, S, 16, S)
+    net = torch.from_numpy(net).to(card)
+    n = S * S * cfg.B
+    assert bool((dense_scores(net, cfg, 0.0) > 0).all())
+    for class_aware in (True, False):
+        want = check_nms(net, cfg, 0.0, 0.5, n, class_aware)
+        assert bool(((want.scores > 0).sum(1) < n).all())  # it suppressed
+
+
+@pytest.mark.parametrize("head,S", [("v1", 14), ("anchor", 13)])
+def test_nms_ties_go_to_the_lowest_key(card, head, S):
+    net, cfg = tied_grid(head, S, 32, S)
+    net = torch.from_numpy(net).to(card)
+    for scores in dense_scores(net, cfg, 0.05):  # many slots tie
+        assert torch.unique(scores[scores > 0], return_counts=True)[1].max() > 10
+    for class_aware in (True, False):
+        for k in (K, S * S * cfg.B):
+            check_nms(net, cfg, 0.05, 0.5, k, class_aware)
+
+
+def test_nms_iou_equal_to_the_threshold(card):
+    """Two boxes of one class whose IoU is exactly the threshold both
+    survive (the rule is IoU > threshold); one float below it, the
+    second is suppressed."""
+    cfg = YoloConfig(S=7, image_size=224)
+    C, B = cfg.num_class, cfg.B
+    net = np.full((1, 7, 7, cfg.cell_channels), -1.0, np.float32)
+    net[0, 3, 3, :C] = 0.0
+    net[0, 3, 3, 3] = 1.0
+    net[0, 3, 3, C:C + B] = (0.9, 0.8)
+    net[0, 3, 3, C + B:] = (0.5, 0.5, 0.6, 0.6, 0.4, 0.6, 0.5, 0.7)
+    net = torch.from_numpy(net)
+    # the IoU as the sweep takes it: slot 0 picked (area from its
+    # corners), slot 1 the candidate (area w·h from its decode)
+    p, c = cuda_decode.decode_grid_plain(net, cfg, 0.5).boxes[0, 48:50]
+    raw = net[0, 3, 3, C + B + 4:]
+    area = torch.square(raw[2]) * torch.square(raw[3])
+    iw = torch.clamp(torch.minimum(c[2], p[2]) - torch.maximum(c[0], p[0]),
+                     min=0.0)
+    ih = torch.clamp(torch.minimum(c[3], p[3]) - torch.maximum(c[1], p[1]),
+                     min=0.0)
+    inter = iw * ih
+    iou = torch.clamp(inter / torch.clamp(area + (p[2] - p[0]) *
+                                          (p[3] - p[1]) - inter, min=1e-10),
+                      0.0, 1.0)
+    assert 0.0 < iou.item() < 1.0
+    below = float(np.nextafter(np.float32(iou.item()), np.float32(0)))
+    net = net.to(card)
+    for thresh, kept in ((iou.item(), 2), (below, 1)):
+        want = check_nms(net, cfg, 0.5, thresh, K)
+        assert int((want.scores > 0).sum()) == kept
+
+
+@pytest.mark.parametrize("head,S", [("v1", 14), ("anchor", 13)])
+def test_nms_negative_iou_threshold(card, head, S):
+    """Below 0 an IoU of 0 suppresses too, so disjoint boxes of a class
+    go as well: without class_aware one box an image survives."""
+    net, cfg = head_grid(head, S, 32, S)
+    net = torch.from_numpy(net).to(card)
+    for class_aware in (True, False):
+        for k in (K, S * S * cfg.B):
+            want = check_nms(net, cfg, 0.05, -0.25, k, class_aware)
+            if not class_aware:
+                assert bool(((want.scores > 0).sum(1) == 1).all())
+
+
+def test_nms_largest_anchor_grid(card):
+    """S=28, B=5: 3920 slots, near the most the kernel takes."""
+    net, cfg = head_grid("anchor", 28, 4, 28)
+    net = torch.from_numpy(net).to(card)
+    for thresh in (0.05, 0.5):
+        for class_aware in (True, False):
+            check_nms(net, cfg, thresh, 0.5, K, class_aware)
+    check_nms(net, cfg, 0.05, 0.5, 28 * 28 * 5)
+
+
+def test_nms_launch_geometry(card):
+    """Two blocks an SM for the serving grids (v1 448², v2p 416²: one
+    wave at batch 256 on 132 SMs), the grid staged in two chunks; the
+    largest grids in more, within a block's shared memory."""
+    lib = cuda_decode._lib()
+
+    def geometry(S, B, v2):
+        out = (ctypes.c_int * 4)()
+        assert lib.tfy2_decode_nms_occupancy(S, B, 20, v2, out) == 0
+        return dict(zip(("threads", "smem", "chunks", "blocks"), out))
+
+    for S, B, v2 in ((14, 2, 0), (13, 5, 1)):
+        g = geometry(S, B, v2)
+        assert g["chunks"] == 2 and g["blocks"] >= 2, g
+    for S, B, v2 in ((19, 5, 1), (28, 5, 1), (45, 2, 0)):
+        g = geometry(S, B, v2)
+        assert g["chunks"] > 2 and g["blocks"] >= 1, g
 
 
 def test_cuda_wrappers_never_fall_back(card):

@@ -195,3 +195,26 @@ def test_empty_grid_keeps_nothing():
     got = cuda_decode.decode_nms_plain(torch.zeros((2, 7, 7, 30)), pcfg)
     assert got.scores.max() == 0.0
     assert got.boxes.abs().max() == 0.0 and got.classes.max() == 0
+
+
+@pytest.mark.parametrize("argv", [["--decode-ab"], ["--decode-ab", "a.cu"]])
+def test_decode_ab_refuses_without_a_card(argv, monkeypatch):
+    """Without a CUDA device ``chip_smoke.py --decode-ab`` returns 2 before
+    building or running anything."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    assert chip_smoke.main(argv) == 2
+
+
+def test_kernel_registers_reads_ptxas_output():
+    log = (
+        "ptxas info    : Compiling entry function '_Z17decode_nms_kernelI1AE'"
+        " for 'sm_90a'\n"
+        "ptxas info    : Function properties for _Z17decode_nms_kernelI1AE\n"
+        "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads\n"
+        "ptxas info    : Used 40 registers, used 1 barriers\n"
+        "ptxas info    : Compiling entry function '_Z18decode_grid_kernelv'"
+        " for 'sm_90a'\n"
+        "ptxas info    : Used 35 registers, used 1 barriers\n")
+    assert chip_smoke.kernel_registers(log, "decode_nms_kernel") == {
+        "_Z17decode_nms_kernelI1AE": "0 bytes stack frame, 0 bytes spill "
+        "stores, 0 bytes spill loads Used 40 registers, used 1 barriers"}
