@@ -30,12 +30,17 @@
    (4, 416, 416), (4, 448, 448) and (256, 448, 448), with random weights
    and with the folded conv1 / conv2 of the v1 detector, and on all-zero
    images with b1 > 0 (the SAME zeros of the stage-1 map make every edge
-   output differ from the interior). Then drives the ``--pallas-stem``
-   serving paths, ``make_detect_fn(pallas_stem=True)``, on the v1 448²
-   and ``--v2`` 416² detectors above, NMS on and off: B4 once a call and
-   the decode kernel once a call, the grid against the float32 CPU
-   forward and against the stock path's bf16 grid, the decode kernels on
-   that grid against their plain versions.
+   output differ from the interior). Holds the float32 stem kernel B4-f32
+   to its plain version (TF32 off) at rtol = atol = 1e-5 on the same
+   shapes and cases, and one float32
+   card grid (TF32 off) to the float32 CPU forward. Then drives the
+   ``--pallas-stem`` serving paths, ``make_detect_fn(pallas_stem=True)``,
+   in bf16 and in float32, on the v1 448² and ``--v2`` 416² detectors
+   above, NMS on and off: the stem kernel of the type (B4, B4-f32) once a
+   call and the decode kernel once a call; the bf16 grid against the
+   float32 CPU forward and against the stock path's bf16 grid, the
+   float32 grid against the stock float32 grid (2e-4); the decode kernels
+   on each grid against their plain versions.
 6. Drives the v1 training path at full width, ``Trainer.train_step`` on
    the Darknet19 v1 detector at the reference's 224² (S=7, B=2, C=20),
    fresh seeded weights (flax's initializers), bf16 compute, Adam at
@@ -45,14 +50,16 @@
    the weights those steps reached, one float32 step on the card against
    the same step in float64 on the CPU (loss and every gradient), and the
    bf16 loss against the float32 one.
-7. Times the v1, v1 ``--pallas-stem`` and v2p serving paths (images/s
-   at batch 32 and 256, with a profile), the train step (steps/s and
-   images/s at batch 24 and 64, with a profile), each decode kernel and
-   its plain version at batch 256, B5 at each pool site of a batch-24
-   step beside torch's ``max_pool2d_with_indices_backward``, and B4 at
-   batch 256, 448², beside the stock stem (the detector's own conv1,
-   bias, leaky, pool, conv2, bias, leaky, pool), and prints them, with
-   each kernel's bound, as one JSON line ``{"kernels": [...]}``.
+7. Times the v1, v1 ``--pallas-stem`` and v2p serving paths in bf16 and
+   the v1 and v1 ``--pallas-stem`` paths in float32 with TF32 off
+   (images/s at batch 32 and 256, with a profile), the train step
+   (steps/s and images/s at batch 24 and 64, with a profile), each decode
+   kernel and its plain version at batch 256, B5 at each pool site of a
+   batch-24 step beside torch's ``max_pool2d_with_indices_backward``, B4
+   at batch 256, 448², beside the stock stem (the detector's own conv1,
+   bias, leaky, pool, conv2, bias, leaky, pool), and B4-f32 there beside
+   the stock float32 stem with cuDNN's TF32 off and on, and prints them,
+   with each kernel's bound, as one JSON line ``{"kernels": [...]}``.
 8. Ends with ``{"ok": true, "device": {...}}``.
 
     python3 chip_smoke.py --stem-ab [OTHER_STEM_CU ...]
@@ -69,9 +76,10 @@ how the phases are timed; an older B4 to compare with is written out with
 
 runs no smoke either: it builds csrc/decode.cu and the other decode
 sources given, holds each one's B1 and B2 to their plain versions on the
-real v1 448² and v2p 416² grids, and times them in turns at thresholds
-0.5 and 0.05, K=32 and K=1, batches 1, 32 and 256 (``decode_ab``); an
-older source is written out with ``git show
+real v1 448² and v2p 416² grids and its B3 on a synthetic S=7 grid and
+the real v1 448² grid, and times them in turns at thresholds 0.5 and
+0.05, batches 1, 32 and 256, B1 and B2 at K=32 and K=1 (``decode_ab``);
+an older source is written out with ``git show
 <commit>:tensorflow_yolo2_torch/csrc/decode.cu``.
 
 Each path is driven with the launch counts set to 0 just before it and
@@ -99,10 +107,12 @@ import torch
 import torch.nn.functional as F
 
 # H100 SXM peaks (NVIDIA data sheet, dense, at 700 W): HBM bytes/s and
-# float32 operations/s outside the tensor cores; bf16 tensor-core FLOP/s.
+# float32 operations/s outside the tensor cores; bf16 and TF32
+# tensor-core FLOP/s.
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
 BF16_FLOPS_PER_S = 989e12
+TF32_FLOPS_PER_S = 494.7e12
 
 K = 32
 BATCH = 256
@@ -112,12 +122,14 @@ BOX_TOL = 1e-6
 SOURCE = "tensorflow_yolo2_torch/csrc/decode.cu"
 POOL_SOURCE = "tensorflow_yolo2_torch/csrc/pool.cu"
 STEM_SOURCE = "tensorflow_yolo2_torch/csrc/stem.cu"
+STEM_F32_SOURCE = "tensorflow_yolo2_torch/csrc/stem_f32.cu"
 TPU_KERNELS = {
     "decode_nms": "tensorflow_yolo2_tpu/ops/pallas_decode.py:204",
     "decode_nms_v2": "tensorflow_yolo2_tpu/ops/pallas_decode.py:255",
     "decode_grid": "tensorflow_yolo2_tpu/ops/pallas_decode.py:42",
     "max_pool2_bwd": "tensorflow_yolo2_tpu/ops/pallas_pool.py:44",
     "stem": "tensorflow_yolo2_tpu/ops/pallas_stem.py:118",
+    "stem_f32": "tensorflow_yolo2_tpu/ops/pallas_stem.py:118",
 }
 
 # B4 against its plain version (same rounding points, float32 sums in
@@ -137,10 +149,17 @@ STEM_SHAPES = ((2, 32, 32), (1, 64, 32), (1, 56, 64), (4, 416, 416),
                (4, 448, 448), (256, 448, 448))
 # the --pallas-stem grid against the stock path's bf16 grid, rel. norm
 STEM_PATH_REL_TOL = 5e-2
+# B4-f32 against its plain version (float32 sums in another order):
+# rtol = atol, the JAX package's own bound for its float32 stem
+STEM_F32_TOL = 1e-5
+# the float32 --pallas-stem grid against the stock float32 grid (TF32
+# off), and a float32 card grid against the float32 CPU forward, rel.
+# norm: 22 float32 convs summed in other orders
+STEM_F32_PATH_REL_TOL = 2e-4
 
 # names of the kernels of csrc/, which the profile lists by kernel
 PORT_KERNEL_NAMES = ("decode_grid_kernel", "decode_nms_kernel",
-                     "pool2_bwd_kernel", "stem_kernel")
+                     "pool2_bwd_kernel", "stem_kernel", "stem_f32_kernel")
 
 # the training path: the reference's batch 24, and 64
 TRAIN_BATCHES = (24, 64)
@@ -391,18 +410,25 @@ def random_stem_weights(gen: torch.Generator) -> tuple[torch.Tensor, ...]:
         ((64,), 0.2)))
 
 
-def check_stem_kernel(dev: torch.device, state: dict | None) -> float:
-    """B4 against ``fused_stem_plain`` on the card at STEM_SHAPES, with
-    random weights and, given ``state``, the folded conv1 / conv2 of its
-    detector; then
+def check_stem_kernel(dev: torch.device, state: dict | None,
+                      dtype: torch.dtype = torch.bfloat16) -> float:
+    """The stem kernel of ``dtype`` (B4, B4-f32) against
+    ``fused_stem_plain`` on the card at STEM_SHAPES, with random weights
+    and, given ``state``, the folded conv1 / conv2 of its detector; then
     all-zero images with b1 > 0, where SAME padding of the stage-1 map
     with zeros (not leaky(b1)) makes every edge output differ from the
-    interior. Returns the largest absolute difference."""
+    interior. B4 is held by ``compare_stem`` and its bit-equal share over
+    all shapes of a weight set, B4-f32 by ``compare_stem_f32`` (TF32
+    off). Returns the largest absolute difference."""
     from tensorflow_yolo2_torch.entries.pascal_detect_darknet import (
         stem_weights,
     )
     from tensorflow_yolo2_torch.ops import cuda_stem as cs
 
+    f32 = dtype == torch.float32
+    compare = compare_stem_f32 if f32 else compare_stem
+    check(not (f32 and torch.backends.cudnn.allow_tf32),
+          "the float32 plain stem runs with TF32 off")
     gen = torch.Generator().manual_seed(7)
     xgen = torch.Generator(device=dev).manual_seed(8)
     sets = {"random": cs.pack_stem_weights(*random_stem_weights(gen),
@@ -414,23 +440,24 @@ def check_stem_kernel(dev: torch.device, state: dict | None) -> float:
         unequal = total = 0
         for n, h, w in STEM_SHAPES:
             x = (torch.rand((n, h, w, 3), generator=xgen, device=dev) * 2 - 1
-                 ).to(torch.bfloat16)
+                 ).to(dtype)
             got = cs.fused_stem_packed(x, weights)
             want = cs.fused_stem_plain(x, *weights[:4])
-            e, u = compare_stem(got, want, f"{name} weights, {(n, h, w)}")
+            e, u = compare(got, want, f"{name} weights, {(n, h, w)}")
             err, unequal, total = max(err, e), unequal + u, total + got.numel()
             del x, got, want
         share = 1 - unequal / total
-        print(f"stem, {name} weights, all shapes: {share * 100:.4f}% "
-              f"bit-equal (bound {STEM_BIT_SHARE * 100}%)")
-        check(share >= STEM_BIT_SHARE, f"stem bit-equal share, {name}")
+        bound = "" if f32 else f" (bound {STEM_BIT_SHARE * 100}%)"
+        print(f"{'stem_f32' if f32 else 'stem'}, {name} weights, all "
+              f"shapes: {share * 100:.4f}% bit-equal{bound}")
+        check(f32 or share >= STEM_BIT_SHARE, f"stem bit-equal share, {name}")
         torch.cuda.synchronize()
     w1, b1, w2, b2 = random_stem_weights(gen)
     weights = cs.pack_stem_weights(w1, b1.abs() + 0.1, w2, b2, device=dev)
-    x = torch.zeros((2, 64, 96, 3), dtype=torch.bfloat16, device=dev)
+    x = torch.zeros((2, 64, 96, 3), dtype=dtype, device=dev)
     got = cs.fused_stem_packed(x, weights)
-    err = max(err, compare_stem(got, cs.fused_stem_plain(x, *weights[:4]),
-                                "all-zero images, b1 > 0")[0])
+    err = max(err, compare(got, cs.fused_stem_plain(x, *weights[:4]),
+                           "all-zero images, b1 > 0")[0])
     inner = got[:, 1:-1, 1:-1]
     check(bool((inner == got[:1, 1:2, 1:2]).all()),
           "zero images: the interior is constant")
@@ -442,23 +469,55 @@ def check_stem_kernel(dev: torch.device, state: dict | None) -> float:
     return err
 
 
-def stem_bound(n: int, h: int, w: int) -> tuple[float, float]:
-    """Least time of B4 on (n, h, w, 3) bf16 images, in ms: by bytes (the
-    images read once, the (n, h/4, w/4, 64) bf16 output written once, the
-    weights) and by operations (the two convs' multiply-adds, 2 FLOPs
-    each, at the bf16 tensor-core rate; the float32 bias, leaky and pool
-    run on other units beside them)."""
-    nbytes = (n * h * w * 3 + n * (h // 4) * (w // 4) * 64) * 2 + \
-        (27 * 32 + 288 * 64) * 2 + (32 + 64) * 4
+def stem_bound(n: int, h: int, w: int,
+               dtype: torch.dtype = torch.bfloat16) -> dict:
+    """Least time of the stem kernel of ``dtype`` (B4, B4-f32) on (n, h,
+    w, 3) images, in ms: by bytes (the images read once, the (n, h/4,
+    w/4, 64) output written once, the weights) and by operations (the two
+    convs' multiply-adds, 2 FLOPs each, at the bf16 tensor-core rate for
+    B4 and the float32 FMA rate for B4-f32; the float32 bias, leaky and
+    pool run on other units beside them). For float32 also the least time
+    at float32 accuracy on the tensor cores: three TF32 passes
+    (3xTF32)."""
+    size = torch.tensor([], dtype=dtype).element_size()
+    nbytes = (n * h * w * 3 + n * (h // 4) * (w // 4) * 64 +
+              27 * 32 + 288 * 64) * size + (32 + 64) * 4
     flops = n * 2 * (h * w * 27 * 32 + (h // 2) * (w // 2) * 288 * 64)
-    return nbytes / HBM_BYTES_PER_S * 1e3, flops / BF16_FLOPS_PER_S * 1e3
+    rate = F32_OPS_PER_S if dtype == torch.float32 else BF16_FLOPS_PER_S
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / rate * 1e3
+    out = {"bound_ms": max(t_bytes, t_ops), "bytes_bound_ms": t_bytes,
+           "ops_bound_ms": t_ops,
+           "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+    if dtype == torch.float32:
+        out["ops_bound_3xtf32_ms"] = 3 * flops / TF32_FLOPS_PER_S * 1e3
+    return out
 
 
-def time_stem(dev: torch.device, yolo, state: dict, images) -> dict:
-    """B4, its plain version and the stock stem (the detector's own conv1,
-    bias, leaky, pool, conv2, bias, leaky, pool) on one uint8 batch of
-    448² images normalized to bf16 on the card; B4 and the stock stem
-    replayed from CUDA graphs."""
+def compare_stem_f32(got: torch.Tensor, want: torch.Tensor,
+                     what: str) -> tuple[float, int]:
+    """B4-f32's output against its plain version's at rtol = atol =
+    STEM_F32_TOL. Returns the largest absolute difference and the count
+    of elements that are not bit-equal, as ``compare_stem``."""
+    check(got.shape == want.shape and got.dtype == want.dtype ==
+          torch.float32, f"float32 stem output {tuple(got.shape)} "
+          f"{got.dtype}, {what}")
+    diff = (got - want).abs()
+    share = (diff / (STEM_F32_TOL * (1 + want.abs()))).max().item()
+    print(f"stem_f32 {what}: max abs err {diff.max().item():.3e}, worst "
+          f"{share:.3f} of the tolerance (rtol = atol {STEM_F32_TOL})")
+    check(share <= 1.0, f"float32 stem matches its plain version, {what}")
+    return diff.max().item(), int((bits(got) != bits(want)).sum().item())
+
+
+def time_stem(dev: torch.device, yolo, state: dict, images,
+              dtype: torch.dtype = torch.bfloat16) -> dict:
+    """The stem kernel of ``dtype`` (B4, B4-f32), its plain version and the
+    stock stem (the detector's own conv1, bias, leaky, pool, conv2, bias,
+    leaky, pool) in ``dtype`` on one uint8 batch of 448² images
+    normalized on the card; the kernel and the stock stem replayed from
+    CUDA graphs. In float32 the stock stem runs with cuDNN's TF32 off (the
+    same accuracy) and on (PyTorch's default, not held to 1e-5)."""
     from tensorflow_yolo2_torch.entries.pascal_detect_darknet import (
         build_detector,
         stem_weights,
@@ -467,23 +526,26 @@ def time_stem(dev: torch.device, yolo, state: dict, images) -> dict:
     from tensorflow_yolo2_torch.ops import cuda_stem as cs
     from tensorflow_yolo2_torch.utils.device import device_normalize
 
-    x = device_normalize(images.to(dev)).to(torch.bfloat16)
+    x = device_normalize(images.to(dev)).to(dtype)
     weights = stem_weights(state, dev)
-    bk = build_detector(yolo, state, dtype=torch.bfloat16,
-                        device=dev).backbone
+    bk = build_detector(yolo, state, dtype=dtype, device=dev).backbone
     xc = x.permute(0, 3, 1, 2)  # NCHW view of NHWC memory, as the model
     n, h, w, _ = x.shape
-    t_bytes, t_ops = stem_bound(n, h, w)
+    reps = 5 if dtype == torch.float32 else 20
+    out = {}
     with torch.inference_mode():
-        ms = graph_ms(lambda: cs.fused_stem_packed(x, weights), 20)
-        stock_ms = graph_ms(
-            lambda: max_pool(bk.conv2(max_pool(bk.conv1(xc)))), 20)
-        plain_ms = cuda_ms(lambda: cs.fused_stem_plain(x, *weights[:4]), 3)
-    return {"ms": ms, "stock_stem_ms": stock_ms, "plain_ms": plain_ms,
-            "bound_ms": max(t_bytes, t_ops), "bytes_bound_ms": t_bytes,
-            "ops_bound_ms": t_ops,
-            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-            "shape": [n, h, w, 3]}
+        out["ms"] = graph_ms(lambda: cs.fused_stem_packed(x, weights), reps)
+        for tf32 in ((False, True) if dtype == torch.float32 else (False,)):
+            torch.backends.cudnn.allow_tf32 = tf32
+            try:
+                out["stock_stem_tf32_ms" if tf32 else "stock_stem_ms"] = \
+                    graph_ms(lambda: max_pool(bk.conv2(max_pool(bk.conv1(
+                        xc)))), reps)
+            finally:
+                torch.backends.cudnn.allow_tf32 = False
+        out["plain_ms"] = cuda_ms(lambda: cs.fused_stem_plain(
+            x, *weights[:4]), 3)
+    return out | stem_bound(n, h, w, dtype) | {"shape": [n, h, w, 3]}
 
 
 # ``--stem-ab``: B4's sources built and timed side by side. A phase of a
@@ -603,7 +665,7 @@ def stem_ab(sources: list[str], card: str) -> int:
             with stem_build(v), torch.inference_mode():
                 v["runs_ms"].append(graph_ms(
                     lambda: cs.fused_stem_packed(x, v["weights"]), 20))
-    bound = max(stem_bound(n, h, w))
+    bound = stem_bound(n, h, w)["bound_ms"]
     rows = []
     for v in variants:
         ms = sum(v["runs_ms"]) / len(v["runs_ms"])
@@ -890,9 +952,11 @@ def decode_bound(cfg, batch: int, kept_per_image=None) -> tuple[float, str]:
         "operations"
 
 
-def time_path(detect, images, dev, label: str, flops: float) -> dict:
+def time_path(detect, images, dev, label: str, flops: float,
+              flops_per_s: float = BF16_FLOPS_PER_S) -> dict:
     """images/s of ``detect`` on uint8 batches already on the card, host
-    clock around calls that end in a synchronize."""
+    clock around calls that end in a synchronize; the bound is the convs'
+    ``flops`` an image at ``flops_per_s``."""
     out = {}
     for b in PATH_BATCHES:
         xb = images[:b].to(dev)
@@ -905,11 +969,12 @@ def time_path(detect, images, dev, label: str, flops: float) -> dict:
         torch.cuda.synchronize()
         dt = (time.perf_counter() - t0) / reps
         out[b] = {"images_per_s": b / dt, "ms_per_batch": dt * 1e3,
-                  "bound_images_per_s": BF16_FLOPS_PER_S / flops}
+                  "bound_images_per_s": flops_per_s / flops}
         print(f"path {label}, NMS on, uint8 batch {b} on the card: "
               f"{b / dt:.1f} images/s ({dt * 1e3:.3f} ms per batch; "
-              f"conv bound {BF16_FLOPS_PER_S / flops:.0f} images/s at "
-              f"{flops / 1e9:.2f} GFLOP per image)")
+              f"conv bound {flops_per_s / flops:.0f} images/s at "
+              f"{flops / 1e9:.2f} GFLOP per image, "
+              f"{flops_per_s / 1e12:.0f} TFLOP/s)")
     for b in PATH_BATCHES:
         xb = images[:b].to(dev)
         out[b]["idle_share"] = profile_call(lambda: detect(xb),
@@ -962,9 +1027,10 @@ def time_train(trainer, state, rng, yolo, dev) -> dict:
 
 
 def card_grid(yolo, state, images, dev, pallas_stem: bool = False,
-              **head) -> torch.Tensor:
-    """The bf16 detector's float32 grid of a uint8 batch, on the card;
-    with ``pallas_stem``, through B4 and the rest of the detector, as
+              dtype: torch.dtype = torch.bfloat16, **head) -> torch.Tensor:
+    """The ``dtype`` detector's float32 grid of a uint8 batch, on the
+    card; with ``pallas_stem``, through the stem kernel of ``dtype`` (B4,
+    B4-f32) and the rest of the detector, as
     ``make_detect_fn(pallas_stem=True)`` runs it."""
     from tensorflow_yolo2_torch.entries.pascal_detect_darknet import (
         build_detector,
@@ -973,9 +1039,8 @@ def card_grid(yolo, state, images, dev, pallas_stem: bool = False,
     from tensorflow_yolo2_torch.ops.cuda_stem import fused_detect_forward
     from tensorflow_yolo2_torch.utils.device import device_normalize
 
-    model = build_detector(yolo, state, dtype=torch.bfloat16, device=dev,
-                           **head)
-    x = device_normalize(images.to(dev)).to(torch.bfloat16)
+    model = build_detector(yolo, state, dtype=dtype, device=dev, **head)
+    x = device_normalize(images.to(dev)).to(dtype)
     with torch.inference_mode():
         if pallas_stem:
             return fused_detect_forward(model, x, stem_weights(state, dev))
@@ -983,15 +1048,15 @@ def card_grid(yolo, state, images, dev, pallas_stem: bool = False,
 
 
 def grid_rel_err(yolo, state, images, dev, pallas_stem: bool = False,
-                 **head) -> float:
-    """One image's grid, bf16 on the card (through B4 with
-    ``pallas_stem``) against float32 on the CPU (BN unfolded, the stock
-    stem), as a relative norm error."""
+                 dtype: torch.dtype = torch.bfloat16, **head) -> float:
+    """One image's grid, ``dtype`` on the card (through the stem kernel
+    with ``pallas_stem``) against float32 on the CPU (BN unfolded, the
+    stock stem), as a relative norm error."""
     from tensorflow_yolo2_torch.entries.pascal_detect_darknet import (
         build_detector,
     )
 
-    on_card = card_grid(yolo, state, images[:1], dev, pallas_stem,
+    on_card = card_grid(yolo, state, images[:1], dev, pallas_stem, dtype,
                         **head).cpu().double()
     model = build_detector(yolo, state, fold_bn=False, dtype=torch.float32,
                            device="cpu", **head)
@@ -1051,10 +1116,11 @@ def v2_detector(passthrough: bool):
     return v2cfg, state
 
 
-# ``--decode-ab``: B1 and B2 from several decode sources, side by side
+# ``--decode-ab``: B1, B2 and B3 from several decode sources, side by side
 DECODE_AB_BATCHES = (1, 32, BATCH)
 DECODE_AB_THRESHOLDS = (0.5, 0.05)
 DECODE_AB_KS = (K, 1)
+DECODE_AB_GRID_S = (7, 14)  # B3's grids: synthetic 224², the real 448²
 
 
 def kernel_registers(log: str, kernel: str) -> dict[str, str]:
@@ -1072,16 +1138,22 @@ def kernel_registers(log: str, kernel: str) -> dict[str, str]:
 
 def decode_ab(sources: list[str], card: str) -> int:
     """Builds each decode source (csrc/decode.cu first), prints ptxas's
-    registers and spills for ``decode_nms_kernel`` and, where the source
-    exports it, the launch geometry and blocks an SM at v1 448² and v2p
-    416²; holds each source's B1 and B2 to their plain versions on the
-    real v1 448² and v2p 416² grids at batch 256 (thresholds 0.05 and 0.5,
-    K=32 and K=n, class-aware NMS on and off); prints how many candidates
-    an image has and how many the greedy scan visits before its K-th pick;
-    then times B1 and B2 of every source in AB_ROUNDS rounds, in turns
-    (CUDA-graph replays), at each of DECODE_AB_THRESHOLDS ×
-    DECODE_AB_KS × DECODE_AB_BATCHES. Prints a line a cell, then one JSON
-    object. Returns 1 if a source fails its check, else 0."""
+    registers and spills for ``decode_nms_kernel`` and
+    ``decode_grid_kernel`` and, where the source exports it, the launch
+    geometry and blocks an SM at v1 448² and v2p 416²; holds each
+    source's B1 and B2 to their plain versions on the real v1 448² and
+    v2p 416² grids at batch 256 (thresholds 0.05 and 0.5, K=32 and K=n,
+    class-aware NMS on and off), and its B3 to ``decode_grid_plain`` on a
+    synthetic S=7 grid and the real v1 448² grid (S=14) at
+    DECODE_AB_THRESHOLDS × DECODE_AB_BATCHES; prints how many candidates
+    an image has and how many the greedy scan visits before its K-th
+    pick; then times B1 and B2 of every source in AB_ROUNDS rounds, in
+    turns (CUDA-graph replays), at each of DECODE_AB_THRESHOLDS ×
+    DECODE_AB_KS × DECODE_AB_BATCHES, and B3 at each of DECODE_AB_GRID_S
+    × DECODE_AB_THRESHOLDS × DECODE_AB_BATCHES. Prints a line a cell,
+    then one JSON object. Returns 1 if a source fails its check, else
+    0."""
+    from tensorflow_yolo2_torch.config import YoloConfig
     from tensorflow_yolo2_torch.ops import cuda_decode as cd
     from tensorflow_yolo2_torch.ops.boxes import decode_grid_v2
     from tensorflow_yolo2_torch.utils import cuda_build
@@ -1095,7 +1167,8 @@ def decode_ab(sources: list[str], card: str) -> int:
     for src in sources:
         libs[src] = cd.bind(ctypes.CDLL(cuda_build.library_path(src)))
         rows[src] = {"source": src, "registers": kernel_registers(
-            logs[src], "decode_nms_kernel")}
+            logs[src], "decode_nms_kernel") | kernel_registers(
+            logs[src], "decode_grid_kernel")}
         for name, regs in rows[src]["registers"].items():
             print(f"[{src}] {name}: {regs}")
         if hasattr(libs[src], "tfy2_decode_nms_occupancy"):
@@ -1161,6 +1234,25 @@ def decode_ab(sources: list[str], card: str) -> int:
                         rows[src]["check"] = False
                         ok = False
         torch.cuda.synchronize()
+    dense_grids = {  # B3's grids: S → (config, grid)
+        7: (YoloConfig(S=7, image_size=224), torch.from_numpy(
+            synthetic_grid(YoloConfig(S=7, image_size=224), BATCH, 7)
+        ).to(dev)),
+        14: (yolo, heads["decode_nms"][1])}
+    for (S, (cfg, grid)), thresh, batch in itertools.product(
+            dense_grids.items(), DECODE_AB_THRESHOLDS, DECODE_AB_BATCHES):
+        want = cd.decode_grid_plain(grid[:batch], cfg, thresh)
+        for src, lib in libs.items():
+            with mock.patch.object(cd, "_lib", lambda: lib):
+                try:
+                    compare_dense(cd.decode_grid_fused(grid[:batch], cfg,
+                                                       thresh), want)
+                except RuntimeError as e:
+                    print(f"[{src}] {e} (S={S}, threshold {thresh}, batch "
+                          f"{batch})")
+                    rows[src]["check"] = False
+                    ok = False
+    torch.cuda.synchronize()
     for row in rows.values():
         row.setdefault("check", True)
 
@@ -1184,6 +1276,26 @@ def decode_ab(sources: list[str], card: str) -> int:
         print(f"{name}, threshold {thresh}, K={k}, batch {batch}: " + ", ".join(
             f"{os.path.basename(src)} {means[src] * 1e3:.2f} us"
             for src in sources))
+    for (S, (cfg, grid)), thresh, batch in itertools.product(
+            dense_grids.items(), DECODE_AB_THRESHOLDS, DECODE_AB_BATCHES):
+        g = grid[:batch]
+        runs = {src: [] for src in sources}
+        for r in range(AB_ROUNDS):
+            for src in (sources if r % 2 == 0 else sources[::-1]):
+                with mock.patch.object(cd, "_lib", lambda: libs[src]):
+                    runs[src].append(graph_ms(lambda: cd.decode_grid_fused(
+                        g, cfg, thresh)))
+        means = {src: sum(v) / len(v) for src, v in runs.items()}
+        cells.append({"kernel": "decode_grid", "S": S, "threshold": thresh,
+                      "batch": batch, "us": {s: t * 1e3 for s, t in
+                                             means.items()},
+                      "runs_us": {s: [t * 1e3 for t in v]
+                                  for s, v in runs.items()},
+                      "bound_us": decode_bound(cfg, batch)[0] * 1e3})
+        print(f"decode_grid, S={S}, threshold {thresh}, batch {batch}: "
+              + ", ".join(f"{os.path.basename(src)} {means[src] * 1e3:.2f} "
+                          f"us" for src in sources)
+              + f" (bound {cells[-1]['bound_us']:.2f} us)")
     print(json.dumps({"card": card, "sources": list(rows.values()),
                       "scan": stats, "cells": cells}))
     return 0 if ok else 1
@@ -1407,61 +1519,83 @@ def main(argv: list[str] | None = None) -> int:
     print(f"anchor real grids: the kernel matches its plain version (max "
           f"abs err {errs['decode_nms_v2']})")
 
-    # 5. B4 and the --pallas-stem serving paths: v1 448², --v2 416² ---------
+    # 5. B4, B4-f32 and the --pallas-stem serving paths in bf16 and float32:
+    # v1 448², --v2 416² -----------------------------------------------------
     from tensorflow_yolo2_torch.ops import cuda_stem as cs
 
     errs["stem"] = check_stem_kernel(dev, v1_state)
-    for head, cfg, st, imgs in (("v1", yolo, v1_state, images),
-                                ("v2", v2cfg, v2_state, v2_images)):
+    errs["stem_f32"] = check_stem_kernel(dev, v1_state, torch.float32)
+    f32 = torch.float32
+    rel = grid_rel_err(yolo, v1_state, images, dev, dtype=f32)
+    print(f"v1 grid, float32 card (TF32 off) vs float32 CPU forward: "
+          f"relative norm error {rel:.3e} (bound {STEM_F32_PATH_REL_TOL})")
+    check(rel <= STEM_F32_PATH_REL_TOL,
+          "float32 card grid agrees with the CPU forward")
+    stem_detect = {}
+    for dtype, (head, cfg, st, imgs) in itertools.product(
+            (torch.bfloat16, f32), (("v1", yolo, v1_state, images),
+                                    ("v2", v2cfg, v2_state, v2_images))):
         kw = {"v2": True} if head == "v2" else {}
+        kernel = cs.cuda_kernel(dtype)
+        what = f"{head} {dtype} --pallas-stem"
         detect_nms = make_detect_fn(cfg, st, object_thresh=0.5, use_nms=True,
-                                    pallas_stem=True, **kw)
+                                    pallas_stem=True, dtype=dtype, **kw)
         detect_dense = make_detect_fn(cfg, st, object_thresh=0.5,
-                                      use_nms=False, pallas_stem=True, **kw)
+                                      use_nms=False, pallas_stem=True,
+                                      dtype=dtype, **kw)
         cd.reset_launch_counts()
         cs.reset_launch_counts()
         kept = detect_nms(imgs[:16])
         dense = detect_dense(imgs[:16])
         torch.cuda.synchronize()
-        counts = {"stem": cs.STEM_LAUNCHES,
+        counts = {"stem": cs.STEM_LAUNCHES, "stem_f32": cs.STEM_F32_LAUNCHES,
                   "decode_nms": cd.DECODE_NMS_LAUNCHES,
                   "decode_nms_v2": cd.DECODE_NMS_V2_LAUNCHES,
                   "decode_grid": cd.DECODE_GRID_LAUNCHES}
-        print(f"{head} --pallas-stem path launches, one call with NMS and "
-              f"one without: {counts}")
-        check(counts["stem"] == 2, f"{head} --pallas-stem: B4 once a call")
+        print(f"{what} path launches, one call with NMS and one without: "
+              f"{counts}")
+        check(counts[kernel] == 2 and sum(counts[k] for k in
+                                          ("stem", "stem_f32")) == 2,
+              f"{what}: {kernel} once a call, no other stem kernel")
         decode = ({"decode_nms_v2": 1, "decode_nms": 0, "decode_grid": 0}
                   if head == "v2" else
                   {"decode_nms_v2": 0, "decode_nms": 1, "decode_grid": 1})
         check(all(counts[k] == v for k, v in decode.items()),
-              f"{head} --pallas-stem: each decode kernel once a call")
+              f"{what}: each decode kernel once a call")
         n_slots = cfg.S * cfg.S * cfg.B
         check(kept.boxes.shape == (16, K, 4) and dense.boxes.shape ==
-              (16, n_slots, 4), f"{head} --pallas-stem output shapes")
+              (16, n_slots, 4), f"{what} output shapes")
         check(all(bool(torch.isfinite(t).all())
-                  for t in (*kept[:2], *dense[:2])),
-              f"{head} --pallas-stem finite outputs")
-        check(bool((kept.scores > 0).any()),
-              f"the {head} --pallas-stem path kept detections")
+                  for t in (*kept[:2], *dense[:2])), f"{what} finite outputs")
+        check(bool((kept.scores > 0).any()), f"the {what} path kept "
+                                             f"detections")
         if head == "v1":
-            launches["stem"] = counts["stem"]
-            stem_detect = detect_nms
+            launches[kernel] = counts[kernel]
+            stem_detect[dtype] = detect_nms
         del detect_dense
 
-        rel = grid_rel_err(cfg, st, imgs, dev, pallas_stem=True, **kw)
-        grid = card_grid(cfg, st, imgs[:BATCH], dev, pallas_stem=True, **kw)
-        stock = card_grid(cfg, st, imgs[:BATCH], dev, **kw)
+        grid = card_grid(cfg, st, imgs[:BATCH], dev, pallas_stem=True,
+                         dtype=dtype, **kw)
+        stock = card_grid(cfg, st, imgs[:BATCH], dev, dtype=dtype, **kw)
         rel_stock = ((grid.double() - stock.double()).norm() /
                      stock.double().norm()).item()
         del stock
-        print(f"{head} --pallas-stem grid: against the float32 CPU forward "
-              f"{rel:.3e} (bound {GRID_REL_TOL}), against the stock bf16 "
-              f"grid at batch {BATCH} {rel_stock:.3e} (bound "
-              f"{STEM_PATH_REL_TOL}), relative norm")
-        check(rel <= GRID_REL_TOL,
-              f"{head} --pallas-stem grid agrees with the CPU forward")
-        check(rel_stock <= STEM_PATH_REL_TOL,
-              f"{head} --pallas-stem grid agrees with the stock grid")
+        if dtype == f32:
+            print(f"{what} grid against the stock float32 grid (TF32 off) at "
+                  f"batch {BATCH}: relative norm {rel_stock:.3e} (bound "
+                  f"{STEM_F32_PATH_REL_TOL})")
+            check(rel_stock <= STEM_F32_PATH_REL_TOL,
+                  f"{what} grid agrees with the stock grid")
+        else:
+            rel = grid_rel_err(cfg, st, imgs, dev, pallas_stem=True, **kw)
+            print(f"{what} grid: against the float32 CPU forward {rel:.3e} "
+                  f"(bound {GRID_REL_TOL}), against the stock bf16 grid at "
+                  f"batch {BATCH} {rel_stock:.3e} (bound "
+                  f"{STEM_PATH_REL_TOL}), relative norm")
+            check(rel <= GRID_REL_TOL,
+                  f"{what} grid agrees with the CPU forward")
+            check(rel_stock <= STEM_PATH_REL_TOL,
+                  f"{what} grid agrees with the stock grid")
         for thresh in (0.05, 0.5):
             for class_aware in (True, False):
                 if head == "v2":
@@ -1484,8 +1618,8 @@ def main(argv: list[str] | None = None) -> int:
                     cd.decode_grid_plain(grid, cfg, thresh)))
         del grid
         torch.cuda.synchronize()
-    print(f"--pallas-stem real grids: the decode kernels match their plain "
-          f"versions (max abs err {errs})")
+    print(f"--pallas-stem real grids, bf16 and float32: the decode kernels "
+          f"match their plain versions (max abs err {errs})")
 
     # 6. the v1 training path at full width: 224², bf16 ---------------------
     from tensorflow_yolo2_torch.ops import cuda_pool
@@ -1521,17 +1655,29 @@ def main(argv: list[str] | None = None) -> int:
 
     # 7. times ---------------------------------------------------------------
     print(f"times on {card}:")
+    v1_flops = conv_flops_per_image(448, yolo.cell_channels)
+    tf32 = (f"TF32: cudnn.allow_tf32={torch.backends.cudnn.allow_tf32}, "
+            f"cuda.matmul.allow_tf32={torch.backends.cuda.matmul.allow_tf32}")
     path = {
-        "v1_448": time_path(v1_detect, images, dev, "v1 448²",
-                            conv_flops_per_image(448, yolo.cell_channels)),
+        "v1_448": time_path(v1_detect, images, dev, "v1 448²", v1_flops),
         "v1_448_pallas_stem": time_path(
-            stem_detect, images, dev, "v1 448² --pallas-stem",
-            conv_flops_per_image(448, yolo.cell_channels)),
+            stem_detect[torch.bfloat16], images, dev,
+            "v1 448² --pallas-stem", v1_flops),
+        "v1_448_f32": time_path(
+            make_detect_fn(yolo, v1_state, object_thresh=0.5, use_nms=True,
+                           dtype=torch.float32), images, dev,
+            f"v1 448² float32 ({tf32})", v1_flops, F32_OPS_PER_S),
+        "v1_448_f32_pallas_stem": time_path(
+            stem_detect[torch.float32], images, dev,
+            f"v1 448² float32 --pallas-stem ({tf32})", v1_flops,
+            F32_OPS_PER_S),
         "v2p_416": time_path(v2p_detect, v2_images, dev, "v2p 416²",
                              conv_flops_per_image(416, v2cfg.cell_channels,
                                                   passthrough=True)),
         "train_224": time_train(trainer, tstate, trng, tyolo, dev),
         "train_checks": train_check,
+        "tf32": {"cudnn": torch.backends.cudnn.allow_tf32,
+                 "matmul": torch.backends.cuda.matmul.allow_tf32},
     }
     del trainer, tstate
 
@@ -1609,6 +1755,20 @@ def main(argv: list[str] | None = None) -> int:
           f"({st['bound_by']}: bytes {st['bytes_bound_ms']:.3f} ms, "
           f"operations {st['ops_bound_ms']:.3f} ms); no single PyTorch call "
           f"computes it")
+    st = time_stem(dev, yolo, v1_state, images[:BATCH], torch.float32)
+    kernels.append({
+        "name": "stem_f32", "route": "cuda", "source": STEM_F32_SOURCE,
+        "replaces": TPU_KERNELS["stem_f32"], "launches": launches["stem_f32"],
+        "max_abs_err": errs["stem_f32"], "library_ms": None, **st})
+    print(f"stem_f32 (B4-f32), float32 {tuple(st['shape'])}: kernel "
+          f"{st['ms']:.3f} ms (graph replay), the stock float32 stem "
+          f"{st['stock_stem_ms']:.3f} ms with TF32 off, "
+          f"{st['stock_stem_tf32_ms']:.3f} ms with TF32 on (not held to "
+          f"1e-5), plain {st['plain_ms']:.3f} ms (TF32 off); bound "
+          f"{st['bound_ms']:.3f} ms ({st['bound_by']}: FMA "
+          f"{st['ops_bound_ms']:.3f} ms, bytes {st['bytes_bound_ms']:.3f} "
+          f"ms; 3xTF32 on the tensor cores {st['ops_bound_3xtf32_ms']:.3f} "
+          f"ms); no single PyTorch call computes it")
     print(json.dumps({"path": path, "card": card}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -2,7 +2,9 @@
 // leaky + 2x2 max pool, then conv2 3x3 32->64 + bias + leaky + 2x2 max pool,
 // SAME padding, BN folded into the kernels and biases.
 //
-// Replaces tensorflow_yolo2_tpu/ops/pallas_stem.py: fused_stem / _stem_kernel.
+// Replaces tensorflow_yolo2_tpu/ops/pallas_stem.py: fused_stem / _stem_kernel
+// in bf16. Its float32 sibling, for float32 images, is stem_f32.cu (B4-f32,
+// the same tiles on the FMA units).
 //
 // Input x (N, H, W, 3) bfloat16, H and W multiples of 4. Output
 // (N, H/4, W/4, 64) bfloat16. The weights come packed by the wrapper

@@ -15,8 +15,9 @@ the dense decode. Three heads:
   architecture with the reorg route.
 
 ``--pallas-stem`` (v1 or ``--v2``) runs conv1 + pool + conv2 + pool as one
-CUDA kernel, ``ops.cuda_stem.fused_stem`` (B4), which keeps the conv1
-activation out of device memory; the folded detector runs on from there.
+CUDA kernel, ``ops.cuda_stem.fused_stem`` (B4 for a bf16 detector, B4-f32
+for a float32 one), which keeps the conv1 activation out of device
+memory; the folded detector runs on from there.
 
 Weights come from a ``.npz`` written by ``convert.save_npz`` (a flax
 params / batch_stats pair); reading Orbax snapshots or TF checkpoints
@@ -57,6 +58,7 @@ from tensorflow_yolo2_torch.ops.cuda_decode import (
 )
 from tensorflow_yolo2_torch.ops.cuda_stem import (
     StemWeights,
+    cuda_kernel,
     fused_detect_forward,
     pack_stem_weights,
 )
@@ -143,9 +145,10 @@ def make_detect_fn(yolo: YoloConfig, params_or_state_dict, batch_stats=None,
     kept slots per image with ``use_nms``, else the dense S·S·B slots.
 
     ``pallas_stem`` runs the first two conv + pool stages through
-    ``ops.cuda_stem`` (the CUDA kernel B4 on the card, bf16 only) and the
-    rest of the folded detector after them; it takes the v1 or ``v2``
-    head with the pool downsample and BN folding.
+    ``ops.cuda_stem`` (on the card the CUDA kernel of ``dtype``: B4 for
+    bfloat16, B4-f32 for float32; any other type raises ``TypeError``)
+    and the rest of the folded detector after them; it takes the v1 or
+    ``v2`` head with the pool downsample and BN folding.
     """
     if v2 != yolo.per_slot_classes:
         raise ValueError(
@@ -171,6 +174,8 @@ def make_detect_fn(yolo: YoloConfig, params_or_state_dict, batch_stats=None,
     if int8:
         raise NotImplementedError("int8 serving is not ported yet")
     device = resolve_device(device)
+    if pallas_stem and device.type == "cuda":
+        cuda_kernel(dtype)  # a type with no stem kernel raises here
     state_dict = as_state_dict(params_or_state_dict, batch_stats)
     model = build_detector(yolo, state_dict, fold_bn=fold_bn, dtype=dtype,
                            device=device, v2=v2, passthrough=passthrough,

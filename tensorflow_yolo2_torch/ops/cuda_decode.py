@@ -5,9 +5,11 @@ Three kernels, in ``csrc/decode.cu``:
 
 - ``decode_grid_fused`` replaces ``decode_grid_pallas`` (``_decode_kernel``):
   the v1 dense decode, boxes (N, S·S·B, 4), scores and classes (N, S·S·B)
-  in slot order ``cell·B + b``. One thread per cell. It reads the grid
-  once and writes the slots once, so it is bound by bytes: at batch 256,
-  448² (S=14) it reads 6.02 MB and writes 2.41 MB, ≈2.5 µs at 3.35 TB/s.
+  in slot order ``cell·B + b``. One thread per cell; a block stages its
+  run of cells with 16-byte loads, all in flight at once, and writes each
+  output as one contiguous run of 16-byte stores. It reads the grid once
+  and writes the slots once, so it is bound by bytes: at batch 256, 448²
+  (S=14) it reads 6.02 MB and writes 2.41 MB, ≈2.5 µs at 3.35 TB/s.
 - ``decode_nms_fused`` on a v1 grid replaces ``decode_nms_pallas``'s
   ``_decode_nms_kernel`` + ``_nms_sweep``: decode, confidence threshold
   and K greedy class-aware NMS steps, K kept slots per image. One block

@@ -1,40 +1,47 @@
-"""The fused Darknet19 stem: a CUDA kernel and its plain PyTorch version
+"""The fused Darknet19 stem: CUDA kernels and their plain PyTorch version
 (port of tensorflow_yolo2_tpu/ops/pallas_stem.py).
 
 ``fused_stem`` computes the first two stages of the folded Darknet19
 trunk, conv1 3×3 3→32 + bias + leaky + 2×2 max pool, then conv2 3×3
 32→64 + bias + leaky + 2×2 max pool, SAME padding, on an NHWC image batch
 (N, H, W, 3) with H and W multiples of 4, into (N, H/4, W/4, 64). On the
-card it is the kernel of ``csrc/stem.cu`` (B4, replacing ``_stem_kernel``):
-one block a tile of 8×16 output pixels, the stage-1 map kept in shared
-memory, both convs on the tensor cores. Its work, 2.2 GFLOP an image at
-448², bounds it, not its bytes: 0.569 ms at batch 256 on an H100.
+card it is one of two kernels, both replacing ``_stem_kernel``, by the
+images' type:
 
-conv1 runs on ``mma.sync`` with its B fragments and bias held in
-registers for the life of a block; conv2, 84% of the work, on Hopper's
-``wgmma`` (m64n64k16, A from registers, B from shared memory through a
-descriptor), which replaced ``mma.sync`` there and took the B-fragment
-reloads of every K step off the shared-memory port; the input patch
-comes in 4-byte words. What is left (the source says more): conv1 takes
-the largest share of the time, its K padded from 27 to 32 and its halo
-recomputed 1.27×; a tile's loads do not overlap its own math (no TMA or
-``cp.async`` pipeline, no warp specialisation).
+- bfloat16: ``csrc/stem.cu`` (B4): one block a tile of 8×16 output
+  pixels, the stage-1 map kept in shared memory, both convs on the
+  tensor cores. Its work, 2.2 GFLOP an image at 448², bounds it, not its
+  bytes: 0.569 ms at batch 256 on an H100. conv1 runs on ``mma.sync``
+  with its B fragments and bias held in registers for the life of a
+  block; conv2, 84% of the work, on Hopper's ``wgmma`` (m64n64k16, A from
+  registers, B from shared memory through a descriptor). What is left
+  (the source says more): conv1 takes the largest share of the time, its
+  K padded from 27 to 32 and its halo recomputed 1.27×; a tile's loads do
+  not overlap its own math (no TMA or ``cp.async`` pipeline, no warp
+  specialisation).
+- float32: ``csrc/stem_f32.cu`` (B4-f32): the same tiles, the stage-1
+  map kept in float32, both convs in float32 on the FMA units (TF32
+  would not meet the 1e-5 the plain version is held to), reading the
+  HWIO kernels as they are. Bound by operations: 8.39 ms at batch 256,
+  448², at 67 TFLOP/s.
 
-The kernel rounds where ``_stem_kernel`` rounds: bf16 inputs and weights,
-float32 sums, bias and leaky ``max(0.1·x, x)`` in float32, the stage-1
-map rounded to the working type once and the output once.
-``fused_stem_plain`` is the same function in plain PyTorch with those
-rounding points (the XLA composition ``stem_reference`` rounds each conv
-output as well, and is kept for tests). A wrapper takes the plain version
-only for a tensor on the CPU, in any floating type; on a CUDA tensor it
-launches the kernel, which takes bfloat16 only, or raises.
-``STEM_LAUNCHES`` counts kernel launches.
+Each kernel rounds where ``_stem_kernel`` rounds in its type: inputs and
+weights in the working type, float32 sums, bias and leaky
+``max(0.1·x, x)`` in float32, the stage-1 map rounded to the working type
+once and the output once (no rounding in float32). ``fused_stem_plain``
+is the same function in plain PyTorch with those rounding points (the
+XLA composition ``stem_reference`` rounds each conv output as well, and
+is kept for tests). A wrapper takes the plain version only for a tensor
+on the CPU, in any floating type; on a CUDA tensor it launches the
+kernel of its type (``cuda_kernel``), or raises for any other type.
+``STEM_LAUNCHES`` and ``STEM_F32_LAUNCHES`` count kernel launches.
 
-``pack_stem_weights`` builds the kernel's operands once: the HWIO kernels
-reshaped to (9·C, O), k = (dy·3 + dx)·C + c; conv1's K zero-padded from
-27 to 32 in the order of ``mma.sync``'s B fragments (``mma_fragments``),
-conv2's in ``wgmma``'s K-major layout without swizzle (``wgmma_tiles``);
-float32 biases.
+``pack_stem_weights`` builds the kernels' operands once: the contiguous
+float32 HWIO kernels and biases (B4-f32's operands, and the plain
+version's); for B4 the kernels reshaped to (9·C, O), k = (dy·3 + dx)·C +
+c, conv1's K zero-padded from 27 to 32 in the order of ``mma.sync``'s B
+fragments (``mma_fragments``), conv2's in ``wgmma``'s K-major layout
+without swizzle (``wgmma_tiles``).
 """
 
 from __future__ import annotations
@@ -51,22 +58,25 @@ from tensorflow_yolo2_torch.models.layers import leaky_relu
 from tensorflow_yolo2_torch.utils import cuda_build
 
 STEM_LAUNCHES = 0
+STEM_F32_LAUNCHES = 0
 
 C1, C2 = 32, 64
 
 
 def reset_launch_counts() -> None:
-    global STEM_LAUNCHES
+    global STEM_LAUNCHES, STEM_F32_LAUNCHES
     STEM_LAUNCHES = 0
+    STEM_F32_LAUNCHES = 0
 
 
-def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
-    """Declares the C entry ``tfy2_fused_stem`` of a library built from
-    ``csrc/stem.cu``."""
+def bind(lib: ctypes.CDLL, entry: str = "tfy2_fused_stem") -> ctypes.CDLL:
+    """Declares the C entry of a library built from ``csrc/stem.cu``
+    (``tfy2_fused_stem``) or ``csrc/stem_f32.cu``
+    (``tfy2_fused_stem_f32``); both take the same arguments."""
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
-    lib.tfy2_fused_stem.argtypes = [ptr, ptr, ptr, ptr, ptr, ptr, i32, i32,
-                                    i32, ptr]
-    lib.tfy2_fused_stem.restype = i32
+    fn = getattr(lib, entry)
+    fn.argtypes = [ptr, ptr, ptr, ptr, ptr, ptr, i32, i32, i32, ptr]
+    fn.restype = i32
     return lib
 
 
@@ -75,10 +85,28 @@ def _lib() -> ctypes.CDLL:
     return bind(cuda_build.load("stem"))
 
 
+@functools.cache
+def _lib_f32() -> ctypes.CDLL:
+    return bind(cuda_build.load("stem_f32"), "tfy2_fused_stem_f32")
+
+
+# the kernel (csrc/<name>.cu) that runs a CUDA batch of each type
+CUDA_KERNELS = {torch.bfloat16: "stem", torch.float32: "stem_f32"}
+
+
+def cuda_kernel(dtype: torch.dtype) -> str:
+    """The name of the kernel (``csrc/<name>.cu``) that runs images of
+    ``dtype`` on the card; raises ``TypeError`` for a type with none."""
+    if dtype not in CUDA_KERNELS:
+        raise TypeError(f"the CUDA stem takes bfloat16 or float32 images, "
+                        f"got {dtype}")
+    return CUDA_KERNELS[dtype]
+
+
 class StemWeights(NamedTuple):
-    """The stem's weights: HWIO kernels and biases (float32) for the plain
-    version, and the kernel's bf16 B operands: conv1's as ``mma.sync``
-    fragments, conv2's as ``wgmma`` tiles."""
+    """The stem's weights: contiguous float32 HWIO kernels and biases for
+    the plain version and B4-f32, and B4's bf16 B operands: conv1's as
+    ``mma.sync`` fragments, conv2's as ``wgmma`` tiles."""
     w1: torch.Tensor  # (3, 3, 3, 32)
     b1: torch.Tensor  # (32,)
     w2: torch.Tensor  # (3, 3, 32, 64)
@@ -139,7 +167,7 @@ def pack_stem_weights(w1: torch.Tensor, b1: torch.Tensor, w2: torch.Tensor,
             f"b2 (64,); got {tuple(w1.shape)}, {tuple(b1.shape)}, "
             f"{tuple(w2.shape)}, {tuple(b2.shape)}")
     device = w1.device if device is None else torch.device(device)
-    w1, b1, w2, b2 = (t.to(device=device, dtype=torch.float32)
+    w1, b1, w2, b2 = (t.to(device=device, dtype=torch.float32).contiguous()
                       for t in (w1, b1, w2, b2))
     return StemWeights(w1, b1, w2, b2, mma_fragments(w1), wgmma_tiles(w2))
 
@@ -152,14 +180,22 @@ def _check_images(x: torch.Tensor) -> None:
         raise TypeError(f"the stem takes floating images, got {x.dtype}")
 
 
-_PACKED = {"b1": ((C1,), torch.float32), "b2": ((C2,), torch.float32),
-           "w1_frags": ((2, C1 // 8, 32, 4), torch.bfloat16),
-           "w2_tiles": ((18, C2 // 8, 2, 8, 8), torch.bfloat16)}
+# each kernel's operands, as pack_stem_weights makes them
+_PACKED = {
+    "stem": {"b1": ((C1,), torch.float32), "b2": ((C2,), torch.float32),
+             "w1_frags": ((2, C1 // 8, 32, 4), torch.bfloat16),
+             "w2_tiles": ((18, C2 // 8, 2, 8, 8), torch.bfloat16)},
+    "stem_f32": {"w1": ((3, 3, 3, C1), torch.float32),
+                 "b1": ((C1,), torch.float32),
+                 "w2": ((3, 3, C1, C2), torch.float32),
+                 "b2": ((C2,), torch.float32)},
+}
 
 
-def _check_packed(weights: StemWeights, device: torch.device) -> None:
+def _check_packed(weights: StemWeights, device: torch.device,
+                  kernel: str) -> None:
     """The kernel's operands as ``pack_stem_weights`` makes them."""
-    for name, (shape, dtype) in _PACKED.items():
+    for name, (shape, dtype) in _PACKED[kernel].items():
         t = getattr(weights, name)
         if tuple(t.shape) != shape or t.dtype != dtype or \
                 t.device != device or not t.is_contiguous():
@@ -216,39 +252,49 @@ def fused_stem(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
 
 def fused_stem_packed(x: torch.Tensor, weights: StemWeights) -> torch.Tensor:
     """``fused_stem`` with weights packed by ``pack_stem_weights``. On the
-    card x must be bfloat16 and contiguous, with the weights on its
-    device."""
-    global STEM_LAUNCHES
+    card x must be bfloat16 (B4) or float32 (B4-f32) and contiguous, with
+    the weights on its device."""
+    global STEM_LAUNCHES, STEM_F32_LAUNCHES
     _check_images(x)
     if x.device.type == "cpu":
         return fused_stem_plain(x, weights.w1, weights.b1, weights.w2,
                                 weights.b2)
     if x.device.type != "cuda":
         raise ValueError(f"unsupported device {x.device}")
-    if x.dtype != torch.bfloat16:
-        raise TypeError(f"the CUDA stem takes bfloat16 images, got {x.dtype} "
-                        f"(float32 is not ported to the card)")
+    kernel = cuda_kernel(x.dtype)
     if not x.is_contiguous():
         raise ValueError("the CUDA stem reads a contiguous NHWC batch")
     if x.data_ptr() % 4:
         raise ValueError("the CUDA stem reads its images in 4-byte words: "
                          "x must start 4-byte aligned")
-    _check_packed(weights, x.device)
+    _check_packed(weights, x.device, kernel)
     n, h, w, _ = x.shape
-    out = torch.empty((n, h // 4, w // 4, C2), dtype=torch.bfloat16,
+    out = torch.empty((n, h // 4, w // 4, C2), dtype=x.dtype,
                       device=x.device)
     if n == 0:
         return out
+    if kernel == "stem":
+        entry = _lib().tfy2_fused_stem
+        operands = (weights.w1_frags, weights.b1, weights.w2_tiles,
+                    weights.b2)
+    else:
+        entry = _lib_f32().tfy2_fused_stem_f32
+        operands = (weights.w1, weights.b1, weights.w2, weights.b2)
+        if any(t.data_ptr() % 16 for t in (weights.w1, weights.w2)):
+            raise ValueError("the float32 CUDA stem reads its kernels in "
+                             "16-byte words: w1 and w2 must start 16-byte "
+                             "aligned (pack_stem_weights)")
     with torch.cuda.device(x.device):
-        err = _lib().tfy2_fused_stem(
-            x.data_ptr(), weights.w1_frags.data_ptr(), weights.b1.data_ptr(),
-            weights.w2_tiles.data_ptr(), weights.b2.data_ptr(),
-            out.data_ptr(), n, h, w,
-            ctypes.c_void_p(torch.cuda.current_stream(x.device).cuda_stream))
+        err = entry(x.data_ptr(), *(t.data_ptr() for t in operands),
+                    out.data_ptr(), n, h, w, ctypes.c_void_p(
+                        torch.cuda.current_stream(x.device).cuda_stream))
     if err != 0:
-        raise RuntimeError(f"tfy2_fused_stem launch failed with cudaError_t "
-                           f"{err}")
-    STEM_LAUNCHES += 1
+        raise RuntimeError(f"tfy2_fused_{kernel} launch failed with "
+                           f"cudaError_t {err}")
+    if kernel == "stem":
+        STEM_LAUNCHES += 1
+    else:
+        STEM_F32_LAUNCHES += 1
     return out
 
 

@@ -17,10 +17,15 @@ relative norm (chip_smoke's bounds: float32 rounding alone puts the
 early BatchNorm gradients up to ~1e-2 from float64 on any device). The
 fused stem (B4) against its plain version: chip_smoke.compare_stem's
 bounds, at least 99.9% bit-equal, each difference within one bf16 ulp of
-the value or of the output's RMS, relative norm 1e-4.
+the value or of the output's RMS, relative norm 1e-4. The float32 stem
+(B4-f32) against its plain version, TF32 off: rtol = atol = 1e-5
+(chip_smoke.compare_stem_f32, the JAX package's bound for its float32
+stem); the float32 ``--pallas-stem`` grid against the stock float32
+grid: 2e-4 relative norm.
 """
 
 import ctypes
+import math
 
 import numpy as np
 import pytest
@@ -74,6 +79,49 @@ def test_kernels_take_odd_shapes(card):
         chip_smoke.compare_kept(
             cuda_decode.decode_nms_fused(net, cfg, 0.5, 0.5, k),
             cuda_decode.decode_nms_plain(net, cfg, 0.5, 0.5, k))
+
+
+@pytest.mark.parametrize("batch", [1, 256])
+@pytest.mark.parametrize("S", [7, 14, 28])
+def test_dense_decode_matches_plain(card, S, batch):
+    """B3 on synthetic grids (S=7 at batch 1: 49 cells, a block not
+    filled), thresholds 0.5 and 0.05."""
+    cfg = YoloConfig(S=S, image_size=32 * S)
+    net = torch.from_numpy(chip_smoke.synthetic_grid(cfg, batch, S)).to(card)
+    for thresh in (0.5, 0.05):
+        chip_smoke.compare_dense(
+            cuda_decode.decode_grid_fused(net, cfg, thresh),
+            cuda_decode.decode_grid_plain(net, cfg, thresh))
+    torch.cuda.synchronize()
+
+
+def test_dense_decode_threshold_ties_and_alignment(card):
+    """B3: a confidence exactly at the threshold scores 0 and one a float
+    above keeps its value (the rule is conf > threshold); tied class
+    scores go to the first class; 3·5·5 = 75 cells, the last block not
+    filled; and a grid that starts 4 bytes past a 16-byte boundary (the
+    kernel stages it with 4-byte loads)."""
+    cfg = YoloConfig(S=5, image_size=160)
+    C, B = cfg.num_class, cfg.B
+    net = chip_smoke.synthetic_grid(cfg, 3, seed=2)
+    net[..., :C] = np.round(net[..., :C])  # many ties among the classes
+    net[:, 0, 0, C] = 0.5
+    net[:, 0, 0, C + 1] = np.nextafter(np.float32(0.5), np.float32(1))
+    got = None
+    for offset in (0, 1):
+        flat = torch.zeros(net.size + offset, device=card)
+        flat[offset:] = torch.from_numpy(net).to(card).reshape(-1)
+        x = flat[offset:].view(net.shape)
+        assert x.is_contiguous() and x.data_ptr() % 16 == 4 * offset
+        got = cuda_decode.decode_grid_fused(x, cfg, 0.5)
+        want = cuda_decode.decode_grid_plain(x, cfg, 0.5)
+        chip_smoke.compare_dense(got, want)
+        first = np.argmax(net[..., :C].reshape(-1, C), axis=1)
+        assert np.array_equal(got.classes.cpu().numpy().reshape(-1, B)[:, 0],
+                              first)
+        assert (got.scores[:, 0] == 0).all()
+        assert (got.scores[:, 1] == float(net[0, 0, 0, C + 1])).all()
+    torch.cuda.synchronize()
 
 
 @pytest.mark.parametrize("class_aware", [True, False])
@@ -406,15 +454,97 @@ def test_stem_kernel_edges_and_shapes(card, no_tf32):
     assert chip_smoke.check_stem_kernel(card, state) < 0.1
 
 
-def test_stem_kernel_never_falls_back(card):
+@pytest.mark.parametrize("shape", [(2, 32, 32), (1, 56, 64), (3, 40, 72),
+                                   (8, 448, 448)])
+def test_stem_f32_kernel_matches_plain(card, no_tf32, shape):
+    """B4-f32 on random weights at rtol = atol = 1e-5; (3, 40, 72) has
+    partial tiles (10 × 18 outputs)."""
     weights = cuda_stem.pack_stem_weights(
         *chip_smoke.random_stem_weights(torch.Generator().manual_seed(0)),
         device=card)
-    x = torch.zeros((1, 32, 32, 3), device=card)
-    with pytest.raises(TypeError, match="bfloat16"):
-        cuda_stem.fused_stem_packed(x, weights)
-    with pytest.raises(TypeError, match="bfloat16"):
-        cuda_stem.fused_stem(x, *weights[:4])
+    x = torch.rand(shape + (3,), device=card,
+                   generator=torch.Generator(device=card).manual_seed(1)) \
+        * 2 - 1
+    cuda_stem.reset_launch_counts()
+    got = cuda_stem.fused_stem_packed(x, weights)
+    assert cuda_stem.STEM_F32_LAUNCHES == 1 and cuda_stem.STEM_LAUNCHES == 0
+    chip_smoke.compare_stem_f32(got, cuda_stem.fused_stem_plain(
+        x, *weights[:4]), f"{shape}")
+    torch.cuda.synchronize()
+
+
+def test_stem_f32_kernel_edges_and_shapes(card, no_tf32):
+    """All STEM_SHAPES with both weight sets (the batch of 256 too), and
+    all-zero images with b1 > 0 (SAME zeros of the stage-1 map)."""
+    state = randomize_(Darknet19Detector(),
+                       torch.Generator().manual_seed(0)).state_dict()
+    assert math.isfinite(chip_smoke.check_stem_kernel(card, state,
+                                                     torch.float32))
+
+
+def test_detect_f32_runs_through_the_stem_f32_kernel(card, no_tf32):
+    """``make_detect_fn(dtype=torch.float32, pallas_stem=True)``: B4-f32
+    once a call (never B4), the decode kernel once a call, for the v1
+    and ``--v2`` heads, NMS on and off; its grid within 2e-4 (relative
+    norm) of the stock float32 grid."""
+    images = torch.randint(0, 256, (2, 64, 64, 3), dtype=torch.uint8,
+                           generator=torch.Generator().manual_seed(1))
+    for cfg, model, kw in (
+            (YoloConfig(S=2, image_size=64), Darknet19Detector(), {}),
+            (yolo_v2_config(64), Darknet19Detector(125, bn_on_output=False),
+             {"v2": True})):
+        state = randomize_(model, torch.Generator().manual_seed(0)
+                           ).state_dict()
+        cuda_decode.reset_launch_counts()
+        cuda_stem.reset_launch_counts()
+        for use_nms in (True, False):
+            out = make_detect_fn(cfg, state, object_thresh=0.05,
+                                 use_nms=use_nms, pallas_stem=True,
+                                 dtype=torch.float32, **kw)(images)
+            assert out.scores.device.type == "cuda"
+            assert bool(torch.isfinite(out.scores).all())
+        assert cuda_stem.STEM_F32_LAUNCHES == 2
+        assert cuda_stem.STEM_LAUNCHES == 0
+        launched = (cuda_decode.DECODE_NMS_V2_LAUNCHES if kw else
+                    cuda_decode.DECODE_NMS_LAUNCHES
+                    + cuda_decode.DECODE_GRID_LAUNCHES)
+        assert launched == (1 if kw else 2)
+        grid = chip_smoke.card_grid(cfg, state, images, card,
+                                    pallas_stem=True, dtype=torch.float32,
+                                    **kw)
+        stock = chip_smoke.card_grid(cfg, state, images, card,
+                                     dtype=torch.float32, **kw)
+        assert chip_smoke.rel_norm(grid, stock) <= \
+            chip_smoke.STEM_F32_PATH_REL_TOL
+
+
+def test_stem_kernel_never_falls_back(card):
+    """float16 and float64 images raise; float32 images launch B4-f32,
+    bfloat16 images B4."""
+    weights = cuda_stem.pack_stem_weights(
+        *chip_smoke.random_stem_weights(torch.Generator().manual_seed(0)),
+        device=card)
+    cuda_stem.reset_launch_counts()
+    for dtype in (torch.float16, torch.float64):
+        x = torch.zeros((1, 32, 32, 3), device=card, dtype=dtype)
+        with pytest.raises(TypeError, match="bfloat16 or float32"):
+            cuda_stem.fused_stem_packed(x, weights)
+        with pytest.raises(TypeError, match="bfloat16 or float32"):
+            cuda_stem.fused_stem(x, *weights[:4])
+    assert cuda_stem.STEM_LAUNCHES == cuda_stem.STEM_F32_LAUNCHES == 0
+    cuda_stem.fused_stem_packed(torch.zeros((1, 32, 32, 3), device=card),
+                                weights)
+    assert cuda_stem.STEM_F32_LAUNCHES == 1 and cuda_stem.STEM_LAUNCHES == 0
+    cuda_stem.fused_stem_packed(
+        torch.zeros((1, 32, 32, 3), device=card, dtype=torch.bfloat16),
+        weights)
+    assert cuda_stem.STEM_F32_LAUNCHES == 1 and cuda_stem.STEM_LAUNCHES == 1
+    with pytest.raises(TypeError, match="bfloat16 or float32"):
+        make_detect_fn(YoloConfig(S=2, image_size=64),
+                       randomize_(Darknet19Detector(),
+                                  torch.Generator().manual_seed(0)
+                                  ).state_dict(),
+                       dtype=torch.float16, pallas_stem=True)
     with pytest.raises(ValueError, match="contiguous"):
         cuda_stem.fused_stem_packed(
             torch.zeros((1, 32, 32, 3), device=card, dtype=torch.bfloat16)
@@ -423,10 +553,11 @@ def test_stem_kernel_never_falls_back(card):
         cuda_stem.fused_stem_packed(
             torch.zeros((1, 30, 32, 3), device=card, dtype=torch.bfloat16),
             weights)
-    with pytest.raises(ValueError, match="pack_stem_weights"):
-        cuda_stem.fused_stem_packed(
-            torch.zeros((1, 32, 32, 3), device=card, dtype=torch.bfloat16),
-            cuda_stem.pack_stem_weights(*weights[:4], device="cpu"))
+    for dtype in (torch.bfloat16, torch.float32):
+        with pytest.raises(ValueError, match="pack_stem_weights"):
+            cuda_stem.fused_stem_packed(
+                torch.zeros((1, 32, 32, 3), device=card, dtype=dtype),
+                cuda_stem.pack_stem_weights(*weights[:4], device="cpu"))
 
 
 def test_stem_kernel_refuses_misaligned_images(card):

@@ -369,6 +369,50 @@ def test_wrapper_checks_its_input():
     assert cuda_stem.STEM_LAUNCHES == 0  # the CPU runs the plain version
 
 
+def test_pack_stem_weights_keeps_hwio_contiguous():
+    """B4-f32 reads w1 and w2 as they are: the HWIO kernels, contiguous,
+    so that w1 is the (27, 32) and w2 the (288, 64) matrix with k =
+    (dy·3 + dx)·C + c, even when the caller passes a permuted view (as
+    ``stem_weights`` does, OIHW → HWIO)."""
+    w1, b1, w2, b2 = pt(*stem_weights(4))
+    oihw1, oihw2 = (w.permute(3, 2, 0, 1).contiguous() for w in (w1, w2))
+    packed = cuda_stem.pack_stem_weights(oihw1.permute(2, 3, 1, 0), b1,
+                                         oihw2.permute(2, 3, 1, 0), b2)
+    for got, want, c in ((packed.w1, w1, 3), (packed.w2, w2, 32)):
+        assert got.is_contiguous() and got.dtype == torch.float32
+        assert torch.equal(got, want)
+        mat = got.view(9 * c, -1)
+        for dy, dx, ci in ((0, 0, 0), (1, 2, c - 1), (2, 1, c // 2)):
+            assert torch.equal(mat[(dy * 3 + dx) * c + ci], want[dy, dx, ci])
+
+
+@pytest.mark.parametrize("dtype,kernel", [
+    (torch.bfloat16, "stem"), (torch.float32, "stem_f32"),
+    (torch.float16, None), (torch.float64, None), (torch.uint8, None)])
+def test_cuda_kernel_by_type(dtype, kernel):
+    """The kernel a CUDA batch of each type launches; a type with none
+    raises before anything is launched or built."""
+    if kernel is None:
+        with pytest.raises(TypeError, match="bfloat16 or float32"):
+            cuda_stem.cuda_kernel(dtype)
+    else:
+        assert cuda_stem.cuda_kernel(dtype) == kernel
+        assert kernel in cuda_build.sources()
+
+
+def test_compare_stem_f32_bounds():
+    """``chip_smoke.compare_stem_f32`` holds B4-f32 to rtol = atol = 1e-5:
+    an output within it passes, one just outside it fails."""
+    x = torch.from_numpy(images((1, 32, 32, 3), seed=12))
+    weights = cuda_stem.pack_stem_weights(*pt(*stem_weights(5)))
+    want = cuda_stem.fused_stem_plain(x, *weights[:4])
+    assert chip_smoke.compare_stem_f32(want, want, "equal") == (0.0, 0)
+    tol = 1e-5 * (1 + want.abs())
+    chip_smoke.compare_stem_f32(want + 0.9 * tol, want, "inside")
+    with pytest.raises(RuntimeError, match="float32 stem"):
+        chip_smoke.compare_stem_f32(want + 1.1 * tol, want, "outside")
+
+
 # -- entries: make_detect_fn(pallas_stem=True) and the CLI -------------------
 
 
@@ -401,6 +445,38 @@ def test_make_detect_fn_pallas_stem_matches_jax(detector_weights):
                                    atol=1e-3)
         np.testing.assert_array_equal(out.classes.numpy()[kept],
                                       np.asarray(want.classes)[kept])
+
+
+@pytest.mark.parametrize("size", [64, 96])
+def test_make_detect_fn_v2_pallas_stem_matches_jax(size):
+    """The float32 ``--v2 --pallas-stem`` path (the linear-output anchor
+    head behind the fused stem) against the JAX package's, dense decode,
+    uint8 input: scores 1e-4, boxes 1e-3, classes exact where kept."""
+    v = random_variables(jx_darknet.Darknet19Detector(
+        output_channels=125, bn_on_output=False), (1, 64, 64, 3), seed=13)
+    conv = v["params"]["detection"]["output"]["conv"]
+    conv["kernel"] *= 0.1  # logits near the biases, as a trained head's
+    conv["bias"].reshape(5, 25)[:, 4] += 2.0
+    params, stats = v["params"], v["batch_stats"]
+    x = np.random.RandomState(14).randint(0, 256, (2, size, size, 3)).astype(
+        np.uint8)
+    kw = dict(object_thresh=THRESH, use_nms=False, v2=True)
+    got = pt_detect.make_detect_fn(pt_config.yolo_v2_config(size), params,
+                                   stats, pallas_stem=True,
+                                   dtype=torch.float32, device="cpu",
+                                   **kw)(x)
+    want = jx_detect.make_detect_fn(jx_config.yolo_v2_config(size), params,
+                                    stats, pallas_stem=True,
+                                    dtype=jnp.float32, **kw)(jnp.asarray(x))
+    kept = np.asarray(want.scores) > 0
+    assert kept.sum() >= 4
+    np.testing.assert_allclose(got.scores.numpy(), np.asarray(want.scores),
+                               rtol=1e-4, atol=1e-4)
+    np.testing.assert_allclose(got.boxes.numpy()[kept],
+                               np.asarray(want.boxes)[kept], rtol=1e-3,
+                               atol=1e-3)
+    np.testing.assert_array_equal(got.classes.numpy()[kept],
+                                  np.asarray(want.classes)[kept])
 
 
 @pytest.mark.parametrize("option,match", [
