@@ -50,17 +50,35 @@
    the weights those steps reached, one float32 step on the card against
    the same step in float64 on the CPU (loss and every gradient), and the
    bf16 loss against the float32 one.
-7. Times the v1, v1 ``--pallas-stem`` and v2p serving paths in bf16 and
+7. Drives the v2p training path at full width, ``Trainer.train_step``
+   with ``yolo_v2_task`` on YOLOv2's VOC detector at 416² (S=13, B=5,
+   C=20, classic anchors, ``--v2 --passthrough``), fresh seeded weights,
+   bf16, Adam at 1e-3, on a seeded uint8 batch of 24 whose per-slot labels
+   come from ``build_label_grid_v2``: 30 steps, checking that B5 ran 5
+   times a step, that the loss fell and that the burn-in term was on;
+   then one float32 step on the card against float64 on the CPU, on 4
+   images of the batch.
+8. Runs the evaluation, ``pascal_eval_map.run_eval`` through
+   ``make_detect_fn`` at the eval CLI's threshold 0.005, NMS IoU 0.5 and
+   K=32, on 256 seeded uint8 images at batch 32 (an in-memory image set:
+   no VOC data on the card machine): v2p at 416² with the serving
+   weights of 4 and per-slot labels, v1 at 448² with the weights of 3
+   and v1 grids; checks that the decode kernel (B2, B1) ran once a
+   batch, that the APs and mAP (all-points and VOC07) equal those of the
+   plain decode on the same grids, and the kernel against its plain
+   version on each grid; times the eval loop and the kernel at batch 32.
+9. Times the v1, v1 ``--pallas-stem`` and v2p serving paths in bf16 and
    the v1 and v1 ``--pallas-stem`` paths in float32 with TF32 off
-   (images/s at batch 32 and 256, with a profile), the train step
-   (steps/s and images/s at batch 24 and 64, with a profile), each decode
-   kernel and its plain version at batch 256, B5 at each pool site of a
-   batch-24 step beside torch's ``max_pool2d_with_indices_backward``, B4
+   (images/s at batch 32 and 256, with a profile), the v1 224² and v2p
+   416² train steps (steps/s and images/s at batch 24 and 64, with a
+   profile), each decode kernel and its plain version at batch 256, B5
+   at each pool site of a batch-24 step beside torch's
+   ``max_pool2d_with_indices_backward``, B4
    at batch 256, 448², beside the stock stem (the detector's own conv1,
    bias, leaky, pool, conv2, bias, leaky, pool), and B4-f32 there beside
    the stock float32 stem with cuDNN's TF32 off and on, and prints them,
    with each kernel's bound, as one JSON line ``{"kernels": [...]}``.
-8. Ends with ``{"ok": true, "device": {...}}``.
+10. Ends with ``{"ok": true, "device": {...}}``.
 
     python3 chip_smoke.py --stem-ab [OTHER_STEM_CU ...]
 
@@ -106,13 +124,16 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-# H100 SXM peaks (NVIDIA data sheet, dense, at 700 W): HBM bytes/s and
-# float32 operations/s outside the tensor cores; bf16 and TF32
-# tensor-core FLOP/s.
-HBM_BYTES_PER_S = 3.35e12
-F32_OPS_PER_S = 67e12
-BF16_FLOPS_PER_S = 989e12
-TF32_FLOPS_PER_S = 494.7e12
+# H100 SXM peaks (NVIDIA data sheet, dense, at 700 W) and the detector's
+# conv FLOPs
+from tensorflow_yolo2_torch.utils.profiling import (
+    BF16_FLOPS_PER_S,
+    F32_OPS_PER_S,
+    HBM_BYTES_PER_S,
+    TF32_FLOPS_PER_S,
+    conv_flops_per_image,
+)
+
 
 K = 32
 BATCH = 256
@@ -173,6 +194,15 @@ GRAD_REL_TOL = 5e-2
 ALL_GRADS_REL_TOL = 1e-2
 BF16_LOSS_REL_TOL = 5e-2  # bf16 loss vs float32 loss, same weights
 L2_BYTES = 50e6
+# the v2p training path: YOLOv2's VOC size, the reference's batch and 64;
+# the float32-vs-float64 step on a few images of the batch (CPU float64
+# at 416² is the slow part)
+V2P_TRAIN_SIZE = 416
+V2P_CHECK_IMAGES = 4
+# evaluation: pascal_eval_map's threshold and batch, 8 batches
+EVAL_THRESH = 0.005
+EVAL_BATCH = 32
+EVAL_IMAGES = 256
 
 
 def check(ok: bool, what: str) -> None:
@@ -684,34 +714,55 @@ def stem_ab(sources: list[str], card: str) -> int:
 
 
 def train_batch(rng: np.random.RandomState, batch: int, yolo):
-    """Seeded uint8 images (batch, size, size, 3) and their label grids
-    from ``build_label_grid`` on 1–6 seeded boxes an image."""
-    from tensorflow_yolo2_torch.data.voc import build_label_grid
+    """Seeded uint8 images (batch, size, size, 3) and their label grids on
+    1–6 seeded boxes an image: ``build_label_grid`` for the v1 head,
+    ``build_label_grid_v2`` (per-slot) for an anchor config."""
+    from tensorflow_yolo2_torch.data.voc import (
+        build_label_grid,
+        build_label_grid_v2,
+    )
 
     size = yolo.image_size
     images = rng.randint(0, 256, (batch, size, size, 3)).astype(np.uint8)
-    labels = np.zeros((batch, yolo.S, yolo.S, 5 + yolo.num_class),
-                      np.float32)
+    slots = (yolo.B,) if yolo.per_slot_classes else ()
+    labels = np.zeros((batch, yolo.S, yolo.S) + slots +
+                      (5 + yolo.num_class,), np.float32)
     for i in range(batch):
         n = rng.randint(1, 7)
         xy = rng.uniform(0, size - 40, (n, 2))
         wh = rng.uniform(16, 160, (n, 2))
-        corners = np.concatenate([xy, np.minimum(xy + wh, size - 1)], 1)
-        labels[i] = build_label_grid(
-            corners.astype(np.float32), rng.randint(0, yolo.num_class, n),
-            yolo.S, yolo.num_class, float(size))
+        corners = np.concatenate([xy, np.minimum(xy + wh, size - 1)],
+                                 1).astype(np.float32)
+        cls = rng.randint(0, yolo.num_class, n)
+        if yolo.per_slot_classes:
+            labels[i] = build_label_grid_v2(corners, cls, yolo.S, yolo.B,
+                                            yolo.anchors, yolo.num_class,
+                                            float(size))
+        else:
+            labels[i] = build_label_grid(corners, cls, yolo.S,
+                                         yolo.num_class, float(size))
     return images, labels
 
 
 def make_trainer(yolo, dtype: torch.dtype, device, state_dict=None):
-    """The v1 detector's trainer as the CLI builds it (Adam at 1e-3, the
-    YOLOv1 loss) and its state on ``device``: fresh weights from seed 0,
-    or ``state_dict``'s."""
-    from tensorflow_yolo2_torch.models.darknet import Darknet19Detector
+    """The trainer as the CLI builds it (Adam at 1e-3) and its state on
+    ``device``, fresh weights from seed 0 or ``state_dict``'s: the v1
+    detector and the YOLOv1 loss, or for an anchor config the YOLOv2
+    passthrough detector (``--v2 --passthrough``) and the YOLOv2 loss,
+    whose burn-in the step count drives."""
+    from tensorflow_yolo2_torch.losses.yolo_v2 import yolo_v2_task
+    from tensorflow_yolo2_torch.models.darknet import (
+        Darknet19Detector,
+        Darknet19DetectorV2,
+    )
     from tensorflow_yolo2_torch.train.trainer import Trainer, yolo_task
 
-    trainer = Trainer(Darknet19Detector(yolo.cell_channels),
-                      yolo_task(yolo), device=device, compute_dtype=dtype)
+    if yolo.per_slot_classes:
+        model, task = (Darknet19DetectorV2(yolo.cell_channels),
+                       yolo_v2_task(yolo))
+    else:
+        model, task = Darknet19Detector(yolo.cell_channels), yolo_task(yolo)
+    trainer = Trainer(model, task, device=device, compute_dtype=dtype)
     return trainer, trainer.create_state(torch.Generator().manual_seed(0),
                                          state_dict)
 
@@ -724,10 +775,10 @@ def rel_norm(got: torch.Tensor, want: torch.Tensor) -> float:
 def step_grads(yolo, dtype: torch.dtype, where, state_dict, images,
                labels) -> tuple[float, dict]:
     """(loss, gradients by name, float64 on the CPU) of one step of the
-    v1 detector from ``state_dict``'s weights, in train mode, with the
-    trunk in ``dtype``: bf16 (autocast), float32, or float64 (the model
-    converted, the images normalized in float64; the loss stays float32,
-    as on every path)."""
+    detector of ``yolo`` (``make_trainer``) from ``state_dict``'s
+    weights, in train mode, with the trunk in ``dtype``: bf16
+    (autocast), float32, or float64 (the model converted, the images
+    normalized in float64; the loss stays float32, as on every path)."""
     compute = torch.float32 if dtype == torch.float64 else dtype
     trainer, state = make_trainer(yolo, compute, where, state_dict)
     if dtype == torch.float64:
@@ -902,30 +953,6 @@ def profile_call(fn, label: str, top: int = 12) -> float:
     return idle
 
 
-def conv_flops_per_image(image_size: int, cell_channels: int,
-                         passthrough: bool = False) -> float:
-    """Multiply-add FLOPs (2 a MAC) of the detector's convs on one image:
-    the Darknet19 trunk, then the v1 / ``--v2`` head (3 × 3×3×1024 and the
-    1×1 output) or, with ``passthrough``, the YOLOv2 head (2 × 3×3×1024,
-    the 1×1×64 passthrough at H/16, a 3×3 1280→1024 and the output)."""
-    from tensorflow_yolo2_torch.models.darknet import _DARKNET19_SCHEDULE
-
-    convs, hw, cin = [], image_size, 3
-    for item in _DARKNET19_SCHEDULE:
-        if item == "M":
-            hw //= 2
-            continue
-        convs.append((hw, item[0], cin, item[1]))
-        cin = item[1]
-    if passthrough:
-        convs += [(hw, 3, 1024, 1024)] * 2 + [(2 * hw, 1, 512, 64),
-                                              (hw, 3, 1280, 1024)]
-    else:
-        convs += [(hw, 3, 1024, 1024)] * 3
-    convs.append((hw, 1, 1024, cell_channels))
-    return float(sum(2 * h * h * k * k * ci * co for h, k, ci, co in convs))
-
-
 def decode_bound(cfg, batch: int, kept_per_image=None) -> tuple[float, str]:
     """Least time for the decode (+NMS) on this card: bytes (grid read
     once, outputs written once) over HBM rate against float32 operations
@@ -991,7 +1018,9 @@ def time_train(trainer, state, rng, yolo, dev) -> dict:
     from tensorflow_yolo2_torch.ops import cuda_pool
 
     out, batches = {}, {}
-    flops = 3 * conv_flops_per_image(yolo.image_size, yolo.cell_channels)
+    flops = 3 * conv_flops_per_image(yolo.image_size, yolo.cell_channels,
+                                     passthrough=yolo.per_slot_classes)
+    head = "v2p" if yolo.per_slot_classes else "v1"
     for b in TRAIN_BATCHES:
         images, labels = (torch.from_numpy(a).to(dev)
                           for a in train_batch(rng, b, yolo))
@@ -1014,7 +1043,7 @@ def time_train(trainer, state, rng, yolo, dev) -> dict:
         out[b] = {"steps_per_s": 1 / dt, "images_per_s": b / dt,
                   "ms_per_step": dt * 1e3, "peak_gib": peak,
                   "bound_images_per_s": BF16_FLOPS_PER_S / flops}
-        print(f"train step {yolo.image_size}², bf16, batch {b}: "
+        print(f"train step {head} {yolo.image_size}², bf16, batch {b}: "
               f"{1 / dt:.2f} steps/s, {b / dt:.1f} images/s ({dt * 1e3:.2f} "
               f"ms a step; conv bound {BF16_FLOPS_PER_S / flops:.0f} "
               f"images/s at {flops / 1e9:.2f} GFLOP an image, forward and "
@@ -1022,8 +1051,125 @@ def time_train(trainer, state, rng, yolo, dev) -> dict:
     for b, (images, labels) in batches.items():
         out[b]["idle_share"] = profile_call(
             lambda: trainer.train_step(state, images, labels),
-            f"train step batch {b}", top=16)
+            f"train step {head} batch {b}", top=16)
     return out
+
+
+class MemoryImdb:
+    """A seeded in-memory image set with the interface ``run_eval`` reads
+    (``get``, ``gt_labels``, ``batch_size``, ``num_class``, ``classes``):
+    uint8 images and their label grids, handed out in order, batch after
+    batch, from the start again after the last."""
+
+    def __init__(self, images: np.ndarray, labels: np.ndarray,
+                 batch_size: int):
+        from tensorflow_yolo2_torch.config import VOC_CLASSES
+
+        self.images, self.labels = images, labels
+        self.batch_size = batch_size
+        self.gt_labels = list(range(len(images)))
+        self.classes = VOC_CLASSES
+        self.num_class = len(VOC_CLASSES)
+        self.cursor = 0
+
+    def get(self) -> tuple[np.ndarray, np.ndarray]:
+        s = slice(self.cursor, self.cursor + self.batch_size)
+        self.cursor = (self.cursor + self.batch_size) % len(self.images)
+        return self.images[s], self.labels[s]
+
+
+def check_eval(head: str, yolo, state: dict, images: np.ndarray,
+               labels: np.ndarray, dev) -> dict:
+    """``pascal_eval_map.run_eval`` on the card over a seeded in-memory
+    set at the eval CLI's settings (threshold EVAL_THRESH, NMS IoU 0.5,
+    K=32, batch EVAL_BATCH), through ``make_detect_fn`` (the bf16 BN-folded
+    detector, then B1 or B2): the decode kernel launched once a batch;
+    the APs and the mAP, all-points and VOC07, equal to those of the plain
+    decode on the same grids; the kernel equal to its plain version on
+    every grid; then the eval loop's images/s (host included) and the
+    kernel alone at batch EVAL_BATCH (graph replays) beside its bound."""
+    from tensorflow_yolo2_torch.entries import pascal_detect_darknet as pdd
+    from tensorflow_yolo2_torch.entries.pascal_eval_map import run_eval
+    from tensorflow_yolo2_torch.ops import cuda_decode as cd
+    from tensorflow_yolo2_torch.ops.boxes import decode_grid_v2
+
+    v2 = yolo.per_slot_classes
+    name = "decode_nms_v2" if v2 else "decode_nms"
+    plain = cd.decode_nms_v2_plain if v2 else cd.decode_nms_plain
+    dense = decode_grid_v2 if v2 else cd.decode_grid_plain
+    detect = pdd.make_detect_fn(yolo, state, object_thresh=EVAL_THRESH,
+                                use_nms=True, nms_iou=0.5, v2=v2,
+                                passthrough=v2)
+    imdb = MemoryImdb(images, labels, EVAL_BATCH)
+    grids = []
+
+    def recording(grid, *args, **kw):  # the path's own decode call
+        grids.append(grid.clone())
+        return cd.decode_nms_fused(grid, *args, **kw)
+
+    cd.reset_launch_counts()
+    with mock.patch.object(pdd, "decode_nms_fused", recording):
+        got = {m: run_eval(detect, imdb, yolo, use_07_metric=m)
+               for m in (False, True)}
+    torch.cuda.synchronize()
+    n_batches = len(images) // EVAL_BATCH
+    counts = {"decode_nms": cd.DECODE_NMS_LAUNCHES,
+              "decode_nms_v2": cd.DECODE_NMS_V2_LAUNCHES,
+              "decode_grid": cd.DECODE_GRID_LAUNCHES}
+    print(f"eval {head} {yolo.image_size}²: launches over two passes of "
+          f"{len(images)} images at batch {EVAL_BATCH}: {counts}")
+    check(counts[name] == 2 * n_batches and sum(counts.values()) ==
+          2 * n_batches, f"eval {head}: {name} once a batch, no other")
+
+    def replay():  # the plain decode of the same grids, batch by batch
+        it = iter(grids)
+        return lambda _: plain(next(it), yolo, EVAL_THRESH, 0.5, K)
+
+    want = {m: run_eval(replay(), MemoryImdb(images, labels, EVAL_BATCH),
+                        yolo, use_07_metric=m) for m in (False, True)}
+    for m in (False, True):
+        check(got[m] == want[m], f"eval {head}: the kernel path's APs equal "
+                                 f"the plain decode's (VOC07 {m})")
+    err, kept, valid = 0.0, [], []
+    for grid in grids[:n_batches]:
+        ref = plain(grid, yolo, EVAL_THRESH, 0.5, K)
+        err = max(err, compare_kept(
+            cd.decode_nms_fused(grid, yolo, EVAL_THRESH, 0.5, K), ref, name))
+        kept.append((ref.scores > 0).sum(1))
+        valid.append((dense(grid, yolo, EVAL_THRESH).scores > 0).sum(1))
+    kept, valid = torch.cat(kept), torch.cat(valid).float()
+    print(f"eval {head}: mAP {got[False][0]:.6f} all-points, "
+          f"{got[True][0]:.6f} VOC07 ({len(got[False][1])} classes with "
+          f"objects), equal to the plain decode's; {valid.mean():.1f} "
+          f"candidates (at most {valid.max():.0f}) and "
+          f"{kept.float().mean():.1f} kept slots an image at threshold "
+          f"{EVAL_THRESH}; {name} against its plain version on the "
+          f"{n_batches} grids: max abs err {err}")
+
+    run_eval(detect, MemoryImdb(images, labels, EVAL_BATCH), yolo)  # warm
+    t0 = time.perf_counter()
+    run_eval(detect, MemoryImdb(images, labels, EVAL_BATCH), yolo)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    grid = grids[0]
+    ms = graph_ms(lambda: cd.decode_nms_fused(grid, yolo, EVAL_THRESH, 0.5,
+                                              K))
+    plain_ms = cuda_ms(lambda: plain(grid, yolo, EVAL_THRESH, 0.5, K), 5)
+    bound, by = decode_bound(yolo, EVAL_BATCH, kept[:EVAL_BATCH])
+    print(f"eval {head}: {len(images) / dt:.1f} images/s over the eval loop "
+          f"(uint8 host batches, detect, host evaluator); {name} at "
+          f"threshold {EVAL_THRESH}, batch {EVAL_BATCH}: kernel "
+          f"{ms * 1e3:.2f} us (graph replay), plain {plain_ms * 1e3:.1f} us, "
+          f"bound {bound * 1e3:.2f} us ({by})")
+    return {"kernel": name, "launches": counts[name] // 2,
+            "n_images": len(images), "batch": EVAL_BATCH,
+            "threshold": EVAL_THRESH, "map": got[False][0],
+            "map_voc07": got[True][0], "images_per_s": len(images) / dt,
+            "candidates_per_image": valid.mean().item(),
+            "max_candidates_per_image": valid.max().item(),
+            "kept_per_image": kept.float().mean().item(),
+            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound, "bound_by": by}
 
 
 def card_grid(yolo, state, images, dev, pallas_stem: bool = False,
@@ -1653,7 +1799,59 @@ def main(argv: list[str] | None = None) -> int:
         tyolo, images24, labels24, dev,
         {k: v.cpu() for k, v in tstate.model.state_dict().items()})
 
-    # 7. times ---------------------------------------------------------------
+    # 7. the v2p training path at full width: YOLOv2 at 416², bf16 ----------
+    vyolo = yolo_v2_config(V2P_TRAIN_SIZE)  # S=13, B=5, C=20, classic
+    vrng = np.random.RandomState(4)
+    vbatch = train_batch(vrng, TRAIN_BATCHES[0], vyolo)
+    vimages, vlabels = (torch.from_numpy(a).to(dev) for a in vbatch)
+    vtrainer, vstate = make_trainer(vyolo, torch.bfloat16, dev)
+    vmetrics = []
+    cuda_pool.reset_launch_counts()
+    for _ in range(FALL_STEPS):
+        vstate, metrics = vtrainer.train_step(vstate, vimages, vlabels)
+        vmetrics.append(torch.stack([metrics["loss"],
+                                     metrics["burnin_loss"]]))
+    torch.cuda.synchronize()
+    v2p_pool_launches = cuda_pool.MAX_POOL2_BWD_LAUNCHES
+    vlosses, vburnin = torch.stack(vmetrics).T.tolist()
+    print(f"train path v2p {V2P_TRAIN_SIZE}² launches: max_pool2_bwd "
+          f"{v2p_pool_launches} in {FALL_STEPS} steps; loss on one batch of "
+          f"{TRAIN_BATCHES[0]}: " + ", ".join(f"{v:.3f}" for v in vlosses) +
+          "; burnin_loss: " + ", ".join(f"{v:.4f}" for v in vburnin))
+    check(v2p_pool_launches == 5 * FALL_STEPS,
+          "B5 ran 5 times a v2p train step")
+    check(all(math.isfinite(v) for v in vlosses + vburnin),
+          "finite v2p train losses")
+    check(sum(vlosses[-5:]) / 5 < 0.5 * vlosses[0],
+          "the v2p loss fell on a fixed batch (mean of the last 5 steps "
+          "under half the first)")
+    check(all(v > 0 for v in vburnin),
+          f"the burn-in term is on (step · {TRAIN_BATCHES[0]} < "
+          f"{vyolo.v2_burnin_samples} samples)")
+    check(vstate.step == FALL_STEPS and all(
+        bool(torch.isfinite(p).all()) for p in vstate.params.values()),
+        "finite v2p parameters after the steps")
+    v2p_trained = {k: v.detach().cpu().clone()
+                   for k, v in vstate.model.state_dict().items()}
+    v2p_train_check = check_train_step_against_cpu(
+        vyolo, vimages[:V2P_CHECK_IMAGES], vlabels[:V2P_CHECK_IMAGES], dev,
+        v2p_trained)
+
+    # 8. evaluation on the card: run_eval at threshold 0.005, v2p and v1 ----
+    # With the serving weights of 4 and 3 every slot of the v2p grid and
+    # most of the v1 grid pass the threshold: B2 and B1 meet their most
+    # candidates. (The v2p weights of 7, taught mostly "no object" in 30
+    # steps, put no slot above it.)
+    erng = np.random.RandomState(5)
+    evals = {
+        "eval_v2p_416": check_eval(
+            "v2p", vyolo, v2_detector(passthrough=True)[1],
+            *train_batch(erng, EVAL_IMAGES, vyolo), dev),
+        "eval_v1_448": check_eval("v1", yolo, v1_state,
+                                  *train_batch(erng, EVAL_IMAGES, yolo), dev),
+    }
+
+    # 9. times ---------------------------------------------------------------
     print(f"times on {card}:")
     v1_flops = conv_flops_per_image(448, yolo.cell_channels)
     tf32 = (f"TF32: cudnn.allow_tf32={torch.backends.cudnn.allow_tf32}, "
@@ -1676,10 +1874,16 @@ def main(argv: list[str] | None = None) -> int:
                                                   passthrough=True)),
         "train_224": time_train(trainer, tstate, trng, tyolo, dev),
         "train_checks": train_check,
+        "train_v2p_416": {
+            **time_train(vtrainer, vstate, vrng, vyolo, dev),
+            "losses": vlosses, "burnin_losses": vburnin,
+            "max_pool2_bwd_launches": v2p_pool_launches,
+            "checks": v2p_train_check},
+        **evals,
         "tf32": {"cudnn": torch.backends.cudnn.allow_tf32,
                  "matmul": torch.backends.cuda.matmul.allow_tf32},
     }
-    del trainer, tstate
+    del trainer, tstate, vtrainer, vstate
 
     kept_v1 = (cd.decode_nms_plain(v1_grid, yolo, 0.5, 0.5, K).scores > 0
                ).sum(1)
@@ -1712,6 +1916,13 @@ def main(argv: list[str] | None = None) -> int:
             "max_abs_err": errs[name], "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound, "bound_by": by, "library_ms": None,
             "call_ms": call_ms})
+        eval_runs = {  # the same kernel under evaluation (section 8)
+            ev_name: {k: ev[k] for k in (
+                "threshold", "batch", "launches", "candidates_per_image",
+                "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by")}
+            for ev_name, ev in evals.items() if ev["kernel"] == name}
+        if eval_runs:
+            kernels[-1]["eval"] = eval_runs
         print(f"{name}, batch {BATCH}, {shape}, threshold 0.5: kernel "
               f"{ms * 1e3:.2f} us (graph replay; {call_ms * 1e3:.2f} us a "
               f"call from Python), plain {plain_ms * 1e3:.1f} us, bound "
@@ -1735,7 +1946,8 @@ def main(argv: list[str] | None = None) -> int:
         "name": "max_pool2_bwd", "route": "cuda", "source": POOL_SOURCE,
         "replaces": TPU_KERNELS["max_pool2_bwd"],
         "launches": launches["max_pool2_bwd"],
-        "max_abs_err": errs["max_pool2_bwd"], **total,
+        "max_abs_err": errs["max_pool2_bwd"],
+        "launches_v2p_train": v2p_pool_launches, **total,
         "bound_by": "bytes" if all(s["bound_by"] == "bytes" for s in sites)
         else "operations", "sites": sites})
     print(f"max_pool2_bwd, the five sites of a 224² bf16 step at batch "

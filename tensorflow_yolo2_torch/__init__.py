@@ -5,27 +5,34 @@ module of the same name there and is tested against it on the same
 weights and inputs. This package imports ``torch`` and ``numpy`` and
 nothing of JAX.
 
-- ``config``   — ``YoloConfig`` (+ loss weights), the grid offset,
-                 ``yolo_v2_config`` and the classic VOC anchors, the
-                 optimizer and schedule configs, the run-dir layout
-                 (``Paths``), the VOC class list.
-- ``data``     — ``anchors``: the priors stored beside a snapshot;
-                 ``voc``: VOC2007 with v1 label grids; ``augment``: image
-                 reads; ``prefetch``: threads and pinned copies to the card.
+- ``config``   — ``YoloConfig`` (+ loss weights and the YOLOv2 loss's
+                 stabilizers), the grid offset, ``yolo_v2_config`` and the
+                 classic VOC anchors, the optimizer and schedule configs,
+                 the run-dir layout (``Paths``), the VOC class list.
+- ``data``     — ``anchors``: k-means dimension clusters and the priors
+                 stored beside a snapshot; ``voc``: VOC2007 with v1 and
+                 per-slot label grids; ``augment``: image reads;
+                 ``prefetch``: threads and pinned copies to the card.
 - ``models``   — Darknet19 trunk (pool or stride downsample), the v1 head,
                  the YOLOv2 passthrough head, BatchNorm with flax's running
                  statistics, flax's initializers, BN folding.
 - ``ops``      — IoU, the v1 and anchor grid decodes, fixed-shape NMS, and
                  the hand-written CUDA kernels (sources in ``csrc/``):
-                 decode / decode+NMS (``ops.cuda_decode``) and the 2×2
-                 max-pool backward (``ops.cuda_pool``).
-- ``losses``   — ``yolo``: the YOLOv1 grid loss.
+                 decode / decode+NMS (``ops.cuda_decode``), the 2×2
+                 max-pool backward (``ops.cuda_pool``) and the fused stem
+                 (``ops.cuda_stem``).
+- ``losses``   — ``yolo``: the YOLOv1 grid loss; ``yolo_v2``: the YOLOv2
+                 anchor loss.
+- ``eval``     — the VOC mAP evaluator.
 - ``train``    — schedules and Adam, the train step, snapshots, metrics.
 - ``convert``  — flax parameter trees (as numpy) → torch state dicts, and
                  the ``.npz`` format that carries them between machines.
 - ``entries``  — ``pascal_detect_darknet``: the serving entry point (v1,
                  ``--v2``, ``--v2 --passthrough``); ``pascal_train_darknet``:
-                 v1 detector training.
+                 detector training (the same three heads);
+                 ``pascal_eval_map``: VOC mAP of a snapshot.
+- ``utils``    — the kernels' build, the device default, timers and the
+                 profiler trace.
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``.
 """

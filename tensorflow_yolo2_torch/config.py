@@ -1,11 +1,12 @@
 """Configuration (port of tensorflow_yolo2_tpu/config.py).
 
-The pieces the serving and v1 training paths read: the run-directory
+The pieces the serving and training paths read: the run-directory
 layout (``root_dir``, ``Paths``, ``TRAIN_SNAPSHOT_PREFIX``),
-``YoloConfig`` with its channel layout, loss weights, grid offset and
-``at_scale``, ``yolo_grid_offset``, the anchor head's ``yolo_v2_config``
-with ``CLASSIC_VOC_ANCHORS``, the optimizer knobs ``LRScheduleConfig`` /
-``OptimizerConfig``, ``scope_matches`` and ``VOC_CLASSES``.
+``YoloConfig`` with its channel layout, loss weights, the YOLOv2 loss's
+stabilizers, grid offset and ``at_scale``, ``yolo_grid_offset``, the
+anchor head's ``yolo_v2_config`` with ``CLASSIC_VOC_ANCHORS``, the
+optimizer knobs ``LRScheduleConfig`` / ``OptimizerConfig``,
+``scope_matches`` and ``VOC_CLASSES``.
 """
 
 from __future__ import annotations
@@ -96,7 +97,8 @@ class YoloConfig:
     ``[num_class | B confidences | B*(x, y, w, h)]`` (5B + C channels).
     ``per_slot_classes`` selects the YOLOv2 anchor layout, ``B*(5 + C)``
     channels: each slot carries ``(x, y, w, h, conf, C class logits)``.
-    The YOLOv2 loss's stabilizers are not ported yet.
+    The ``v2_*`` fields are the YOLOv2 loss's training stabilizers
+    (``losses.yolo_v2``).
     """
 
     S: int = 7
@@ -108,6 +110,19 @@ class YoloConfig:
     per_slot_classes: bool = False
     # Anchor priors (w, h) in grid-cell units; v2 decode only.
     anchors: tuple[tuple[float, float], ...] = ()
+    # A non-owner slot whose decoded box overlaps any ground-truth box of
+    # its image by more than this IoU is exempt from the no-object term
+    # (darknet's region-layer thresh); 1.0 turns the exemption off.
+    v2_ignore_iou: float = 0.6
+    # For the first N training samples (step · batch), non-owner raw boxes
+    # are regressed toward their prior at the cell centre with weight
+    # v2_prior_weight (darknet's seen < 12800 burn-in); active only when
+    # the trainer passes the step count to the loss.
+    v2_burnin_samples: int = 12800
+    v2_prior_weight: float = 0.01
+    # Scale each object's coordinate term by (2 − w·h), w and h as image
+    # fractions, so that small boxes weigh up to 2×.
+    v2_coord_scale: bool = True
 
     @property
     def cell_channels(self) -> int:

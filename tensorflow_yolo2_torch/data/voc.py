@@ -1,26 +1,29 @@
 """Pascal VOC2007 detection dataset (port of
-tensorflow_yolo2_tpu/data/voc.py, the v1 label grid).
+tensorflow_yolo2_tpu/data/voc.py).
 
-VOC XML annotations → per-image (S, S, 5+C) label grids:
+VOC XML annotations → per-image label grids: (S, S, 5+C) for the v1 head,
+(S, S, B, 5+C) per-slot grids for an anchor config
+(``build_label_grid_v2``):
 
 - boxes in 0-based pixel coordinates of the *resized* (image_size²) image,
   clamped to it, via per-axis ratios;
-- one object per cell, the first object wins;
+- v1: one object per cell, the first object wins; per-slot: each object
+  in its cell's best free anchor slot;
 - label layout ``[responsible, cx, cy, w, h, one-hot class]``;
-- a pickle cache ``cache/pascal_<set>_gt_labels.pkl`` (the JAX package's
-  file and format);
+- a pickle cache ``cache/pascal_<set>_gt_labels<tags>.pkl`` (the JAX
+  package's files and format; the tags name the size, the slots and
+  non-classic anchors, so that grids built otherwise never share one);
 - optional horizontally flipped copies;
 - ``get()`` returns sequential (images, labels) batches and reshuffles at
   the end of each epoch with the generator it was given (the JAX package
   uses numpy's global one). Images are BGR, warp-resized, float32 in
   [-1, 1] or uint8.
-
-The per-slot grid of the anchor heads is not ported yet.
 """
 
 from __future__ import annotations
 
 import copy
+import hashlib
 import os
 import pickle
 import threading
@@ -28,7 +31,12 @@ import xml.etree.ElementTree as ET
 
 import numpy as np
 
-from tensorflow_yolo2_torch.config import VOC_CLASSES, Paths, YoloConfig
+from tensorflow_yolo2_torch.config import (
+    VOC_CLASSES,
+    Paths,
+    YoloConfig,
+    yolo_v2_config,
+)
 from tensorflow_yolo2_torch.data.augment import image_read, image_read_u8
 
 
@@ -51,8 +59,38 @@ def build_label_grid(corners_xyxy: np.ndarray, cls_inds: np.ndarray,
     return label
 
 
+def build_label_grid_v2(corners_xyxy: np.ndarray, cls_inds: np.ndarray,
+                        S: int, B: int, anchors, num_class: int,
+                        image_size: float) -> np.ndarray:
+    """Resized-space x1y1x2y2 boxes (float32) → (S, S, B, 5+num_class)
+    per-slot grid: each object goes to the free slot of its centre cell
+    whose anchor (``anchors``, (B, 2) w/h in cell units) best matches its
+    shape, ties to the lowest index, and is dropped when all B slots are
+    taken. Shape IoU does not change with the grid's scale, so the
+    assignment is the same at every multiscale size."""
+    anchors = np.asarray(anchors, np.float32).reshape(B, 2)
+    label = np.zeros((S, S, B, 5 + num_class), np.float32)
+    for (x1, y1, x2, y2), cls_ind in zip(corners_xyxy, cls_inds):
+        boxes = [(x2 + x1) / 2.0, (y2 + y1) / 2.0, x2 - x1, y2 - y1]
+        x_ind = int(boxes[0] * S / image_size)
+        y_ind = int(boxes[1] * S / image_size)
+        wh = np.array([boxes[2], boxes[3]], np.float32) * S / image_size
+        inter = (np.minimum(anchors[:, 0], wh[0]) *
+                 np.minimum(anchors[:, 1], wh[1]))
+        union = anchors[:, 0] * anchors[:, 1] + wh[0] * wh[1] - inter
+        shape_iou = inter / np.maximum(union, 1e-10)
+        for b in np.argsort(-shape_iou, kind="stable"):
+            if label[y_ind, x_ind, b, 0] == 0:
+                label[y_ind, x_ind, b, 0] = 1
+                label[y_ind, x_ind, b, 1:5] = boxes
+                label[y_ind, x_ind, b, 5 + cls_ind] = 1
+                break
+    return label
+
+
 class PascalVOC:
-    """VOC2007 image set with YOLO grid labels.
+    """VOC2007 image set with YOLO grid labels: per-slot grids when
+    ``yolo`` has anchors and the per-slot layout, else v1 grids.
 
     ``rng`` shuffles the entries once at start and again at each epoch's
     end; anything with numpy's ``shuffle`` (a ``np.random.Generator`` by
@@ -64,10 +102,6 @@ class PascalVOC:
                  flipped: bool = False, paths: Paths | None = None,
                  data_path: str | None = None, uint8: bool = False,
                  rng=None):
-        if yolo.per_slot_classes:
-            raise ValueError("the per-slot label grid of the anchor heads "
-                             "is not ported yet (ROADMAP.md, queue A, "
-                             "slice 3b)")
         self.name = "voc_2007"
         self.paths = paths or Paths()
         self.data_path = data_path or os.path.join(self.paths.pascal,
@@ -80,6 +114,7 @@ class PascalVOC:
         self.classes = VOC_CLASSES
         self.num_class = len(self.classes)
         self.class_to_ind = {c: i for i, c in enumerate(self.classes)}
+        self.per_slot = bool(yolo.per_slot_classes and yolo.anchors)
         self.image_set = image_set
         self.rebuild = rebuild
         self.flipped = flipped
@@ -118,8 +153,9 @@ class PascalVOC:
         images = np.zeros(
             (self.batch_size, self.image_size, self.image_size, 3),
             np.uint8 if self.uint8 else np.float32)
-        labels = np.zeros((self.batch_size, self.cell_size, self.cell_size,
-                           5 + self.num_class), np.float32)
+        grid = (self.cell_size, self.cell_size) + \
+            ((self.yolo.B,) if self.per_slot else ()) + (5 + self.num_class,)
+        labels = np.zeros((self.batch_size,) + grid, np.float32)
         read = image_read_u8 if self.uint8 else image_read
         for count, entry in enumerate(entries):
             images[count] = read(entry["imname"], self.image_size,
@@ -130,7 +166,8 @@ class PascalVOC:
     def prepare(self) -> list[dict]:
         gt_labels = self.load_labels()
         if self.flipped:
-            # mirror the grid along x and reflect the stored cx
+            # mirror the grid along x and reflect the stored cx (either
+            # layout; the slot assignment is shape-only, so it holds)
             gt_flip = copy.deepcopy(gt_labels)
             for entry in gt_flip:
                 entry["flipped"] = True
@@ -148,6 +185,14 @@ class PascalVOC:
         # grids depend on (image_size, S): the default keeps the plain name
         scale_tag = ("" if (self.image_size, self.cell_size) == (224, 7)
                      else f"_{self.image_size}x{self.cell_size}")
+        if self.per_slot:
+            # the slots depend on the priors: non-classic ones get a tag
+            scale_tag += f"_slots{self.yolo.B}"
+            if tuple(self.yolo.anchors) != \
+                    yolo_v2_config(self.image_size).anchors:
+                digest = hashlib.sha1(np.asarray(
+                    self.yolo.anchors, np.float64).tobytes()).hexdigest()
+                scale_tag += f"_a{digest[:8]}"
         cache_file = os.path.join(
             self.cache_path,
             f"pascal_{self.image_set}_gt_labels{scale_tag}.pkl")
@@ -175,7 +220,7 @@ class PascalVOC:
         return gt_labels
 
     def load_annotation(self, index: str) -> tuple[np.ndarray, int]:
-        """One VOC XML → (S, S, 5+C) grid and its object count."""
+        """One VOC XML → its label grid and its object count."""
         import cv2
 
         imname = os.path.join(self.data_path, "JPEGImages", index + ".jpg")
@@ -205,8 +250,13 @@ class PascalVOC:
             corners.append((x1, y1, x2, y2))
             cls_inds.append(
                 self.class_to_ind[obj.find("name").text.lower().strip()])
-        label = build_label_grid(
-            np.asarray(corners, np.float32).reshape(-1, 4),
-            np.asarray(cls_inds, np.int32), self.cell_size, self.num_class,
-            float(self.image_size))
+        corners = np.asarray(corners, np.float32).reshape(-1, 4)
+        cls_inds = np.asarray(cls_inds, np.int32)
+        if self.per_slot:
+            label = build_label_grid_v2(
+                corners, cls_inds, self.cell_size, self.yolo.B,
+                self.yolo.anchors, self.num_class, float(self.image_size))
+        else:
+            label = build_label_grid(corners, cls_inds, self.cell_size,
+                                     self.num_class, float(self.image_size))
         return label, len(objs)

@@ -20,6 +20,7 @@ from tensorflow_yolo2_torch.train.checkpoint import (
 )
 from tensorflow_yolo2_torch.train.metrics import MetricsWriter
 from tensorflow_yolo2_torch.train.trainer import Trainer, TrainState
+from tensorflow_yolo2_torch.utils.profiling import maybe_trace
 from tensorflow_yolo2_torch.utils.timer import Timer
 
 
@@ -43,8 +44,8 @@ def base_parser(description: str) -> argparse.ArgumentParser:
                    help="TF1 checkpoint to import weights from (not "
                         "ported yet)")
     p.add_argument("--profile-dir", default=None,
-                   help="capture a profiler trace into this dir (not "
-                        "ported yet)")
+                   help="write a torch.profiler trace (Chrome JSON) of the "
+                        "train loop into this dir")
     p.add_argument("--device", default=None,
                    help="torch device (default: cuda)")
     return p
@@ -119,14 +120,17 @@ def run_train_loop(trainer: Trainer, state: TrainState,
                    mgr: CheckpointManager, writer: MetricsWriter,
                    start_iter: int, num_iters: int,
                    log_every: int = 10, save_every: int = 1000,
-                   num_workers: int = 4) -> TrainState:
+                   num_workers: int = 4,
+                   trace_dir: Optional[str] = None) -> TrainState:
     """Prefetched host batches → device copies kept two ahead → the train
     step. Right after a step is queued, its scalar metrics (stacked into
     one tensor) and, on logging steps, its histograms start their copy to
     pinned host memory behind it on the stream; they are read one step
     later, after the next step is queued, so that logging waits for the
     step before, never for the step in flight. Snapshots every
-    ``save_every`` iterations and at the end."""
+    ``save_every`` iterations and at the end. With ``trace_dir``, the
+    loop runs under a ``torch.profiler`` trace written there
+    (``utils.profiling.maybe_trace``)."""
     timer = Timer()
     on_card = trainer.device.type == "cuda"
     pending: list[tuple[int, list[str], dict[str, torch.Tensor],
@@ -162,7 +166,8 @@ def run_train_loop(trainer: Trainer, state: TrainState,
                 print(f"iter {it}: {msg}, "
                       f"avg step {timer.average_time * 1000:.1f} ms")
 
-    with PrefetchLoader(get_batch, num_workers=num_workers) as loader:
+    with PrefetchLoader(get_batch, num_workers=num_workers) as loader, \
+            maybe_trace(trace_dir, trainer.device):
         stream = device_prefetch(iter(loader), size=2, device=trainer.device)
         for i in range(start_iter + 1, start_iter + num_iters + 1):
             images, labels = next(stream)

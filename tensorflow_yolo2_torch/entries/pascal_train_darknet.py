@@ -1,22 +1,37 @@
 """Darknet19 YOLO detection training on Pascal VOC2007 (port of
-tensorflow_yolo2_tpu/entries/pascal_train_darknet.py, the v1 head).
+tensorflow_yolo2_tpu/entries/pascal_train_darknet.py).
 
-Darknet19 trunk + the v1 detection head + the YOLOv1 grid loss, Adam at
-1e-3, batch 24, 80k added iterations, a snapshot every 40k; resume from
-this run's newest snapshot, else a warm start from the newest ImageNet
-classifier snapshot (``ckpts/darknet19/ilsvrc_2017_cls``). 224² (S=7,
-B=2, C=20), bf16 compute with float32 parameters. Runs on ``cuda``
-unless ``--device`` names another device.
+Darknet19 trunk + a detection head + its loss, Adam at 1e-3, batch 24,
+80k added iterations, a snapshot every 40k; resume from this run's newest
+snapshot, else a warm start from the newest ImageNet classifier snapshot
+(``ckpts/darknet19/ilsvrc_2017_cls``). 224² (S=7), bf16 compute with
+float32 parameters. Three heads:
+
+- v1 (default): the reference's grid head (B=2, C=20) and YOLOv1 loss;
+- ``--v2``: the anchor head (linear output conv, 5 classic VOC priors,
+  or ``--anchors kmeans`` dimension clusters of this image set) and the
+  YOLOv2 loss on per-slot label grids; ``--multiscale`` hops between
+  input sizes every 10 batches;
+- ``--v2 --passthrough``: the YOLOv2 architecture with the reorg route.
+
+An anchor run writes its priors to ``anchors.json`` beside its snapshots
+before the first step. Runs on ``cuda`` unless ``--device`` names another
+device.
 
     python -m tensorflow_yolo2_torch.entries.pascal_train_darknet \\
         --iters 1000 --save-every 500
+    python -m tensorflow_yolo2_torch.entries.pascal_train_darknet \\
+        --v2 --passthrough --anchors kmeans --iters 1000
 
-The anchor heads (``--v2``, ``--passthrough``, ``--anchors``), multiscale,
-spatial sharding, TF checkpoint import and profiling are not ported yet
-and are refused.
+Spatial sharding (``--spatial``) and TF checkpoint import
+(``--tf-checkpoint``) are not ported yet and are refused.
 """
 
 from __future__ import annotations
+
+import os
+import random
+import threading
 
 import numpy as np
 import torch
@@ -26,25 +41,74 @@ from tensorflow_yolo2_torch.config import (
     OptimizerConfig,
     Paths,
     YoloConfig,
+    yolo_v2_config,
+)
+from tensorflow_yolo2_torch.data.anchors import (
+    collect_voc_wh_cells,
+    iou_kmeans,
+    persist_anchors,
 )
 from tensorflow_yolo2_torch.data.voc import PascalVOC
 from tensorflow_yolo2_torch.entries import common
-from tensorflow_yolo2_torch.models.darknet import Darknet19Detector
+from tensorflow_yolo2_torch.losses.yolo_v2 import yolo_v2_task
+from tensorflow_yolo2_torch.models.darknet import (
+    Darknet19Detector,
+    Darknet19DetectorV2,
+)
 from tensorflow_yolo2_torch.train.checkpoint import CheckpointManager
 from tensorflow_yolo2_torch.train.metrics import MetricsWriter
 from tensorflow_yolo2_torch.train.trainer import Trainer, yolo_task
 
 # flags of the JAX entry point that the port does not have yet, with the
-# value that means "not given"
-_NOT_PORTED = {"v2": False, "passthrough": False, "anchors": "classic",
-               "multiscale": None, "spatial": 0, "tf_checkpoint": None,
-               "profile_dir": None}
+# value that means "not given" and the queue item that owns them
+_NOT_PORTED = {"spatial": (0, "A8"), "tf_checkpoint": (None, "A7")}
+MULTISCALE_HOP = 10  # batches between two multiscale size draws
+
+
+def multiscale_batches(imdbs: dict, seed: int):
+    """``get_batch`` of YOLO9000 multiscale training: every
+    ``MULTISCALE_HOP`` batches a size drawn from ``imdbs`` (size →
+    dataset) with ``random.Random(seed)``, then that size's next batch.
+    Safe to call from several prefetch threads."""
+    sizes = sorted(imdbs)
+    rng = random.Random(seed)
+    lock = threading.Lock()
+    state = {"count": 0, "size": sizes[0]}
+
+    def get_batch():
+        with lock:
+            if state["count"] % MULTISCALE_HOP == 0:
+                state["size"] = rng.choice(sizes)
+            state["count"] += 1
+            imdb = imdbs[state["size"]]
+        return imdb.get()
+
+    return get_batch
 
 
 def main(argv: list[str] | None = None) -> int:
     p = common.base_parser(__doc__)
     p.add_argument("--image-set", default="trainval")
     p.add_argument("--flipped", action="store_true")
+    p.add_argument("--v2", action="store_true",
+                   help="the anchor head and the YOLOv2 loss (per-slot "
+                        "classes, 5 classic VOC priors) instead of the v1 "
+                        "grid head")
+    p.add_argument("--passthrough", action="store_true",
+                   help="with --v2: the YOLOv2 architecture, the reorg "
+                        "route from the H/16 map into the head")
+    p.add_argument("--anchors", default="classic",
+                   choices=["classic", "kmeans"],
+                   help="with --v2: the priors, the paper's VOC clusters "
+                        "('classic') or IoU k-means clusters of this image "
+                        "set's boxes ('kmeans'); they are written to "
+                        "anchors.json beside the snapshots")
+    p.add_argument("--num-anchors", type=int, default=5,
+                   help="k for --anchors kmeans (B follows it)")
+    p.add_argument("--multiscale", default=None,
+                   help="with --v2: comma-separated input sizes (multiples "
+                        "of 32), one drawn every 10 batches (YOLO9000 "
+                        "multiscale training)")
     p.add_argument("--downsample", default="pool",
                    choices=["pool", "stride"],
                    help="'stride' = pool-free variant: stride-2 convs "
@@ -64,21 +128,28 @@ def main(argv: list[str] | None = None) -> int:
                         "resume it re-anchors at the resumed step")
     p.add_argument("--lr-decay-factor", type=float, default=0.5)
     # not ported yet: refused below, never ignored
-    p.add_argument("--v2", action="store_true", help="not ported yet")
-    p.add_argument("--passthrough", action="store_true",
-                   help="not ported yet")
-    p.add_argument("--anchors", default="classic",
-                   choices=["classic", "kmeans"], help="not ported yet")
-    p.add_argument("--multiscale", default=None, help="not ported yet")
     p.add_argument("--spatial", type=int, default=0, metavar="N",
                    help="not ported yet")
     args = p.parse_args(argv)
-    given = [name for name, unset in _NOT_PORTED.items()
+    given = [(name, item) for name, (unset, item) in _NOT_PORTED.items()
              if getattr(args, name) != unset]
     if given:
-        p.error(", ".join("--" + n.replace("_", "-") for n in given) +
-                " not ported yet (ROADMAP.md, queue A, slice 3b); the port "
-                "trains the v1 head")
+        p.error("; ".join(f"--{n.replace('_', '-')} is not ported yet "
+                          f"(ROADMAP.md, queue A, {item})"
+                          for n, item in given))
+    if args.multiscale and not args.v2:
+        p.error("--multiscale requires --v2 (the anchor loss is "
+                "grid-size polymorphic; the v1 grid loss is fixed S=7)")
+    if args.passthrough and not args.v2:
+        p.error("--passthrough is the YOLOv2 reorg head; it requires --v2")
+    if args.anchors == "kmeans" and not args.v2:
+        p.error("--anchors kmeans requires --v2 (the v1 head has no "
+                "anchor priors)")
+    sizes = None
+    if args.multiscale:
+        sizes = sorted({int(s) for s in args.multiscale.split(",")})
+        if any(s % 32 for s in sizes):
+            p.error("--multiscale sizes must be multiples of 32")
 
     batch_size = args.batch_size or 24
     iters = args.iters or 80_000
@@ -87,15 +158,57 @@ def main(argv: list[str] | None = None) -> int:
     dtype = (torch.bfloat16 if args.compute_dtype == "bfloat16"
              else torch.float32)
 
-    yolo = YoloConfig()
-    model = Darknet19Detector(output_channels=yolo.cell_channels,
-                              bn_momentum=args.bn_momentum,
-                              downsample=args.downsample)
-    net_name = "darknet19" + ("_sd" if args.downsample == "stride" else "")
-    imdb = PascalVOC(args.image_set, batch_size=batch_size, yolo=yolo,
-                     flipped=args.flipped, data_path=args.data_path,
-                     uint8=args.uint8_transfer,
-                     rng=np.random.default_rng(args.seed))
+    if args.v2:
+        custom_anchors = None
+        if args.anchors == "kmeans":
+            # YOLO9000 dimension clusters of this image set's boxes
+            voc_path = args.data_path or os.path.join(Paths().pascal,
+                                                      "VOC2007")
+            base = yolo_v2_config()
+            wh = collect_voc_wh_cells(voc_path, args.image_set, base.S,
+                                      base.image_size)
+            custom_anchors, avg_iou = iou_kmeans(wh, args.num_anchors)
+            print(f"dimension clusters (k={args.num_anchors}, {len(wh)} "
+                  f"boxes, avg best-IoU {avg_iou:.3f}): " +
+                  ", ".join(f"({w:.2f},{h:.2f})" for w, h in custom_anchors))
+        yolo = yolo_v2_config(anchors=custom_anchors)
+        task = yolo_v2_task(yolo)
+        if args.passthrough:
+            model = Darknet19DetectorV2(yolo.cell_channels,
+                                        downsample=args.downsample,
+                                        bn_momentum=args.bn_momentum)
+            net_name = "darknet19_v2p"
+        else:
+            # the anchor head's output conv is linear
+            model = Darknet19Detector(yolo.cell_channels, bn_on_output=False,
+                                      downsample=args.downsample,
+                                      bn_momentum=args.bn_momentum)
+            net_name = "darknet19_v2"
+    else:
+        yolo = YoloConfig()
+        task = yolo_task(yolo, histograms=True)
+        model = Darknet19Detector(output_channels=yolo.cell_channels,
+                                  bn_momentum=args.bn_momentum,
+                                  downsample=args.downsample)
+        net_name = "darknet19"
+    if args.downsample == "stride":
+        net_name += "_sd"  # keep the non-reference variant apart
+
+    def dataset(cfg: YoloConfig, seed: int) -> PascalVOC:
+        return PascalVOC(args.image_set, batch_size=batch_size, yolo=cfg,
+                         flipped=args.flipped, data_path=args.data_path,
+                         uint8=args.uint8_transfer,
+                         rng=np.random.default_rng(seed))
+
+    imdb = dataset(yolo, args.seed)
+    get_batch = imdb.get
+    if sizes:
+        # one dataset a size, each with its own grids (S = size/32); the
+        # anchor task re-grids itself from the labels' S
+        imdbs = {s: imdb if s == yolo.image_size else
+                 dataset(yolo.at_scale(s // 32), args.seed + s)
+                 for s in sizes}
+        get_batch = multiscale_batches(imdbs, args.seed)
     paths = Paths()
     mgr = CheckpointManager(net_name, imdb.name, paths=paths, yolo=yolo)
     # a resumed run's optimizer count is cumulative: anchor a decaying
@@ -107,8 +220,13 @@ def main(argv: list[str] | None = None) -> int:
                         else iters // 4),
         decay_factor=args.lr_decay_factor,
         offset_steps=resume_step if args.lr_decay != "fixed" else 0)
+    if args.v2:
+        # detect and eval decode with the priors written here; refused if
+        # the dir holds snapshots trained against other priors
+        persist_anchors(mgr.dir, yolo.anchors, yolo.S,
+                        has_snapshots=mgr.latest_path() is not None)
     writer = MetricsWriter(paths.tb_dirs(net_name, imdb.name, val=False)[0])
-    trainer = Trainer(model, yolo_task(yolo, histograms=True),
+    trainer = Trainer(model, task,
                       OptimizerConfig(name="adam", schedule=sched,
                                       grad_clip_norm=args.grad_clip),
                       device=args.device, compute_dtype=dtype)
@@ -120,9 +238,10 @@ def main(argv: list[str] | None = None) -> int:
         warm_start_dir=warm)
     try:
         common.run_train_loop(
-            trainer, state, imdb.get, mgr, writer, start_iter=start,
+            trainer, state, get_batch, mgr, writer, start_iter=start,
             num_iters=iters, log_every=args.log_every,
-            save_every=save_every, num_workers=args.num_workers)
+            save_every=save_every, num_workers=args.num_workers,
+            trace_dir=args.profile_dir)
     finally:
         writer.close()
     return 0

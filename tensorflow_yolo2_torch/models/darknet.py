@@ -123,12 +123,14 @@ class DetectionHeadV2(nn.Module):
     on the 1280 channels; a linear 1×1 output conv, cast to float32.
     """
 
-    def __init__(self, output_channels: int = 125, fold_bn: bool = False):
+    def __init__(self, output_channels: int = 125, fold_bn: bool = False,
+                 bn_momentum: float = BN_MOMENTUM):
         super().__init__()
-        self.conv1 = ConvBN(1024, 1024, 3, use_bn=not fold_bn)
-        self.conv2 = ConvBN(1024, 1024, 3, use_bn=not fold_bn)
-        self.passthrough = ConvBN(512, 64, 1, use_bn=not fold_bn)
-        self.conv3 = ConvBN(1024 + 4 * 64, 1024, 3, use_bn=not fold_bn)
+        kw = {"use_bn": not fold_bn, "bn_momentum": bn_momentum}
+        self.conv1 = ConvBN(1024, 1024, 3, **kw)
+        self.conv2 = ConvBN(1024, 1024, 3, **kw)
+        self.passthrough = ConvBN(512, 64, 1, **kw)
+        self.conv3 = ConvBN(1024 + 4 * 64, 1024, 3, **kw)
         self.output = ConvBN(1024, output_channels, 1, use_bn=False,
                              activate=False)
 
@@ -170,11 +172,13 @@ class Darknet19DetectorV2(nn.Module):
     YOLOv2 architecture. Backbone names match ``Darknet19Detector``."""
 
     def __init__(self, output_channels: int = 125, fold_bn: bool = False,
-                 downsample: str = "pool"):
+                 downsample: str = "pool", bn_momentum: float = BN_MOMENTUM):
         super().__init__()
         self.backbone = Darknet19Backbone(fold_bn=fold_bn,
-                                          downsample=downsample)
-        self.detection = DetectionHeadV2(output_channels, fold_bn)
+                                          downsample=downsample,
+                                          bn_momentum=bn_momentum)
+        self.detection = DetectionHeadV2(output_channels, fold_bn,
+                                         bn_momentum)
 
     def forward(self, images: torch.Tensor) -> torch.Tensor:
         x, mid = self.backbone(images.permute(0, 3, 1, 2), return_mid=True)

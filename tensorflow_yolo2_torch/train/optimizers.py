@@ -35,7 +35,7 @@ import torch
 from tensorflow_yolo2_torch.config import LRScheduleConfig, OptimizerConfig
 
 Schedule = Callable[[int], float]
-NOT_PORTED = "not ported yet (ROADMAP.md, queue A, slice 3b)"
+NOT_PORTED = "not ported yet (ROADMAP.md, queue A, A5/A6)"
 
 
 def make_schedule(cfg: LRScheduleConfig) -> Schedule:

@@ -20,6 +20,7 @@ are not ported yet.
 
 from __future__ import annotations
 
+import inspect
 from dataclasses import dataclass
 from typing import Any, Callable, Mapping
 
@@ -90,11 +91,21 @@ def yolo_task(yolo_cfg: YoloConfig, histograms: bool = False) -> Callable:
     return task
 
 
+def _takes_step(task: Callable) -> bool:
+    try:
+        return "step" in inspect.signature(task).parameters
+    except (TypeError, ValueError):
+        return False
+
+
 class Trainer:
     """The train and eval steps of (model, task, optimizer) on one device.
 
     ``compute_dtype`` is ``torch.bfloat16`` (autocast) or
-    ``torch.float32``; ``device`` defaults to ``cuda``.
+    ``torch.float32``; ``device`` defaults to ``cuda``. A task whose
+    signature has ``step`` (``losses.yolo_v2.yolo_v2_task``, whose
+    burn-in it drives) gets the step count before the update in a train
+    step and None in an eval step, as in the JAX package.
     """
 
     def __init__(self, model: nn.Module, task: Callable,
@@ -106,6 +117,7 @@ class Trainer:
                              f"got {compute_dtype}")
         self.model = model
         self.task = task
+        self._task_takes_step = _takes_step(task)
         self.opt_cfg = opt_cfg
         self.optimizer = make_optimizer(opt_cfg)
         self.device = resolve_device(device)
@@ -152,7 +164,8 @@ class Trainer:
         state.model.train()
         params = state.params
         labels = torch.as_tensor(labels).to(self.device, torch.float32)
-        loss, metrics = self.task(self._forward(images), labels)
+        kw = {"step": state.step} if self._task_takes_step else {}
+        loss, metrics = self.task(self._forward(images), labels, **kw)
         grads = torch.autograd.grad(loss, list(params.values()))
         return ({k: v.detach() for k, v in metrics.items()},
                 dict(zip(params, grads)))
@@ -174,7 +187,9 @@ class Trainer:
     @torch.no_grad()
     def eval_step(self, state: TrainState, images: Any,
                   labels: Any) -> Metrics:
-        """The task's metrics in eval mode (running statistics)."""
+        """The task's metrics in eval mode (running statistics); a task
+        that takes ``step`` gets None (no burn-in at evaluation)."""
         state.model.eval()
         labels = torch.as_tensor(labels).to(self.device, torch.float32)
-        return self.task(self._forward(images), labels)[1]
+        kw = {"step": None} if self._task_takes_step else {}
+        return self.task(self._forward(images), labels, **kw)[1]

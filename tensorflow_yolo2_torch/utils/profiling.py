@@ -1,0 +1,84 @@
+"""Profiling (port of tensorflow_yolo2_tpu/utils/profiling.py).
+
+``maybe_trace`` records a ``torch.profiler`` trace of a region (the train
+loop's ``--profile-dir``) and writes it as Chrome trace JSON, which
+TensorBoard's profiler plugin and ``chrome://tracing`` read. The analytic
+conv FLOPs of the detector and the H100's peaks turn a throughput into a
+share of the card's compute.
+"""
+
+from __future__ import annotations
+
+import contextlib
+from typing import Iterator
+
+import torch
+
+
+@contextlib.contextmanager
+def maybe_trace(logdir: str | None,
+                device: str | torch.device | None = None
+                ) -> Iterator[None]:
+    """Record a ``torch.profiler`` trace of the block into ``logdir``
+    (a ``<host>_<pid>.<ns>.pt.trace.json``) when it is set; the card's
+    kernels too when ``device`` is a CUDA device."""
+    if not logdir:
+        yield
+        return
+    from torch.profiler import (
+        ProfilerActivity,
+        profile,
+        tensorboard_trace_handler,
+    )
+
+    activities = [ProfilerActivity.CPU]
+    if device is not None and torch.device(device).type == "cuda":
+        activities.append(ProfilerActivity.CUDA)
+    with profile(activities=activities,
+                 on_trace_ready=tensorboard_trace_handler(logdir)):
+        yield
+
+
+# Peaks of one NVIDIA H100 SXM at its 700 W limit (NVIDIA's data sheet,
+# dense): HBM bytes/s, float32 operations/s outside the tensor cores, and
+# bf16 and TF32 tensor-core FLOP/s.
+HBM_BYTES_PER_S = 3.35e12
+F32_OPS_PER_S = 67e12
+BF16_FLOPS_PER_S = 989e12
+TF32_FLOPS_PER_S = 494.7e12
+
+
+def _schedule_flops(image_size: int, schedule, in_channels: int = 3
+                    ) -> float:
+    """Forward conv FLOPs (2 × MACs) of one image through a (kernel,
+    channels) / "M" schedule at ``image_size``²."""
+    hw = image_size
+    cin = in_channels
+    flops = 0.0
+    for item in schedule:
+        if item == "M":
+            hw = (hw + 1) // 2
+            continue
+        k, cout = item
+        flops += 2.0 * hw * hw * k * k * cin * cout
+        cin = cout
+    return flops
+
+
+def conv_flops_per_image(image_size: int, cell_channels: int,
+                         passthrough: bool = False) -> float:
+    """Forward conv FLOPs (2 × MACs) of the detector on one image: the
+    Darknet19 trunk (``models.darknet``), then the v1 / ``--v2`` head (3
+    × 3×3×1024 and the 1×1 output) or, with ``passthrough``, the YOLOv2
+    head (2 × 3×3×1024, the 1×1×64 passthrough at H/16, a 3×3 1280→1024
+    and the output). BatchNorm, leaky and pools are not counted."""
+    from tensorflow_yolo2_torch.models.darknet import _DARKNET19_SCHEDULE
+
+    if not passthrough:
+        return _schedule_flops(image_size, _DARKNET19_SCHEDULE +
+                               ((3, 1024),) * 3 + ((1, cell_channels),))
+    hw = image_size // 32
+    trunk = _schedule_flops(image_size,
+                            _DARKNET19_SCHEDULE + ((3, 1024),) * 2)
+    return trunk + 2.0 * ((2 * hw) ** 2 * 512 * 64 +
+                          hw * hw * (9 * 1280 * 1024 + 1024 * cell_channels))

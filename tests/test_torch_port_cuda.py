@@ -21,7 +21,10 @@ the value or of the output's RMS, relative norm 1e-4. The float32 stem
 (B4-f32) against its plain version, TF32 off: rtol = atol = 1e-5
 (chip_smoke.compare_stem_f32, the JAX package's bound for its float32
 stem); the float32 ``--pallas-stem`` grid against the stock float32
-grid: 2e-4 relative norm.
+grid: 2e-4 relative norm. The v2p train step at 416² runs B5 five
+times a step with finite metrics; ``run_eval`` on the card gives the
+same APs as the plain decode of the same grids (exactly: the kernel's
+kept sets, scores and classes are the plain version's).
 """
 
 import ctypes
@@ -681,3 +684,58 @@ def test_train_loop_on_the_card(card, tmp_path):
     assert sorted((r["step"], r["hist"]) for r in recs if "hist" in r) == [
         (s, h) for s in (2, 4) for h in ("hist/confidence", "hist/iou")]
     assert state.step == 4 and mgr.all_steps() == [2, 4]
+
+
+@pytest.mark.parametrize("batch", [1, 32, 256])
+@pytest.mark.parametrize("head,S", [("v1", 14), ("anchor", 13)])
+def test_nms_at_the_eval_threshold(card, head, S, batch):
+    """B1 (v1, S=14) and B2 (anchor head, S=13) at ``pascal_eval_map``'s
+    threshold 0.005 and K=32, where almost every slot of a random grid is
+    a candidate: the kernel against its plain version."""
+    net, cfg = head_grid(head, S, batch, seed=batch + S)
+    net = torch.from_numpy(net).to(card)
+    want = check_nms(net, cfg, chip_smoke.EVAL_THRESH, 0.5, K)
+    candidates = (dense_scores(net, cfg, chip_smoke.EVAL_THRESH) > 0).sum(1)
+    assert bool((candidates > cfg.S * cfg.S * cfg.B // 3).all())
+    assert bool(((want.scores > 0).sum(1) == K).all())
+
+
+def test_v2p_train_step_runs_b5(card):
+    """Three bf16 steps of the v2p detector at 416² (S=13, B=5) on a
+    per-slot batch of 2: B5 five times a step, finite metrics, the
+    burn-in term on."""
+    import numpy as np
+
+    yolo = yolo_v2_config(416)
+    images, labels = (torch.from_numpy(a).to(card)
+                      for a in chip_smoke.train_batch(
+                          np.random.RandomState(0), 2, yolo))
+    assert labels.shape == (2, 13, 13, 5, 25)
+    trainer, state = chip_smoke.make_trainer(yolo, torch.bfloat16, card)
+    cuda_pool.reset_launch_counts()
+    for _ in range(3):
+        state, metrics = trainer.train_step(state, images, labels)
+    torch.cuda.synchronize()
+    assert cuda_pool.MAX_POOL2_BWD_LAUNCHES == 5 * 3
+    assert all(math.isfinite(v.item()) for v in metrics.values())
+    assert metrics["burnin_loss"].item() > 0
+    assert state.step == 3
+
+
+@pytest.mark.parametrize("head", ["v1", "v2p"])
+def test_run_eval_on_the_card_equals_the_plain_decode(card, head):
+    """``run_eval`` through ``make_detect_fn`` on the card on a seeded
+    in-memory set (64 images at batch 32, threshold 0.005): the decode
+    kernel once a batch, the APs (all-points and VOC07) equal to those of
+    the plain decode on the same grids (chip_smoke.check_eval)."""
+    import numpy as np
+
+    if head == "v1":
+        yolo, state = chip_smoke.v1_detector()
+    else:
+        yolo, state = chip_smoke.v2_detector(passthrough=True)
+    images, labels = chip_smoke.train_batch(np.random.RandomState(3), 64,
+                                            yolo)
+    out = chip_smoke.check_eval(head, yolo, state, images, labels, card)
+    assert out["launches"] == 2 and out["max_abs_err"] <= chip_smoke.BOX_TOL
+    assert 0.0 <= out["map"] <= 1.0

@@ -579,7 +579,7 @@ def test_train_cli_snapshots_resumes_and_serves(tmp_root, capsys):
     assert bool(torch.isfinite(dets.scores).all())
 
     with pytest.raises(SystemExit):
-        pascal_train_darknet.main(["--v2"] + argv)
+        pascal_train_darknet.main(["--spatial", "2"] + argv)
     assert "not ported yet" in capsys.readouterr().err
 
 
