@@ -67,7 +67,26 @@
    batch, that the APs and mAP (all-points and VOC07) equal those of the
    plain decode on the same grids, and the kernel against its plain
    version on each grid; times the eval loop and the kernel at batch 32.
-9. Times the v1, v1 ``--pallas-stem`` and v2p serving paths in bf16 and
+9. Builds the native host layer (``utils.native``: native/tfy2_native.cc
+   with g++, libjpeg where the machine has it) and holds its resize
+   (uint8 and normalized, channel swap and flip, three shapes) bit for
+   bit to a numpy copy of cv2's scalar INTER_LINEAR arithmetic, its
+   normalize, ``label_grid`` and ``nms`` to numpy; reads
+   ``assets/demo.jpg`` at 448² through ``data.augment.image_read_u8``
+   (cv2's or libjpeg's decode, then the native resize) and times it.
+10. Serves int8 (``ops.quant``) at full width: v1 448², ``--v2`` and
+   v2p 416² on the seeded weights above: calibration on the card (TF32
+   off) held to the CPU's; the chain quantized once; each conv's int32
+   sums on the card equal to the CPU's exact conv of the same int8 input,
+   and the grid to the CPU's int8 grid; ``make_detect_fn_int8`` with and
+   without NMS launching its decode kernel (B1 and B3 for v1, B2 for the
+   anchor heads) once a call; a saved and loaded artifact serving the
+   same detections; the decode kernels on the int8 grid against their
+   plain versions; no float conv in a profiled forward. Then the detect
+   CLI on ``assets/demo.jpg`` with ``--int8-weights`` (the v1 chain) and
+   ``--host-nms``, held to a numpy greedy NMS of the dense detections, and
+   ``run_eval`` through the int8 v1 path as in 8.
+11. Times the v1, v1 ``--pallas-stem`` and v2p serving paths in bf16 and
    the v1 and v1 ``--pallas-stem`` paths in float32 with TF32 off
    (images/s at batch 32 and 256, with a profile), the v1 224² and v2p
    416² train steps (steps/s and images/s at batch 24 and 64, with a
@@ -77,8 +96,11 @@
    at batch 256, 448², beside the stock stem (the detector's own conv1,
    bias, leaky, pool, conv2, bias, leaky, pool), and B4-f32 there beside
    the stock float32 stem with cuDNN's TF32 off and on, and prints them,
-   with each kernel's bound, as one JSON line ``{"kernels": [...]}``.
-10. Ends with ``{"ok": true, "device": {...}}``.
+   with each kernel's bound, as one JSON line ``{"kernels": [...]}``;
+   and the int8 paths (images/s at batch 32 and 256 beside the int8
+   operation bound, with a profile split into im2col, ``_int_mm``, the
+   float32 epilogue and the pools).
+12. Ends with ``{"ok": true, "device": {...}}``.
 
     python3 chip_smoke.py --stem-ab [OTHER_STEM_CU ...]
 
@@ -111,6 +133,7 @@ from __future__ import annotations
 import argparse
 import contextlib
 import ctypes
+import io
 import itertools
 import json
 import math
@@ -126,10 +149,13 @@ import torch.nn.functional as F
 
 # H100 SXM peaks (NVIDIA data sheet, dense, at 700 W) and the detector's
 # conv FLOPs
+# the int8 forward's phases: profiler ranges in ops/quant.py
+from tensorflow_yolo2_torch.ops.quant import PHASES as INT8_PHASES
 from tensorflow_yolo2_torch.utils.profiling import (
     BF16_FLOPS_PER_S,
     F32_OPS_PER_S,
     HBM_BYTES_PER_S,
+    INT8_OPS_PER_S,
     TF32_FLOPS_PER_S,
     conv_flops_per_image,
 )
@@ -203,6 +229,25 @@ V2P_CHECK_IMAGES = 4
 EVAL_THRESH = 0.005
 EVAL_BATCH = 32
 EVAL_IMAGES = 256
+# the native host layer: (source shape, target size) of the resize checks
+NATIVE_SHAPES = (((240, 320), 448), ((480, 640), 416), ((37, 53), 64))
+DEMO = "assets/demo.jpg"  # 320×240, baseline JPEG
+DEMO_CANDIDATES = 120  # slots above the threshold the CLI serves DEMO at
+# int8 serving: calibration images (card and CPU), and images whose int8
+# forward is held to the CPU's conv by conv (a float64 conv chain takes
+# seconds an image at 448² on the host)
+INT8_CALIB_IMAGES = 2
+INT8_CPU_IMAGES = 1
+# card vs CPU calibration, each scale, relative: float32 convs (TF32 off)
+# summed in other orders
+INT8_CALIB_REL_TOL = 1e-4
+# card vs CPU int8 grid from the same layers, relative norm: the same int32
+# sums and the same eager float32 epilogue; bounded, not 0, for a rounding
+# of the card's float32 multiply or add that differed from the host's
+INT8_GRID_REL_TOL = 1e-6
+# names of a float conv's operators and kernels (cuDNN's implicit-GEMM
+# kernels are named fprop / dgrad / wgrad)
+FLOAT_CONV_MARKS = ("conv", "fprop", "dgrad", "wgrad", "cudnn")
 
 
 def check(ok: bool, what: str) -> None:
@@ -932,9 +977,10 @@ def profile_call(fn, label: str, top: int = 12) -> float:
         us = e.self_device_time_total
         if us <= 0:
             continue
-        if e.key.startswith("ProfilerStep"):
-            # the step's own range, mirrored on the card's timeline over
-            # the kernels it holds: not a kernel
+        if e.key.startswith("ProfilerStep") or e.key in INT8_PHASES:
+            # the step's own range and the int8 forward's phase ranges,
+            # mirrored on the card's timeline over the kernels they hold:
+            # not kernels
             continue
         if e.device_type == DeviceType.CUDA:  # a kernel
             busy_us += us
@@ -1079,11 +1125,13 @@ class MemoryImdb:
 
 
 def check_eval(head: str, yolo, state: dict, images: np.ndarray,
-               labels: np.ndarray, dev) -> dict:
+               labels: np.ndarray, dev, calib: np.ndarray | None = None
+               ) -> dict:
     """``pascal_eval_map.run_eval`` on the card over a seeded in-memory
     set at the eval CLI's settings (threshold EVAL_THRESH, NMS IoU 0.5,
     K=32, batch EVAL_BATCH), through ``make_detect_fn`` (the bf16 BN-folded
-    detector, then B1 or B2): the decode kernel launched once a batch;
+    detector, or with ``calib`` the int8 chain calibrated on it, then B1
+    or B2): the decode kernel launched once a batch;
     the APs and the mAP, all-points and VOC07, equal to those of the plain
     decode on the same grids; the kernel equal to its plain version on
     every grid; then the eval loop's images/s (host included) and the
@@ -1099,7 +1147,8 @@ def check_eval(head: str, yolo, state: dict, images: np.ndarray,
     dense = decode_grid_v2 if v2 else cd.decode_grid_plain
     detect = pdd.make_detect_fn(yolo, state, object_thresh=EVAL_THRESH,
                                 use_nms=True, nms_iou=0.5, v2=v2,
-                                passthrough=v2)
+                                passthrough=v2, int8=calib is not None,
+                                calib_images=calib)
     imdb = MemoryImdb(images, labels, EVAL_BATCH)
     grids = []
 
@@ -1170,6 +1219,410 @@ def check_eval(head: str, yolo, state: dict, images: np.ndarray,
             "kept_per_image": kept.float().mean().item(),
             "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound, "bound_by": by}
+
+
+def scalar_resize(src: np.ndarray, dh: int, dw: int) -> np.ndarray:
+    """Numpy copy of OpenCV INTER_LINEAR's 8U scalar fixed-point resize
+    (11-bit coefficients, int rows, (b·(row>>4))>>16 +2 >>2 rounding),
+    which the native resize reproduces."""
+
+    def coefs(slen, dlen):
+        fx = ((np.arange(dlen) + 0.5) * (slen / dlen) - 0.5).astype(
+            np.float32)
+        sx = np.floor(fx).astype(int)
+        f = fx - sx
+        f[sx < 0] = 0
+        sx[sx < 0] = 0
+        f[sx >= slen - 1] = 1
+        sx[sx >= slen - 1] = max(slen - 2, 0)
+        return sx, np.rint((1 - f) * 2048).astype(np.int64), \
+            np.rint(f * 2048).astype(np.int64)
+
+    sh, sw = src.shape[:2]
+    sx, ax0, ax1 = coefs(sw, dw)
+    sy, ay0, ay1 = coefs(sh, dh)
+    s = src.astype(np.int64)
+    rows = (s[:, sx, :] * ax0[None, :, None]
+            + s[:, np.minimum(sx + 1, sw - 1), :] * ax1[None, :, None])
+    r0, r1 = rows[sy], rows[np.minimum(sy + 1, sh - 1)]
+    out = ((((ay0[:, None, None] * (r0 >> 4)) >> 16)
+            + ((ay1[:, None, None] * (r1 >> 4)) >> 16) + 2) >> 2)
+    return np.clip(out, 0, 255).astype(np.uint8)
+
+
+def numpy_nms(boxes, scores, classes, iou_thresh: float,
+              class_aware: bool, score_thresh: float) -> list[int]:
+    """Greedy NMS in numpy: indices by descending score (ties to the lower
+    index), each killing the later ones of its class above the IoU."""
+    order = sorted(range(len(scores)), key=lambda i: -scores[i])
+    alive, keep = [True] * len(order), []
+    for oi, i in enumerate(order):
+        if not alive[oi] or scores[i] <= score_thresh:
+            continue
+        keep.append(i)
+        for oj in range(oi + 1, len(order)):
+            j = order[oj]
+            if not alive[oj] or (class_aware and classes[i] != classes[j]):
+                continue
+            a, b = boxes[i], boxes[j]
+            inter = (max(min(a[2], b[2]) - max(a[0], b[0]), 0) *
+                     max(min(a[3], b[3]) - max(a[1], b[1]), 0))
+            union = (max((a[2] - a[0]) * (a[3] - a[1]), 0) +
+                     max((b[2] - b[0]) * (b[3] - b[1]), 0) - inter)
+            if union > 0 and inter / union > iou_thresh:
+                alive[oj] = False
+    return keep
+
+
+def check_native() -> tuple[np.ndarray, dict]:
+    """The native host layer (``utils.native``), built with g++ here: the
+    resize (uint8 and normalized, channel swap and flip) at NATIVE_SHAPES
+    bit-equal to ``scalar_resize``, the normalize at all 256 levels,
+    ``label_grid`` against the numpy grid and ``nms`` against
+    ``numpy_nms``; then DEMO read at 448² through ``image_read_u8`` (cv2's
+    decode where cv2 is installed, else libjpeg's, then the native
+    resize), timed. Without either decoder, a seeded image resized by
+    ``resize_u8`` stands in for DEMO. Returns the 448² uint8 image and
+    what was found."""
+    from tensorflow_yolo2_torch.data import augment, voc
+    from tensorflow_yolo2_torch.utils import native
+
+    t0 = time.perf_counter()
+    native.require()
+    jpeg = native.jpeg_available()
+    print(f"native host layer: built and loaded in "
+          f"{time.perf_counter() - t0:.1f} s; libjpeg decode: "
+          f"{'yes' if jpeg else 'no'}")
+    if not jpeg:
+        why = [ln for ln in native.build_log().splitlines() if "rror" in ln]
+        print("native host layer: no libjpeg on this machine (a host-side "
+              "limit, not a fallback of the device path): "
+              + (why[0][:200] if why else "the libjpeg build failed"))
+    rng = np.random.RandomState(6)
+    for (h, w), size in NATIVE_SHAPES:
+        img = rng.randint(0, 256, (h, w, 3)).astype(np.uint8)
+        want = scalar_resize(img, size, size)
+        for rgb, flip in itertools.product((False, True), repeat=2):
+            w_ = want[:, :, ::-1] if rgb else want
+            w_ = w_[:, ::-1] if flip else w_
+            what = f"native resize {(h, w)} → {size}², swap {rgb}, flip {flip}"
+            check(np.array_equal(native.resize_u8(img, size, size, rgb, flip),
+                                 w_), what + " (uint8)")
+            check(np.array_equal(
+                native.resize_normalize(img, size, size, rgb, flip),
+                augment.normalize(w_)), what + " (normalized)")
+    levels = np.arange(256, dtype=np.uint8)
+    check(np.array_equal(native.normalize(levels), augment.normalize(levels)),
+          "native normalize at all 256 levels")
+    for _ in range(20):
+        n = rng.randint(1, 12)
+        xy = rng.uniform(0, 446, (n, 2))
+        corners = np.concatenate([xy, np.minimum(
+            xy + rng.uniform(1, 200, (n, 2)), 447)], 1).astype(np.float32)
+        cls = rng.randint(0, 20, n).astype(np.int32)
+        check(np.array_equal(native.label_grid(corners, cls, 14, 20, 448.0),
+                             voc.label_grid_numpy(corners, cls, 14, 20,
+                                                  448.0)),
+              "native label_grid equals the numpy grid")
+    for class_aware, _ in itertools.product((True, False), range(5)):
+        xy = rng.uniform(0, 1, (40, 2))
+        boxes = np.concatenate([xy, xy + rng.uniform(0.05, 0.4, (40, 2))],
+                               1).astype(np.float32)
+        scores = rng.uniform(0, 1, 40).astype(np.float32)
+        classes = rng.randint(0, 3, 40).astype(np.int32)
+        check(list(native.nms(boxes, scores, classes, 0.45, class_aware,
+                              0.1)) ==
+              numpy_nms(boxes, scores, classes, 0.45, class_aware, 0.1),
+              "native nms equals the numpy greedy NMS")
+    print(f"native host layer: resize_u8 and resize_normalize at "
+          f"{len(NATIVE_SHAPES)} shapes × swap × flip bit-equal to cv2's "
+          f"scalar arithmetic (numpy), normalize, label_grid and nms equal "
+          f"to numpy")
+    try:
+        import cv2  # noqa: F401
+        decode = "cv2"
+    except ImportError:
+        decode = "libjpeg" if jpeg else None
+    info = {"libjpeg": jpeg, "decode": decode}
+    if decode is None:
+        print("native host layer: neither cv2 nor libjpeg here: a seeded "
+              "uint8 image resized by the native resize_u8 stands in for "
+              f"{DEMO}")
+        return native.resize_u8(rng.randint(0, 256, (240, 320, 3)).astype(
+            np.uint8), 448, 448), info
+    image = augment.image_read_u8(DEMO, 448)
+    reps = 50
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        augment.image_read_u8(DEMO, 448)
+    info["read_ms"] = (time.perf_counter() - t0) / reps * 1e3
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        native.resize_u8(np.ascontiguousarray(image[:240, :320]), 448, 448)
+    info["resize_ms"] = (time.perf_counter() - t0) / reps * 1e3
+    print(f"native read of {DEMO} (320×240) at 448²: {decode} decode + "
+          f"native resize, {info['read_ms']:.3f} ms an image ({reps} reads; "
+          f"the resize alone {info['resize_ms']:.3f} ms); shape "
+          f"{image.shape}, {image.dtype}")
+    return image, info
+
+
+def int8_phase_profile(fn, label: str) -> dict:
+    """One profiled call of an int8 serving ``fn``: the device time inside
+    each of the forward's phase ranges (INT8_PHASES), the kernels and
+    operators seen, and the busy and wall time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    phases = dict.fromkeys(INT8_PHASES, 0.0)
+    names, busy_us = set(), 0.0
+    for e in prof.key_averages():
+        names.add(e.key)
+        if e.key in INT8_PHASES and e.device_type != DeviceType.CUDA:
+            phases[e.key] += e.device_time_total
+        elif e.device_type == DeviceType.CUDA and e.key not in INT8_PHASES:
+            busy_us += e.self_device_time_total
+    out = {"wall_ms": wall_us / 1e3, "kernels_ms": busy_us / 1e3,
+           "phases_ms": {k: v / 1e3 for k, v in phases.items()},
+           "float_conv_names": sorted(
+               n for n in names if any(m in n.lower()
+                                       for m in FLOAT_CONV_MARKS))}
+    rest = busy_us - sum(phases.values())
+    print(f"int8 profile, {label}: wall {wall_us / 1e3:.3f} ms, kernels "
+          f"{busy_us / 1e3:.3f} ms: " + ", ".join(
+              f"{k[5:]} {v / 1e3:.3f} ms ({v / max(busy_us, 1e-9):.0%})"
+              for k, v in phases.items()) +
+          f", other {rest / 1e3:.3f} ms (normalize, reorg, decode)")
+    return out
+
+
+def check_int8(head: str, yolo, state: dict, images: torch.Tensor,
+               dev) -> dict:
+    """Int8 serving of one head at full width: calibration on the card
+    (TF32 off) and on the CPU, held to each other; the chain quantized
+    once, from the card's scales; the card's int8 forward held to the
+    CPU's conv by conv (each conv's int32 sums from the card's int8 input
+    equal to the CPU's exact float64 conv of it) and as a grid; the detect
+    path (``make_detect_fn_int8``) with and without NMS launching its
+    decode kernel once a call (B1 and B3 for v1, B2 for the anchor
+    heads); the artifact saved and loaded back serving the same
+    detections; the decode kernels on the int8 grid against their plain
+    versions; no float conv in the profiled forward. Returns the detect
+    functions, the layers and what was measured."""
+    import tempfile
+
+    from tensorflow_yolo2_torch.entries import pascal_detect_darknet as pdd
+    from tensorflow_yolo2_torch.models.fold import fold_params
+    from tensorflow_yolo2_torch.ops import cuda_decode as cd
+    from tensorflow_yolo2_torch.ops import quant
+    from tensorflow_yolo2_torch.utils import cuda_build
+    from tensorflow_yolo2_torch.utils.device import device_normalize
+
+    v2, passthrough = yolo.per_slot_classes, head == "v2p"
+    plan_head = "detector_v2p" if passthrough else "detector"
+    kw = {"v2": v2, "head": plan_head}
+    folded = fold_params(state)
+    calib = images[:INT8_CALIB_IMAGES]
+    t0 = time.perf_counter()
+    card_scales = quant.calibrate({k: v.to(dev) for k, v in folded.items()},
+                                  device_normalize(calib.to(dev)), **kw)
+    calib_s = time.perf_counter() - t0
+    cpu_scales = quant.calibrate(folded, device_normalize(calib), **kw)
+    calib_rel = ((card_scales - cpu_scales).abs() / cpu_scales).max().item()
+    print(f"int8 {head}: calibration on {INT8_CALIB_IMAGES} images, card "
+          f"(TF32 off, {calib_s:.2f} s) vs CPU: {len(card_scales)} scales "
+          f"within {calib_rel:.3e} relative (bound {INT8_CALIB_REL_TOL})")
+    check(calib_rel <= INT8_CALIB_REL_TOL,
+          f"int8 {head}: card and CPU calibration agree")
+    layers = quant.quantize_folded(folded, card_scales, **kw)
+    on_card, on_cpu = quant.prepare(layers, dev), quant.prepare(layers, "cpu")
+
+    seen = {"card": [], "cpu": []}
+    conv = quant.conv_int8
+
+    def recording(where, chain):
+        index = {id(layer): i for i, layer in enumerate(chain)}
+
+        def run(x, layer):
+            acc = conv(x, layer)
+            seen[where].append((index[id(layer)], x, acc))
+            return acc
+        return run
+
+    x = images[:INT8_CPU_IMAGES]
+    with mock.patch.object(quant, "conv_int8", recording("card", on_card)):
+        grid = quant.forward_int8(on_card, x.to(dev), **kw)
+    with mock.patch.object(quant, "conv_int8", recording("cpu", on_cpu)):
+        cpu_grid = quant.forward_int8(on_cpu, x, **kw)
+    check([i for i, _, _ in seen["card"]] == list(range(len(layers))),
+          f"int8 {head}: every conv ran once, in order")
+    fed = 0
+    for (i, x_card, acc_card), (_, x_cpu, acc_cpu) in zip(seen["card"],
+                                                           seen["cpu"]):
+        if not torch.equal(x_card.cpu(), x_cpu):  # feed the card's input
+            fed += 1
+            acc_cpu = quant.conv_int8(x_card.cpu(), on_cpu[i])
+        check(torch.equal(acc_card.cpu(), acc_cpu),
+              f"int8 {head}: conv {i}'s int32 sums on the card equal the "
+              f"CPU's from the same int8 input")
+    grid_rel = ((grid.cpu().double() - cpu_grid.double()).norm() /
+                cpu_grid.double().norm()).item()
+    print(f"int8 {head}: {len(layers)} convs, int32 sums on the card equal "
+          f"the CPU's float64 conv of the same int8 input at every layer "
+          f"({fed} inputs differed and were fed from the card); grid vs "
+          f"the CPU's int8 forward: relative norm {grid_rel:.3e} (bound "
+          f"{INT8_GRID_REL_TOL})")
+    check(grid_rel <= INT8_GRID_REL_TOL,
+          f"int8 {head}: card grid agrees with the CPU's")
+    del seen
+
+    detect = pdd.make_detect_fn_int8(yolo, layers, 0.5, use_nms=True, v2=v2,
+                                     passthrough=passthrough, device=dev)
+    dense_fn = pdd.make_detect_fn_int8(yolo, layers, 0.5, use_nms=False,
+                                       v2=v2, passthrough=passthrough,
+                                       device=dev)
+    batch = images[:16]
+    cd.reset_launch_counts()
+    kept = detect(batch)
+    dense = dense_fn(batch)
+    torch.cuda.synchronize()
+    counts = {"decode_nms": cd.DECODE_NMS_LAUNCHES,
+              "decode_nms_v2": cd.DECODE_NMS_V2_LAUNCHES,
+              "decode_grid": cd.DECODE_GRID_LAUNCHES}
+    want = ({"decode_nms_v2": 1, "decode_nms": 0, "decode_grid": 0} if v2
+            else {"decode_nms_v2": 0, "decode_nms": 1, "decode_grid": 1})
+    print(f"int8 {head} path launches, one call with NMS and one without: "
+          f"{counts}")
+    check(counts == want, f"int8 {head}: each decode kernel of the head "
+                          f"once a call, no other")
+    n = yolo.S * yolo.S * yolo.B
+    check(kept.boxes.shape == (16, K, 4) and dense.boxes.shape == (16, n, 4),
+          f"int8 {head} output shapes")
+    check(all(bool(torch.isfinite(t).all()) for t in (*kept[:2], *dense[:2])),
+          f"int8 {head} finite outputs")
+    check(bool((kept.scores > 0).any()), f"the int8 {head} path kept "
+                                         f"detections")
+    with tempfile.TemporaryDirectory(dir=cuda_build.BUILD_DIR) as d:
+        path = os.path.join(d, f"{head}_int8.npz")
+        quant.save_quantized(path, layers, {"v2": v2, "passthrough":
+                                            passthrough,
+                                            "image_size": yolo.image_size})
+        loaded, meta = quant.load_quantized(path)
+        again = pdd.make_detect_fn_int8(yolo, loaded, 0.5, use_nms=True,
+                                        v2=v2, passthrough=passthrough,
+                                        device=dev)(batch)
+    check(all(torch.equal(a, b) for a, b in zip(kept, again)),
+          f"int8 {head}: the saved and loaded artifact serves the same "
+          f"detections")
+    print(f"int8 {head}: artifact ({meta}) saved, loaded, same detections")
+
+    errs = {}
+    grid = quant.forward_int8(on_card, images[:BATCH].to(dev), **kw)
+    name = "decode_nms_v2" if v2 else "decode_nms"
+    plain = cd.decode_nms_v2_plain if v2 else cd.decode_nms_plain
+    errs[name] = 0.0
+    for thresh in (0.05, 0.5):
+        for class_aware in (True, False):
+            errs[name] = max(errs[name], compare_kept(
+                cd.decode_nms_fused(grid, yolo, thresh, 0.5, K, class_aware),
+                plain(grid, yolo, thresh, 0.5, K, class_aware), name))
+        if not v2:
+            errs["decode_grid"] = max(errs.get("decode_grid", 0.0),
+                                      compare_dense(
+                cd.decode_grid_fused(grid, yolo, thresh),
+                cd.decode_grid_plain(grid, yolo, thresh)))
+    del grid
+    torch.cuda.synchronize()
+    print(f"int8 {head} grid at batch {BATCH}: the decode kernels match "
+          f"their plain versions (max abs err {errs})")
+    prof = int8_phase_profile(lambda: detect(images[:32].to(dev)),
+                              f"{head} batch 32")
+    check(not prof["float_conv_names"],
+          f"int8 {head}: no float conv in the profiled forward "
+          f"({prof['float_conv_names']})")
+    return {"detect": detect, "layers": layers, "launches": counts,
+            "errs": errs, "calib_rel_err": calib_rel,
+            "grid_rel_err": grid_rel, "fed_inputs": fed}
+
+
+def serve_demo_cli(image: np.ndarray, layers, yolo, native_info: dict,
+                   dev) -> dict:
+    """The detect CLI (``pascal_detect_darknet.main``) on DEMO with
+    ``--int8-weights`` (the v1 448² chain, saved as an artifact) and
+    ``--host-nms`` at the threshold that leaves DEMO_CANDIDATES slots
+    (the seeded v1 weights put ~180 of 392 above the CLI's 0.5, and more
+    than the CLI's cap of 128 survive NMS there): B3 once, then the
+    native NMS on the host; its kept boxes equal ``numpy_nms`` of the
+    dense detections of the same image, and fewer than the candidates. Without a decoder for DEMO the same path runs on
+    ``image`` through ``make_detect_fn_int8`` and ``native.nms``."""
+    import tempfile
+
+    from tensorflow_yolo2_torch.entries import pascal_detect_darknet as pdd
+    from tensorflow_yolo2_torch.ops import cuda_decode as cd
+    from tensorflow_yolo2_torch.ops import quant
+    from tensorflow_yolo2_torch.utils import cuda_build, native
+
+    scores = pdd.make_detect_fn_int8(yolo, layers, 0.0, device=dev)(
+        image[None]).scores[0].cpu().numpy()
+    thresh = float(np.sort(scores)[-DEMO_CANDIDATES - 1])
+    dense = [t[0].cpu().numpy() for t in pdd.make_detect_fn_int8(
+        yolo, layers, thresh, device=dev)(image[None])]
+    want = numpy_nms(*dense, 0.5, True, 0.0)[:128]  # the CLI keeps 128
+    cd.reset_launch_counts()
+    if native_info["decode"] is None:
+        keep = native.nms(*dense, iou_thresh=0.5, class_aware=True,
+                          score_thresh=0.0)
+        got = [a[keep] for a in dense]
+        route = "make_detect_fn_int8 + native.nms on a seeded image"
+    else:
+        drawn = []
+        with tempfile.TemporaryDirectory(dir=cuda_build.BUILD_DIR) as d:
+            art = os.path.join(d, "v1_int8.npz")
+            quant.save_quantized(art, layers, {
+                "v2": False, "passthrough": False,
+                "image_size": yolo.image_size})
+            draw = pdd.draw_detections
+
+            def recording(path, boxes, scores, classes, out_path):
+                drawn.append((boxes, scores, classes))
+                return draw(path, boxes, scores, classes, out_path) \
+                    if native_info["decode"] == "cv2" else out_path
+
+            out = io.StringIO()  # the CLI prints every box it draws
+            with mock.patch.object(pdd, "draw_detections", recording), \
+                    contextlib.redirect_stdout(out):
+                check(pdd.main([DEMO, "--int8-weights", art, "--image-size",
+                                str(yolo.image_size), "--threshold",
+                                str(thresh),
+                                "--host-nms", "--device", str(dev), "--out",
+                                os.path.join(d, "demo.png")]) == 0,
+                      "the detect CLI exits 0")
+        got = drawn[0]
+        route = (f"pascal_detect_darknet.main --int8-weights --host-nms "
+                 f"({native_info['decode']} read)")
+    torch.cuda.synchronize()
+    launches = {"decode_grid": cd.DECODE_GRID_LAUNCHES,
+                "decode_nms": cd.DECODE_NMS_LAUNCHES}
+    check(launches == {"decode_grid": 1, "decode_nms": 0},
+          f"--host-nms: B3 once, no decode+NMS kernel ({launches})")
+    n_cand = int((dense[1] > 0).sum())
+    check(1 < len(want) < min(128, n_cand), f"--host-nms: the NMS kept "
+          f"boxes and suppressed some ({len(want)} of {n_cand} kept)")
+    check(all(np.array_equal(g, d[want]) for g, d in zip(got, dense)),
+          "--host-nms keeps what numpy's greedy NMS keeps")
+    print(f"int8 v1 {yolo.image_size}², {route}: {len(dense[1])} slots, "
+          f"{n_cand} above {thresh:.6f}, {len(want)} kept by "
+          f"the native NMS, equal to numpy's greedy NMS; B3 launches "
+          f"{launches['decode_grid']}")
+    return {"route": route, "kept": len(want), "launches": launches}
 
 
 def card_grid(yolo, state, images, dev, pallas_stem: bool = False,
@@ -1851,7 +2304,24 @@ def main(argv: list[str] | None = None) -> int:
                                   *train_batch(erng, EVAL_IMAGES, yolo), dev),
     }
 
-    # 9. times ---------------------------------------------------------------
+    # 9. the native host layer ----------------------------------------------
+    demo, native_info = check_native()
+
+    # 10. int8 serving at full width: v1 448², --v2 and v2p 416² ------------
+    int8 = {head: check_int8(head, cfg, st, imgs, dev) for head, cfg, st, imgs
+            in (("v1", yolo, v1_state, images),
+                ("v2", v2cfg, v2_state, v2_images),
+                ("v2p", v2cfg, v2_detector(passthrough=True)[1], v2_images))}
+    for head, r in int8.items():
+        for name, err in r["errs"].items():
+            errs[name] = max(errs[name], err)
+    native_info["demo_cli"] = serve_demo_cli(demo, int8["v1"]["layers"],
+                                             yolo, native_info, dev)
+    evals["eval_int8_v1_448"] = check_eval(
+        "v1 int8", yolo, v1_state, *train_batch(erng, EVAL_IMAGES, yolo),
+        dev, calib=train_batch(erng, EVAL_BATCH, yolo)[0])
+
+    # 11. times --------------------------------------------------------------
     print(f"times on {card}:")
     v1_flops = conv_flops_per_image(448, yolo.cell_channels)
     tf32 = (f"TF32: cudnn.allow_tf32={torch.backends.cudnn.allow_tf32}, "
@@ -1883,6 +2353,28 @@ def main(argv: list[str] | None = None) -> int:
         "tf32": {"cudnn": torch.backends.cudnn.allow_tf32,
                  "matmul": torch.backends.cuda.matmul.allow_tf32},
     }
+    for head, imgs, size in (("v1", images, 448), ("v2", v2_images, 416),
+                             ("v2p", v2_images, 416)):
+        cfg = yolo if head == "v1" else v2cfg
+        flops = conv_flops_per_image(size, cfg.cell_channels,
+                                     passthrough=head == "v2p")
+        detect = int8[head]["detect"]
+        timed = time_path(detect, imgs, dev, f"int8 {head} {size}²", flops,
+                          INT8_OPS_PER_S)
+        xb = imgs[:BATCH].to(dev)
+        timed["profile"] = int8_phase_profile(
+            lambda: detect(xb), f"{head} {size}² batch {BATCH}")
+        del xb
+        timed["bound_ms"] = BATCH * flops / INT8_OPS_PER_S * 1e3
+        print(f"int8 {head} {size}², batch {BATCH}: operation bound "
+              f"{timed['bound_ms']:.3f} ms ({flops / 1e9:.2f} GOP an image "
+              f"at {INT8_OPS_PER_S / 1e12:.0f} int8 TOPS); the call takes "
+              f"{timed[BATCH]['ms_per_batch']:.3f} ms")
+        path[f"int8_{head}_{size}"] = {
+            **timed, "checks": {k: int8[head][k] for k in (
+                "launches", "errs", "calib_rel_err", "grid_rel_err",
+                "fed_inputs")}}
+    path["native"] = native_info
     del trainer, tstate, vtrainer, vstate
 
     kept_v1 = (cd.decode_nms_plain(v1_grid, yolo, 0.5, 0.5, K).scores > 0
@@ -1905,6 +2397,15 @@ def main(argv: list[str] | None = None) -> int:
             lambda: cd.decode_grid_plain(v1_grid, yolo, 0.5),
             decode_bound(yolo, BATCH), "448² (S=14)", None),
     }
+    launches_int8 = {  # the decode kernels' launches on the int8 paths
+        "decode_nms": {"int8_v1_448": int8["v1"]["launches"]["decode_nms"]},
+        "decode_nms_v2": {f"int8_{h}_416": int8[h]["launches"]["decode_nms_v2"]
+                          for h in ("v2", "v2p")},
+        "decode_grid": {
+            "int8_v1_448": int8["v1"]["launches"]["decode_grid"],
+            "int8_v1_448_host_nms": native_info["demo_cli"]["launches"][
+                "decode_grid"]},
+    }
     kernels = []
     for name, (fused, plain, (bound, by), shape, one_step) in runs.items():
         ms = graph_ms(fused)
@@ -1915,7 +2416,7 @@ def main(argv: list[str] | None = None) -> int:
             "replaces": TPU_KERNELS[name], "launches": launches[name],
             "max_abs_err": errs[name], "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound, "bound_by": by, "library_ms": None,
-            "call_ms": call_ms})
+            "call_ms": call_ms, "launches_int8": launches_int8[name]})
         eval_runs = {  # the same kernel under evaluation (section 8)
             ev_name: {k: ev[k] for k in (
                 "threshold", "batch", "launches", "candidates_per_image",

@@ -37,7 +37,12 @@ from tensorflow_yolo2_torch.config import (
     YoloConfig,
     yolo_v2_config,
 )
-from tensorflow_yolo2_torch.data.augment import image_read, image_read_u8
+from tensorflow_yolo2_torch.data.augment import (
+    image_read,
+    image_read_u8,
+    jpeg_size,
+)
+from tensorflow_yolo2_torch.utils import native
 
 
 def build_label_grid(corners_xyxy: np.ndarray, cls_inds: np.ndarray,
@@ -45,7 +50,20 @@ def build_label_grid(corners_xyxy: np.ndarray, cls_inds: np.ndarray,
                      image_size: float) -> np.ndarray:
     """Resized-space x1y1x2y2 boxes (float32) → (S, S, 5+num_class) grid:
     cxcywh in resized pixels in the cell holding the centre, one object
-    per cell, the first object wins."""
+    per cell, the first object wins. In the native layer where it built
+    (``utils.native.label_grid``), else in :func:`label_grid_numpy`: the
+    same grid."""
+    fast = native.label_grid(corners_xyxy, cls_inds, S, num_class,
+                             image_size)
+    if fast is not None:
+        return fast
+    return label_grid_numpy(corners_xyxy, cls_inds, S, num_class, image_size)
+
+
+def label_grid_numpy(corners_xyxy: np.ndarray, cls_inds: np.ndarray,
+                     S: int, num_class: int,
+                     image_size: float) -> np.ndarray:
+    """:func:`build_label_grid` in numpy."""
     label = np.zeros((S, S, 5 + num_class), np.float32)
     for (x1, y1, x2, y2), cls_ind in zip(corners_xyxy, cls_inds):
         boxes = [(x2 + x1) / 2.0, (y2 + y1) / 2.0, x2 - x1, y2 - y1]
@@ -221,15 +239,10 @@ class PascalVOC:
 
     def load_annotation(self, index: str) -> tuple[np.ndarray, int]:
         """One VOC XML → its label grid and its object count."""
-        import cv2
-
         imname = os.path.join(self.data_path, "JPEGImages", index + ".jpg")
-        im = cv2.imread(imname)
-        if im is None:
-            raise FileNotFoundError(
-                f"VOC image missing or undecodable: {imname}")
-        h_ratio = float(self.image_size) / im.shape[0]
-        w_ratio = float(self.image_size) / im.shape[1]
+        height, width = image_shape(imname)
+        h_ratio = float(self.image_size) / height
+        w_ratio = float(self.image_size) / width
 
         filename = os.path.join(self.data_path, "Annotations",
                                 index + ".xml")
@@ -260,3 +273,17 @@ class PascalVOC:
             label = build_label_grid(corners, cls_inds, self.cell_size,
                                      self.num_class, float(self.image_size))
         return label, len(objs)
+
+
+def image_shape(imname: str) -> tuple[int, int]:
+    """(height, width) of a VOC image as ``cv2.imread`` gives it where cv2
+    is installed, else from the JPEG's frame header (VOC's images carry no
+    EXIF orientation, which cv2 would apply)."""
+    try:
+        import cv2
+    except ImportError:
+        return jpeg_size(imname)
+    im = cv2.imread(imname)
+    if im is None:
+        raise FileNotFoundError(f"VOC image missing or undecodable: {imname}")
+    return im.shape[:2]

@@ -19,6 +19,15 @@ CUDA kernel, ``ops.cuda_stem.fused_stem`` (B4 for a bf16 detector, B4-f32
 for a float32 one), which keeps the conv1 activation out of device
 memory; the folded detector runs on from there.
 
+``--int8`` serves the post-training-quantized chain (``ops.quant``: int8
+convs, calibrated on the input image; ``--int8-export NPZ`` also writes
+it), ``--int8-weights NPZ`` serves such an artifact, of this package or
+of the JAX package, with no weights and no calibration. ``--host-nms``
+decodes without NMS on the card and runs the greedy NMS on the host, in
+the native layer (``utils.native.nms``). The image is read by
+``data.augment.image_read`` (cv2 or libjpeg, then the native resize); the
+drawing needs cv2.
+
 Weights come from a ``.npz`` written by ``convert.save_npz`` (a flax
 params / batch_stats pair); reading Orbax snapshots or TF checkpoints
 needs JAX or TensorFlow and is not part of this package. An anchor head
@@ -29,6 +38,9 @@ with the classic VOC priors.
         image.jpg --weights darknet19.npz --image-size 448 --nms
     python -m tensorflow_yolo2_torch.entries.pascal_detect_darknet \\
         image.jpg --weights v2p.npz --image-size 416 --nms --v2 --passthrough
+    python -m tensorflow_yolo2_torch.entries.pascal_detect_darknet \\
+        image.jpg --weights darknet19.npz --image-size 448 --int8 \\
+        --int8-export darknet19_int8.npz --host-nms
 """
 
 from __future__ import annotations
@@ -42,6 +54,7 @@ import torch
 
 from tensorflow_yolo2_torch.config import VOC_CLASSES, YoloConfig
 from tensorflow_yolo2_torch.convert import load_npz, state_dict_from_flax
+from tensorflow_yolo2_torch.data.augment import image_read
 from tensorflow_yolo2_torch.data.anchors import (
     ANCHORS_FILE,
     v2_config_for_snapshot,
@@ -51,6 +64,7 @@ from tensorflow_yolo2_torch.models.darknet import (
     Darknet19DetectorV2,
 )
 from tensorflow_yolo2_torch.models.fold import fold_params
+from tensorflow_yolo2_torch.ops import quant
 from tensorflow_yolo2_torch.ops.boxes import Detections, decode_grid_v2
 from tensorflow_yolo2_torch.ops.cuda_decode import (
     decode_grid_fused,
@@ -62,6 +76,7 @@ from tensorflow_yolo2_torch.ops.cuda_stem import (
     fused_detect_forward,
     pack_stem_weights,
 )
+from tensorflow_yolo2_torch.utils import native
 from tensorflow_yolo2_torch.utils.device import (
     device_normalize,
     resolve_device,
@@ -130,8 +145,8 @@ def make_detect_fn(yolo: YoloConfig, params_or_state_dict, batch_stats=None,
                    nms_iou: float = 0.5, fold_bn: bool = True,
                    dtype: torch.dtype = torch.bfloat16, device=None,
                    v2: bool = False, passthrough: bool = False,
-                   int8: bool = False, pallas_stem: bool = False,
-                   downsample: str = "pool"):
+                   int8: bool = False, calib_images=None,
+                   pallas_stem: bool = False, downsample: str = "pool"):
     """Build the batched images → detections function.
 
     ``v2`` selects the anchor head (linear output, ``per_slot_classes``
@@ -149,6 +164,13 @@ def make_detect_fn(yolo: YoloConfig, params_or_state_dict, batch_stats=None,
     bfloat16, B4-f32 for float32; any other type raises ``TypeError``)
     and the rest of the folded detector after them; it takes the v1 or
     ``v2`` head with the pool downsample and BN folding.
+
+    ``int8`` serves the post-training-quantized chain (``ops.quant``,
+    ``quantize_detector``): the BN-folded weights per-channel int8,
+    activations per-tensor int8 calibrated on ``calib_images`` (a
+    representative NHWC batch in [-1, 1], required), int8 convs; ``dtype``
+    does not apply. It takes every head with the pool downsample and BN
+    folding.
     """
     if v2 != yolo.per_slot_classes:
         raise ValueError(
@@ -172,7 +194,22 @@ def make_detect_fn(yolo: YoloConfig, params_or_state_dict, batch_stats=None,
             raise ValueError("--pallas-stem serves the BN-folded chain; "
                              "fold_bn=True is required")
     if int8:
-        raise NotImplementedError("int8 serving is not ported yet")
+        if calib_images is None:
+            raise ValueError("int8 serving needs calib_images (a "
+                             "representative batch) for activation "
+                             "calibration")
+        if not fold_bn:
+            raise ValueError("int8 serving quantizes the BN-folded weights: "
+                             "fold_bn=True is required")
+        if downsample != "pool":
+            raise ValueError("int8 serving covers the pool-based chain "
+                             "(ops.quant's layer plan); the stride variant "
+                             "is not quantized")
+        qlayers = quantize_detector(params_or_state_dict, batch_stats,
+                                    calib_images, v2=v2,
+                                    passthrough=passthrough, device=device)
+        return make_detect_fn_int8(yolo, qlayers, object_thresh, use_nms,
+                                   nms_iou, v2, passthrough, device)
     device = resolve_device(device)
     if pallas_stem and device.type == "cuda":
         cuda_kernel(dtype)  # a type with no stem kernel raises here
@@ -190,25 +227,62 @@ def make_detect_fn(yolo: YoloConfig, params_or_state_dict, batch_stats=None,
             grid = fused_detect_forward(model, images.contiguous(), stem)
         else:
             grid = model(images)
-        if use_nms:
-            return decode_nms_fused(grid, yolo, object_thresh, nms_iou,
-                                    max_outputs=32)
-        if v2:
-            return decode_grid_v2(grid, yolo, object_thresh)
-        return decode_grid_fused(grid, yolo, object_thresh)
+        return decode(grid, yolo, object_thresh, use_nms, nms_iou, v2)
 
     return detect
 
 
-def image_read(path: str, image_size: int) -> np.ndarray:
-    """Read (BGR), warp-resize and scale to [-1, 1], as the reference does."""
-    import cv2
+def decode(grid: torch.Tensor, yolo: YoloConfig, object_thresh: float,
+           use_nms: bool, nms_iou: float, v2: bool) -> Detections:
+    """The serving path's decode of a grid: with NMS the decode+NMS kernel
+    (B1, or B2 for an anchor head; K=32), else the dense decode (B3, or
+    plain PyTorch for an anchor head, as in the JAX package)."""
+    if use_nms:
+        return decode_nms_fused(grid, yolo, object_thresh, nms_iou,
+                                max_outputs=32)
+    if v2:
+        return decode_grid_v2(grid, yolo, object_thresh)
+    return decode_grid_fused(grid, yolo, object_thresh)
 
-    image = cv2.imread(path)
-    if image is None:
-        raise FileNotFoundError(path)
-    image = cv2.resize(image, (image_size, image_size))
-    return (image.astype(np.float32) / 255.0) * 2.0 - 1.0
+
+def quantize_detector(params_or_state_dict, batch_stats, calib_images,
+                      v2: bool = False, passthrough: bool = False,
+                      device=None) -> tuple:
+    """Fold BN and post-training-quantize a detector → the int8 layer
+    chain (CPU tensors). The calibration forward runs in float32 on
+    ``device`` (default ``cuda``; cuDNN without TF32), the quantization on
+    the CPU. ``passthrough`` quantizes the YOLOv2 reorg head (ops.quant
+    ``head="detector_v2p"``)."""
+    device = resolve_device(device)
+    head = "detector_v2p" if passthrough else "detector"
+    state_dict = as_state_dict(params_or_state_dict, batch_stats)
+    if any(".bn." in k for k in state_dict):
+        state_dict = fold_params(state_dict)
+    on_device = {k: v.float().to(device) for k, v in state_dict.items()}
+    images = device_normalize(torch.as_tensor(calib_images).to(device))
+    scales = quant.calibrate(on_device, images, v2=v2, head=head)
+    return quant.quantize_folded(state_dict, scales, v2=v2, head=head)
+
+
+def make_detect_fn_int8(yolo: YoloConfig, qlayers, object_thresh: float = 0.5,
+                        use_nms: bool = False, nms_iou: float = 0.5,
+                        v2: bool = False, passthrough: bool = False,
+                        device=None):
+    """The batched images → detections function of a prebuilt int8 chain
+    (``quantize_detector``, or a ``quant.save_quantized`` artifact from
+    either package): ``quant.forward_int8`` on ``device`` (default
+    ``cuda``), then the serving path's decode."""
+    device = resolve_device(device)
+    head = "detector_v2p" if passthrough else "detector"
+    layers = quant.prepare(qlayers, device)
+
+    @torch.inference_mode()
+    def detect(images) -> Detections:
+        images = torch.as_tensor(images).to(device)
+        grid = quant.forward_int8(layers, images, v2=v2, head=head)
+        return decode(grid, yolo, object_thresh, use_nms, nms_iou, v2)
+
+    return detect
 
 
 def draw_detections(image_path: str, boxes: np.ndarray, scores: np.ndarray,
@@ -240,16 +314,30 @@ def main(argv: list[str] | None = None) -> int:
     p = argparse.ArgumentParser(description=__doc__,
                                 formatter_class=argparse.RawTextHelpFormatter)
     p.add_argument("image")
-    p.add_argument("--weights", required=True, metavar="NPZ",
-                   help="params / batch_stats written by convert.save_npz")
+    p.add_argument("--weights", default=None, metavar="NPZ",
+                   help="params / batch_stats written by convert.save_npz "
+                        "(required unless --int8-weights)")
     p.add_argument("--threshold", type=float, default=0.5)
     p.add_argument("--nms", action="store_true",
                    help="apply class-aware NMS (the reference has none)")
+    p.add_argument("--host-nms", action="store_true",
+                   help="decode without NMS on the device, then run the "
+                        "greedy NMS on the host in the native layer "
+                        "(utils.native.nms): the same survivor set")
     p.add_argument("--image-size", type=int, default=224,
                    help="multiple of 32; the grid is S = size/32 (448 is "
                         "the Darknet19-448 config)")
     p.add_argument("--out", default=None)
     p.add_argument("--no-fold-bn", action="store_true")
+    p.add_argument("--int8", action="store_true",
+                   help="serve the post-training-quantized int8 chain "
+                        "(ops.quant; calibrated on the input image)")
+    p.add_argument("--int8-export", default=None, metavar="NPZ",
+                   help="with --int8: also write the quantized chain as a "
+                        "serving artifact (ops.quant.save_quantized)")
+    p.add_argument("--int8-weights", default=None, metavar="NPZ",
+                   help="serve a saved int8 artifact (this package's or "
+                        "the JAX package's): no weights, no calibration")
     p.add_argument("--v2", action="store_true",
                    help="anchor-head weights (pascal_train_darknet --v2)")
     p.add_argument("--passthrough", action="store_true",
@@ -261,16 +349,45 @@ def main(argv: list[str] | None = None) -> int:
     p.add_argument("--pallas-stem", action="store_true",
                    help="the first two conv + pool stages as one fused "
                         "CUDA kernel (bf16; not with --passthrough)")
+    p.add_argument("--tf-checkpoint", default=None,
+                   help="not ported yet (ROADMAP.md, queue A, A7)")
+    p.add_argument("--spatial", type=int, default=0, metavar="N",
+                   help="not ported yet (ROADMAP.md, queue A, A8)")
     p.add_argument("--device", default=None,
                    help="torch device (default: cuda)")
     args = p.parse_args(argv)
+    int8 = args.int8 or args.int8_weights
+    if args.tf_checkpoint:
+        p.error("--tf-checkpoint is not ported yet (ROADMAP.md, queue A, A7)")
+    if args.spatial:
+        p.error("--spatial is not ported yet (ROADMAP.md, queue A, A8)")
     if args.image_size % 32:
         p.error("--image-size must be a multiple of 32")
+    if args.int8_export and not args.int8:
+        p.error("--int8-export requires --int8 (it writes the chain "
+                "quantized in this run)")
+    if args.int8_weights and (args.int8 or args.int8_export):
+        p.error("--int8-weights already serves a quantized artifact; drop "
+                "--int8/--int8-export")
+    if args.int8_weights and args.weights:
+        p.error("--int8-weights serves the artifact's own weights; "
+                "--weights would be ignored")
+    if not (args.weights or args.int8_weights):
+        p.error("--weights NPZ is required (or --int8-weights NPZ)")
+    if args.no_fold_bn and int8:
+        p.error("int8 serving quantizes the BN-folded chain; drop "
+                "--no-fold-bn")
     if args.passthrough and not args.v2:
         p.error("--passthrough is the YOLOv2 reorg head; it requires --v2")
+    if args.downsample == "stride" and int8:
+        p.error("int8 serving covers the pool-based chain (ops.quant's "
+                "layer plan); the stride variant is not quantized")
+    if args.pallas_stem and int8:
+        p.error("--pallas-stem covers the bf16 / float32 chain, not int8")
 
+    weights_dir = os.path.dirname(os.path.abspath(args.weights or
+                                                  args.int8_weights))
     if args.v2:
-        weights_dir = os.path.dirname(os.path.abspath(args.weights))
         yolo = v2_config_for_snapshot(weights_dir, args.image_size)
         stored = os.path.join(weights_dir, ANCHORS_FILE)
         print("anchors: " + (stored if os.path.isfile(stored) else
@@ -279,15 +396,46 @@ def main(argv: list[str] | None = None) -> int:
     else:
         yolo = YoloConfig(S=args.image_size // 32,
                           image_size=args.image_size)
-    params, stats = load_npz(args.weights)
-    detect = make_detect_fn(yolo, params, stats, args.threshold,
-                            use_nms=args.nms, fold_bn=not args.no_fold_bn,
-                            device=args.device, v2=args.v2,
-                            passthrough=args.passthrough,
-                            pallas_stem=args.pallas_stem,
-                            downsample=args.downsample)
-    dets = detect(image_read(args.image, yolo.image_size)[None])
-    boxes, scores, classes = (t[0].cpu().numpy() for t in dets)
+    image = image_read(args.image, yolo.image_size)  # BGR, [-1, 1]
+    use_nms = args.nms and not args.host_nms
+    kw = {"use_nms": use_nms, "v2": args.v2, "passthrough": args.passthrough,
+          "device": args.device}
+    if args.int8_weights:
+        qlayers, meta = quant.load_quantized(args.int8_weights)
+        for key, want in (("v2", args.v2), ("passthrough", args.passthrough),
+                          ("image_size", yolo.image_size)):
+            if key in meta and meta[key] != want:
+                p.error(f"--int8-weights artifact was quantized with "
+                        f"{key}={meta[key]}, run requests {want}")
+        detect = make_detect_fn_int8(yolo, qlayers, args.threshold, **kw)
+    elif args.int8:
+        params, stats = load_npz(args.weights)
+        if not stats:
+            p.error("--int8 needs BatchNorm statistics to fold before "
+                    "quantizing; the weights have none")
+        qlayers = quantize_detector(params, stats, image[None], v2=args.v2,
+                                    passthrough=args.passthrough,
+                                    device=args.device)
+        if args.int8_export:
+            quant.save_quantized(args.int8_export, qlayers,
+                                 {"v2": args.v2,
+                                  "passthrough": args.passthrough,
+                                  "image_size": yolo.image_size})
+            print(f"Exported int8 artifact to {args.int8_export}")
+        detect = make_detect_fn_int8(yolo, qlayers, args.threshold, **kw)
+    else:
+        params, stats = load_npz(args.weights)
+        detect = make_detect_fn(yolo, params, stats, args.threshold,
+                                fold_bn=not args.no_fold_bn,
+                                pallas_stem=args.pallas_stem,
+                                downsample=args.downsample, **kw)
+    boxes, scores, classes = (t[0].cpu().numpy()
+                              for t in detect(image[None]))
+    if args.host_nms:
+        native.require()  # raises with the compiler's output if not built
+        keep = native.nms(boxes, scores, classes, iou_thresh=0.5,
+                          class_aware=True, score_thresh=0.0)
+        boxes, scores, classes = boxes[keep], scores[keep], classes[keep]
     out = draw_detections(args.image, boxes, scores, classes,
                           args.out or args.image + ".detections.png")
     print(f"Wrote {out}")

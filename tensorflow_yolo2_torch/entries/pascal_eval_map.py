@@ -16,8 +16,11 @@ with the ``anchors.json`` of that directory (the one holding the
 
     python -m tensorflow_yolo2_torch.entries.pascal_eval_map --v2 --passthrough
 
-int8 serving (``--int8``) and TF checkpoint import (``--tf-checkpoint``)
-are not ported yet and are refused.
+``--int8`` evaluates the post-training-quantized int8 chain
+(``ops.quant``), calibrated on the first batch of ``--int8-calib-set``
+(``trainval`` by default: the evaluated split never calibrates the
+quantizer); not with ``--passthrough``, as in the JAX package. TF
+checkpoint import (``--tf-checkpoint``) is not ported yet and is refused.
 """
 
 from __future__ import annotations
@@ -108,15 +111,23 @@ def main(argv: list[str] | None = None) -> int:
     p.add_argument("--passthrough", action="store_true",
                    help="evaluate a YOLOv2 reorg-head snapshot "
                         "(pascal_train_darknet --v2 --passthrough)")
-    p.add_argument("--int8", action="store_true", help="not ported yet")
+    p.add_argument("--int8", action="store_true",
+                   help="evaluate the post-training-quantized int8 serving "
+                        "chain (ops.quant)")
+    p.add_argument("--int8-calib-set", default="trainval",
+                   help="image set whose first batch calibrates the int8 "
+                        "activations (kept apart from --image-set, so that "
+                        "the evaluated data never calibrates the "
+                        "quantizer)")
     args = p.parse_args(argv)
-    if args.int8:
-        p.error("--int8 is not ported yet (ROADMAP.md, queue A, A4)")
     if args.tf_checkpoint:
         p.error("--tf-checkpoint is not ported yet (ROADMAP.md, queue A, "
                 "A7)")
     if args.passthrough and not args.v2:
         p.error("--passthrough is the YOLOv2 reorg head; it requires --v2")
+    if args.passthrough and args.int8:
+        p.error("int8 serving does not cover the passthrough head's concat "
+                "route yet")
 
     batch_size = args.batch_size or 32
     dtype = (torch.bfloat16 if args.compute_dtype == "bfloat16"
@@ -129,14 +140,21 @@ def main(argv: list[str] | None = None) -> int:
     state_dict, anchors_dir = load_weights(args.weights, net_name, paths)
     # an anchor head decodes with the priors it was trained against
     yolo = (v2_config_for_snapshot(anchors_dir, IMAGE_SIZE) if args.v2
-            else YoloConfig())
+            else YoloConfig(S=IMAGE_SIZE // 32, image_size=IMAGE_SIZE))
     imdb = PascalVOC(args.image_set, batch_size=batch_size, yolo=yolo,
                      data_path=args.data_path, paths=paths,
                      rng=np.random.default_rng(args.seed))
+    calib = None
+    if args.int8:
+        calib, _ = PascalVOC(args.int8_calib_set, batch_size=batch_size,
+                             yolo=yolo, data_path=args.data_path,
+                             paths=paths,
+                             rng=np.random.default_rng(args.seed)).get()
     detect = make_detect_fn(yolo, state_dict, object_thresh=args.threshold,
                             use_nms=True, nms_iou=args.nms_iou, dtype=dtype,
                             device=args.device, v2=args.v2,
-                            passthrough=args.passthrough)
+                            passthrough=args.passthrough, int8=args.int8,
+                            calib_images=calib)
     mAP, aps = run_eval(detect, imdb, yolo, iou=args.iou,
                         use_07_metric=args.use_07_metric,
                         max_images=args.max_images)

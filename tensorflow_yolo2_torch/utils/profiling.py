@@ -41,11 +41,12 @@ def maybe_trace(logdir: str | None,
 
 # Peaks of one NVIDIA H100 SXM at its 700 W limit (NVIDIA's data sheet,
 # dense): HBM bytes/s, float32 operations/s outside the tensor cores, and
-# bf16 and TF32 tensor-core FLOP/s.
+# bf16, TF32 and int8 tensor-core operations/s.
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
 BF16_FLOPS_PER_S = 989e12
 TF32_FLOPS_PER_S = 494.7e12
+INT8_OPS_PER_S = 1979e12
 
 
 def _schedule_flops(image_size: int, schedule, in_channels: int = 3

@@ -24,7 +24,10 @@ stem); the float32 ``--pallas-stem`` grid against the stock float32
 grid: 2e-4 relative norm. The v2p train step at 416² runs B5 five
 times a step with finite metrics; ``run_eval`` on the card gives the
 same APs as the plain decode of the same grids (exactly: the kernel's
-kept sets, scores and classes are the plain version's).
+kept sets, scores and classes are the plain version's). The int8 chain
+(``ops.quant``, im2col + ``torch._int_mm``): each conv's int32 sums equal
+the CPU's exact float64 conv of the same int8 input, the grid within
+chip_smoke.INT8_GRID_REL_TOL of the CPU's; no float conv runs.
 """
 
 import ctypes
@@ -739,3 +742,149 @@ def test_run_eval_on_the_card_equals_the_plain_decode(card, head):
     out = chip_smoke.check_eval(head, yolo, state, images, labels, card)
     assert out["launches"] == 2 and out["max_abs_err"] <= chip_smoke.BOX_TOL
     assert 0.0 <= out["map"] <= 1.0
+
+
+def int8_chain(head: str, size: int, seed: int = 3):
+    """A seeded head's int8 chain, calibrated on the card (TF32 off) on two
+    uint8 images, and its config; the images and the layers on the CPU."""
+    from tensorflow_yolo2_torch.models.fold import fold_params
+    from tensorflow_yolo2_torch.ops import quant
+
+    if head == "v1":
+        yolo = YoloConfig(S=size // 32, image_size=size)
+        model = Darknet19Detector(yolo.cell_channels)
+    else:
+        yolo = yolo_v2_config(size)
+        model = (Darknet19DetectorV2(yolo.cell_channels) if head == "v2p"
+                 else Darknet19Detector(yolo.cell_channels,
+                                        bn_on_output=False))
+    state = fold_params(randomize_(model, torch.Generator().manual_seed(
+        seed)).state_dict())
+    if head == "v1":  # confident slots
+        state["detection.output.conv.bias"][20:22] += 2.0
+    images = torch.from_numpy(np.random.RandomState(seed).randint(
+        0, 256, (4, size, size, 3)).astype(np.uint8))
+    plan_head = "detector_v2p" if head == "v2p" else "detector"
+    kw = {"v2": head != "v1", "head": plan_head}
+    scales = quant.calibrate({k: v.cuda() for k, v in state.items()},
+                             device_normalize(images[:2].cuda()), **kw)
+    return yolo, quant.quantize_folded(state, scales, **kw), images, kw
+
+
+@pytest.mark.parametrize("head", ["v1", "v2", "v2p"])
+def test_int8_sums_on_the_card_equal_the_cpu(card, no_tf32, head):
+    """Each conv's int32 sums from the card's int8 input equal the CPU's
+    exact float64 conv of that input; the grids agree (relative norm
+    chip_smoke.INT8_GRID_REL_TOL)."""
+    from unittest import mock
+
+    from tensorflow_yolo2_torch.ops import quant
+
+    _, layers, images, kw = int8_chain(head, 64)
+    on_card, on_cpu = quant.prepare(layers, card), quant.prepare(layers, "cpu")
+    index = {id(layer): i for i, layer in enumerate(on_card)}
+    seen, conv = [], quant.conv_int8
+
+    def recording(x, layer):
+        acc = conv(x, layer)
+        seen.append((index[id(layer)], x, acc))
+        return acc
+
+    with mock.patch.object(quant, "conv_int8", recording):
+        grid = quant.forward_int8(on_card, images.to(card), **kw)
+    assert [i for i, _, _ in seen] == list(range(len(layers)))
+    for i, x, acc in seen:
+        assert torch.equal(acc.cpu(), quant.conv_int8(x.cpu(), on_cpu[i])), i
+    want = quant.forward_int8(on_cpu, images, **kw).double()
+    rel = ((grid.cpu().double() - want).norm() / want.norm()).item()
+    assert rel <= chip_smoke.INT8_GRID_REL_TOL
+
+
+def test_int8_conv_takes_small_and_odd_shapes(card):
+    """_int_mm's limits (M > 16, K and N multiples of 8) are met by zero
+    padding: a 1×1 map of one image, conv1's K = 27, an output conv's
+    N = 30; the sums equal the CPU's. Non-int8 input raises."""
+    from tensorflow_yolo2_torch.ops import quant
+
+    g = torch.Generator().manual_seed(0)
+    for (n, h, w, c), (kh, cout) in (((1, 1, 1, 1024), (3, 30)),
+                                     ((2, 5, 7, 3), (3, 32)),
+                                     ((3, 4, 4, 64), (1, 125))):
+        x = torch.randint(-127, 128, (n, h, w, c), generator=g,
+                          dtype=torch.int8)
+        layer = {"kernel": torch.randint(-127, 128, (kh, kh, c, cout),
+                                         generator=g, dtype=torch.int8)}
+        got = quant.conv_int8(x.to(card), {"kernel": layer["kernel"].to(
+            card)})
+        assert torch.equal(got.cpu(), quant.conv_int8(x, layer))
+    with pytest.raises(TypeError, match="int8"):
+        quant.conv_int8(x.to(card).float(), {"kernel": layer["kernel"]})
+
+
+@pytest.mark.parametrize("head", ["v1", "v2", "v2p"])
+def test_int8_detect_launches_the_decode_kernels(card, head):
+    """``make_detect_fn_int8``: B1 (v1) or B2 (anchor heads) once a call
+    with NMS, B3 once without (v1), each equal to its plain version on the
+    int8 grid; no float conv operator or kernel in the profiled call."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from tensorflow_yolo2_torch.entries.pascal_detect_darknet import (
+        make_detect_fn_int8,
+    )
+    from tensorflow_yolo2_torch.ops import quant
+
+    yolo, layers, images, kw = int8_chain(head, 96)
+    v2 = head != "v1"
+    detect = make_detect_fn_int8(yolo, layers, 0.05, use_nms=True, v2=v2,
+                                 passthrough=head == "v2p")
+    dense = make_detect_fn_int8(yolo, layers, 0.05, v2=v2,
+                                passthrough=head == "v2p")
+    x = images.to(card)
+    cuda_decode.reset_launch_counts()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        kept = detect(x)
+        dense(x)
+        torch.cuda.synchronize()
+    counts = (cuda_decode.DECODE_NMS_LAUNCHES,
+              cuda_decode.DECODE_NMS_V2_LAUNCHES,
+              cuda_decode.DECODE_GRID_LAUNCHES)
+    assert counts == ((0, 1, 0) if v2 else (1, 0, 1))
+    names = [e.key.lower() for e in prof.key_averages()]
+    assert not [n for n in names if any(m in n for m in
+                                        chip_smoke.FLOAT_CONV_MARKS)]
+    assert any("_int_mm" in n for n in names)
+    grid = quant.forward_int8(quant.prepare(layers, card), x, **kw)
+    plain = (cuda_decode.decode_nms_v2_plain if v2
+             else cuda_decode.decode_nms_plain)
+    want = plain(grid, yolo, 0.05, 0.5, K)
+    chip_smoke.compare_kept(kept, want, "decode_nms_v2" if v2
+                            else "decode_nms")
+    assert bool((want.scores > 0).any())
+
+
+def test_native_read_serves_on_the_card(card):
+    """``assets/demo.jpg`` read by the port's native layer (cv2's or
+    libjpeg's decode, then the native resize) and served by the int8 v1
+    chain on the card with NMS: B1 once, kept boxes equal to the plain
+    decode's."""
+    from tensorflow_yolo2_torch.data.augment import image_read_u8
+    from tensorflow_yolo2_torch.entries.pascal_detect_darknet import (
+        make_detect_fn_int8,
+    )
+    from tensorflow_yolo2_torch.ops import quant
+    from tensorflow_yolo2_torch.utils import native
+
+    native.require()
+    image = image_read_u8(chip_smoke.DEMO, 224)
+    assert image.shape == (224, 224, 3) and image.dtype == np.uint8
+    yolo, layers, _, kw = int8_chain("v1", 224)
+    cuda_decode.reset_launch_counts()
+    kept = make_detect_fn_int8(yolo, layers, 0.05, use_nms=True)(
+        image[None])
+    torch.cuda.synchronize()
+    assert cuda_decode.DECODE_NMS_LAUNCHES == 1
+    grid = quant.forward_int8(quant.prepare(layers, card),
+                              torch.from_numpy(image[None]).to(card), **kw)
+    chip_smoke.compare_kept(kept, cuda_decode.decode_nms_plain(
+        grid, yolo, 0.05, 0.5, K))

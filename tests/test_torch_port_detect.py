@@ -98,10 +98,11 @@ def test_default_device_is_cuda(weights):
 
 @pytest.mark.parametrize("option", ["int8", "pallas_stem"])
 def test_unported_options_raise(weights, option):
-    """int8 serving is not ported; with pallas_stem (ported) the pair is
-    refused as the JAX package refuses it, before the int8 refusal."""
+    """int8 serving without calibration images is refused, as the JAX
+    package refuses it; with pallas_stem the pair is refused first, as a
+    combination."""
     params, stats = weights
-    error, match = ((NotImplementedError, "int8 serving is not ported")
+    error, match = ((ValueError, "calib_images")
                     if option == "int8" else (ValueError, "no int8"))
     with pytest.raises(error, match=match):
         pt_detect.make_detect_fn(PCFG, params, stats, device="cpu",

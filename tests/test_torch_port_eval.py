@@ -207,7 +207,7 @@ def test_eval_cli_without_a_snapshot_names_the_dir(tmp_root):
 
 
 @pytest.mark.parametrize("argv,match", [
-    (["--int8"], "--int8 is not ported yet .*A4"),
+    (["--int8", "--v2", "--passthrough"], "passthrough head's concat"),
     (["--tf-checkpoint", "x.ckpt"], "--tf-checkpoint is not ported yet .*A7"),
     (["--passthrough"], "requires --v2"),
 ])
