@@ -86,7 +86,22 @@
    CLI on ``assets/demo.jpg`` with ``--int8-weights`` (the v1 chain) and
    ``--host-nms``, held to a numpy greedy NMS of the dense detections, and
    ``run_eval`` through the int8 v1 path as in 8.
-11. Times the v1, v1 ``--pallas-stem`` and v2p serving paths in bf16 and
+11. Drives the classifier at full width (``Darknet19Classifier``, 1000
+   classes, 224², flax's initializers, bf16, momentum 0.9 at 1e-3): B5
+   at the five pool sites of a batch-48 step bit for bit against its
+   plain version; 30 steps of ``Trainer.train_step`` on one seeded uint8
+   batch of 48 with seeded labels (B5 5 times a step, the loss falling);
+   a float32 step on the card against float64 on the CPU (the detector
+   steps' bounds) on 16 images of it; images/s at batch 48 and 64 with the
+   idle share and a profile; int8 from the trained weights (calibration
+   card vs CPU, every conv's int32 sums, ``conv19``'s among them, equal
+   to the CPU's, the logits; images/s at batch 256 beside the operation
+   bound); then on a small ILSVRC tree written with cv2 the CLIs with
+   ``--device cuda``: ``imagenet_train_darknet`` plain, with
+   ``--uint8-transfer`` and with ``--process-workers 2`` (an epoch each,
+   resumed, B5 5 times a step), ``imagenet_test_darknet`` in bf16 and
+   with ``--int8``, ``imagenet_predict_darknet``; each exits 0.
+12. Times the v1, v1 ``--pallas-stem`` and v2p serving paths in bf16 and
    the v1 and v1 ``--pallas-stem`` paths in float32 with TF32 off
    (images/s at batch 32 and 256, with a profile), the v1 224² and v2p
    416² train steps (steps/s and images/s at batch 24 and 64, with a
@@ -99,8 +114,9 @@
    with each kernel's bound, as one JSON line ``{"kernels": [...]}``;
    and the int8 paths (images/s at batch 32 and 256 beside the int8
    operation bound, with a profile split into im2col, ``_int_mm``, the
-   float32 epilogue and the pools).
-12. Ends with ``{"ok": true, "device": {...}}``.
+   float32 epilogue and the pools); B5 is also timed at the classifier's
+   batch-48 sites.
+13. Ends with ``{"ok": true, "device": {...}}``.
 
     python3 chip_smoke.py --stem-ab [OTHER_STEM_CU ...]
 
@@ -133,6 +149,7 @@ from __future__ import annotations
 import argparse
 import contextlib
 import ctypes
+import functools
 import io
 import itertools
 import json
@@ -248,6 +265,17 @@ INT8_GRID_REL_TOL = 1e-6
 # names of a float conv's operators and kernels (cuDNN's implicit-GEMM
 # kernels are named fprop / dgrad / wgrad)
 FLOAT_CONV_MARKS = ("conv", "fprop", "dgrad", "wgrad", "cudnn")
+# the classifier: ImageNet's 1000 classes at 224², the reference's
+# pretrain batch 48, and 64; the float32-vs-float64 step on a few images
+# of the batch (the CPU's float64 step is the slow part); int8 at 256
+CLS_CLASSES = 1000
+CLS_SIZE = 224
+CLS_BATCHES = (48, 64)
+CLS_CHECK_IMAGES = 16
+# the synthetic ILSVRC tree of the classifier's CLIs: synsets, train
+# images a synset, val images; 8 a batch, 5 train iterations an epoch
+CLS_TREE = (10, 4, 16)
+CLS_CLI_BATCH = 8
 
 
 def check(ok: bool, what: str) -> None:
@@ -817,15 +845,17 @@ def rel_norm(got: torch.Tensor, want: torch.Tensor) -> float:
     return ((got - want).norm() / want.norm().clamp(min=1e-30)).item()
 
 
-def step_grads(yolo, dtype: torch.dtype, where, state_dict, images,
+def step_grads(build, dtype: torch.dtype, where, state_dict, images,
                labels) -> tuple[float, dict]:
     """(loss, gradients by name, float64 on the CPU) of one step of the
-    detector of ``yolo`` (``make_trainer``) from ``state_dict``'s
-    weights, in train mode, with the trunk in ``dtype``: bf16
-    (autocast), float32, or float64 (the model converted, the images
-    normalized in float64; the loss stays float32, as on every path)."""
+    network of ``build(compute_dtype, device, state_dict) → (trainer,
+    state)`` (``make_trainer`` of a detector, ``make_cls_trainer``) from
+    ``state_dict``'s weights, in train mode, with the trunk in ``dtype``:
+    bf16 (autocast), float32, or float64 (the model converted, the images
+    normalized in float64; the head output and the loss stay float32, as
+    on every path)."""
     compute = torch.float32 if dtype == torch.float64 else dtype
-    trainer, state = make_trainer(yolo, compute, where, state_dict)
+    trainer, state = build(compute, where, state_dict)
     if dtype == torch.float64:
         state.model.double()
         images = images.double() / 255.0 * 2.0 - 1.0
@@ -849,7 +879,7 @@ def grad_errors(grads: dict, want: dict) -> tuple[float, str, float]:
     return worst, key, total
 
 
-def check_train_step_against_cpu(yolo, images, labels, dev,
+def check_train_step_against_cpu(build, images, labels, dev,
                                  state_dict) -> dict:
     """One step (forward in train mode and gradients) from the weights of
     ``state_dict`` on one batch: float32 on the card, TF32 off, held to
@@ -868,19 +898,19 @@ def check_train_step_against_cpu(yolo, images, labels, dev,
     and the responsible box of a cell (the larger of two small IoUs)
     flips under bf16's rounding, which moves the coordinate loss ~10%."""
     cpu = torch.device("cpu")
-    loss, grads = step_grads(yolo, torch.float32, dev, state_dict, images,
+    loss, grads = step_grads(build, torch.float32, dev, state_dict, images,
                              labels)
-    loss64, grads64 = step_grads(yolo, torch.float64, cpu, state_dict,
+    loss64, grads64 = step_grads(build, torch.float64, cpu, state_dict,
                                  images, labels)
-    loss32, grads32 = step_grads(yolo, torch.float32, cpu, state_dict,
+    loss32, grads32 = step_grads(build, torch.float32, cpu, state_dict,
                                  images, labels)
-    bf16_loss, bf16_grads = step_grads(yolo, torch.bfloat16, dev,
+    bf16_loss, bf16_grads = step_grads(build, torch.bfloat16, dev,
                                        state_dict, images, labels)
     # the control: the same float32 step with TF32 convs, which the bounds
     # must reject for the check to tell reduced precision from float32
     torch.backends.cudnn.allow_tf32 = True
     try:
-        _, tf32_grads = step_grads(yolo, torch.float32, dev, state_dict,
+        _, tf32_grads = step_grads(build, torch.float32, dev, state_dict,
                                    images, labels)
     finally:
         torch.backends.cudnn.allow_tf32 = False
@@ -945,10 +975,12 @@ def cuda_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
-def profile_call(fn, label: str, top: int = 12) -> float:
-    """Device time of one call of ``fn()`` by kernel (torch.profiler), and
-    the share of the call's wall time in which the card ran no kernel,
-    which it returns."""
+def profile_call(fn, label: str, top: int = 12) -> dict:
+    """Device time of one call of ``fn()`` by kernel (torch.profiler):
+    returns the kernels' time and the call's wall time in ms, and the
+    share of that wall time in which the card ran no kernel (the
+    profiler's own cost is in the wall time: a call that launches
+    hundreds of kernels runs slower under it)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile, schedule
 
@@ -996,7 +1028,8 @@ def profile_call(fn, label: str, top: int = 12) -> float:
           f"operator, and by kernel for the port's own:")
     for us, count, key in sorted(ops, reverse=True)[:top]:
         print(f"  {us:10.1f} us {count:4d}x  {key[:80]}")
-    return idle
+    return {"idle_share": idle, "kernels_ms": busy_us / 1e3,
+            "wall_ms": wall_us / 1e3}
 
 
 def decode_bound(cfg, batch: int, kept_per_image=None) -> tuple[float, str]:
@@ -1050,27 +1083,28 @@ def time_path(detect, images, dev, label: str, flops: float,
               f"{flops_per_s / 1e12:.0f} TFLOP/s)")
     for b in PATH_BATCHES:
         xb = images[:b].to(dev)
-        out[b]["idle_share"] = profile_call(lambda: detect(xb),
-                                            f"{label} path batch {b}")
+        out[b]["idle_share"] = profile_call(
+            lambda: detect(xb), f"{label} path batch {b}")["idle_share"]
     return out
 
 
-def time_train(trainer, state, rng, yolo, dev) -> dict:
+def time_train(trainer, state, make_batch, flops: float, label: str,
+               batches=TRAIN_BATCHES) -> dict:
     """Steps/s and images/s of ``Trainer.train_step`` at each of
-    TRAIN_BATCHES on seeded batches already on the card (as the train
-    loop's device prefetch hands them over), host clock around steps that
-    end in a synchronize; B5's launches checked at 5 a step; then one
-    profiled step a batch."""
+    ``batches`` on seeded batches (``make_batch(b)``: numpy images and
+    labels) already on the card (as the train loop's device prefetch
+    hands them over), host clock around steps that end in a synchronize;
+    B5's launches checked at 5 a step; then one profiled step a batch.
+    ``flops`` are an image's forward conv FLOPs (the bound counts three
+    times them: forward and backward)."""
     from tensorflow_yolo2_torch.ops import cuda_pool
 
-    out, batches = {}, {}
-    flops = 3 * conv_flops_per_image(yolo.image_size, yolo.cell_channels,
-                                     passthrough=yolo.per_slot_classes)
-    head = "v2p" if yolo.per_slot_classes else "v1"
-    for b in TRAIN_BATCHES:
-        images, labels = (torch.from_numpy(a).to(dev)
-                          for a in train_batch(rng, b, yolo))
-        batches[b] = (images, labels)
+    dev = trainer.device
+    out, on_card = {}, {}
+    flops = 3 * flops
+    for b in batches:
+        images, labels = (torch.from_numpy(a).to(dev) for a in make_batch(b))
+        on_card[b] = (images, labels)
         for _ in range(3):
             trainer.train_step(state, images, labels)
         torch.cuda.synchronize()
@@ -1089,16 +1123,33 @@ def time_train(trainer, state, rng, yolo, dev) -> dict:
         out[b] = {"steps_per_s": 1 / dt, "images_per_s": b / dt,
                   "ms_per_step": dt * 1e3, "peak_gib": peak,
                   "bound_images_per_s": BF16_FLOPS_PER_S / flops}
-        print(f"train step {head} {yolo.image_size}², bf16, batch {b}: "
+        print(f"train step {label}, bf16, batch {b}: "
               f"{1 / dt:.2f} steps/s, {b / dt:.1f} images/s ({dt * 1e3:.2f} "
               f"ms a step; conv bound {BF16_FLOPS_PER_S / flops:.0f} "
               f"images/s at {flops / 1e9:.2f} GFLOP an image, forward and "
               f"backward); peak memory {peak:.2f} GiB")
-    for b, (images, labels) in batches.items():
-        out[b]["idle_share"] = profile_call(
-            lambda: trainer.train_step(state, images, labels),
-            f"train step {head} batch {b}", top=16)
+    for b, (images, labels) in on_card.items():
+        prof = profile_call(lambda: trainer.train_step(state, images, labels),
+                            f"train step {label} batch {b}", top=16)
+        # the step's kernels against its unprofiled host-clock time
+        idle = 1 - prof["kernels_ms"] / out[b]["ms_per_step"]
+        out[b].update(idle_share=prof["idle_share"],
+                      kernels_ms=prof["kernels_ms"],
+                      idle_share_unprofiled=idle)
+        print(f"train step {label} batch {b}: {prof['kernels_ms']:.2f} ms of "
+              f"kernels in a {out[b]['ms_per_step']:.2f} ms step: idle share "
+              f"{idle:.3f} unprofiled ({prof['idle_share']:.3f} in the "
+              f"profiled {prof['wall_ms']:.2f} ms step)")
     return out
+
+
+def detector_train_times(trainer, state, rng, yolo) -> dict:
+    """``time_train`` of a detector trainer on ``train_batch`` batches."""
+    return time_train(
+        trainer, state, lambda b: train_batch(rng, b, yolo),
+        conv_flops_per_image(yolo.image_size, yolo.cell_channels,
+                             passthrough=yolo.per_slot_classes),
+        f"{'v2p' if yolo.per_slot_classes else 'v1'} {yolo.image_size}²")
 
 
 class MemoryImdb:
@@ -1274,6 +1325,23 @@ def numpy_nms(boxes, scores, classes, iou_thresh: float,
     return keep
 
 
+def probe_drawing() -> bool:
+    """Whether the detect CLI can draw here: its drawing
+    (``utils.visualize``) needs matplotlib and PIL. Prints what it
+    found."""
+    import importlib
+
+    found = {}
+    for name in ("matplotlib", "PIL"):
+        try:
+            found[name] = importlib.import_module(name).__version__
+        except ImportError:
+            found[name] = None
+    print("drawing (utils.visualize): " + ", ".join(
+        f"{k} {v or 'not installed'}" for k, v in found.items()))
+    return all(found.values())
+
+
 def check_native() -> tuple[np.ndarray, dict]:
     """The native host layer (``utils.native``), built with g++ here: the
     resize (uint8 and normalized, channel swap and flip) at NATIVE_SHAPES
@@ -1343,7 +1411,7 @@ def check_native() -> tuple[np.ndarray, dict]:
         decode = "cv2"
     except ImportError:
         decode = "libjpeg" if jpeg else None
-    info = {"libjpeg": jpeg, "decode": decode}
+    info = {"libjpeg": jpeg, "decode": decode, "draws": probe_drawing()}
     if decode is None:
         print("native host layer: neither cv2 nor libjpeg here: a seeded "
               "uint8 image resized by the native resize_u8 stands in for "
@@ -1404,6 +1472,56 @@ def int8_phase_profile(fn, label: str) -> dict:
     return out
 
 
+def check_int8_sums(what: str, on_card, on_cpu, x: torch.Tensor, forward,
+                    output: str) -> tuple[float, int]:
+    """``forward(layers, x)`` of an int8 chain on the card and on the CPU,
+    recording each conv's int8 input and int32 sums: every conv runs once,
+    in order, and its sums on the card equal the CPU's exact float64 conv
+    of the card's int8 input (fed to the CPU where the two inputs
+    differ). Returns the outputs' relative norm error (checked against
+    INT8_GRID_REL_TOL) and how many inputs were fed."""
+    from tensorflow_yolo2_torch.ops import quant
+
+    seen = {"card": [], "cpu": []}
+    conv = quant.conv_int8
+
+    def recording(where, chain):
+        index = {id(layer): i for i, layer in enumerate(chain)}
+
+        def run(x, layer):
+            acc = conv(x, layer)
+            seen[where].append((index[id(layer)], x, acc))
+            return acc
+        return run
+
+    dev = on_card[0]["kernel"].device
+    with mock.patch.object(quant, "conv_int8", recording("card", on_card)):
+        out = forward(on_card, x.to(dev))
+    with mock.patch.object(quant, "conv_int8", recording("cpu", on_cpu)):
+        cpu_out = forward(on_cpu, x)
+    check([i for i, _, _ in seen["card"]] == list(range(len(on_card))),
+          f"{what}: every conv ran once, in order")
+    fed = 0
+    for (i, x_card, acc_card), (_, x_cpu, acc_cpu) in zip(seen["card"],
+                                                           seen["cpu"]):
+        if not torch.equal(x_card.cpu(), x_cpu):  # feed the card's input
+            fed += 1
+            acc_cpu = quant.conv_int8(x_card.cpu(), on_cpu[i])
+        check(torch.equal(acc_card.cpu(), acc_cpu),
+              f"{what}: conv {i}'s int32 sums on the card equal the CPU's "
+              f"from the same int8 input")
+    rel = ((out.cpu().double() - cpu_out.double()).norm() /
+           cpu_out.double().norm()).item()
+    print(f"{what}: {len(on_card)} convs, int32 sums on the card equal the "
+          f"CPU's float64 conv of the same int8 input at every layer ({fed} "
+          f"inputs differed and were fed from the card); {output} vs the "
+          f"CPU's int8 forward: relative norm {rel:.3e} (bound "
+          f"{INT8_GRID_REL_TOL})")
+    check(rel <= INT8_GRID_REL_TOL,
+          f"{what}: the card's {output} agrees with the CPU's")
+    return rel, fed
+
+
 def check_int8(head: str, yolo, state: dict, images: torch.Tensor,
                dev) -> dict:
     """Int8 serving of one head at full width: calibration on the card
@@ -1444,45 +1562,9 @@ def check_int8(head: str, yolo, state: dict, images: torch.Tensor,
           f"int8 {head}: card and CPU calibration agree")
     layers = quant.quantize_folded(folded, card_scales, **kw)
     on_card, on_cpu = quant.prepare(layers, dev), quant.prepare(layers, "cpu")
-
-    seen = {"card": [], "cpu": []}
-    conv = quant.conv_int8
-
-    def recording(where, chain):
-        index = {id(layer): i for i, layer in enumerate(chain)}
-
-        def run(x, layer):
-            acc = conv(x, layer)
-            seen[where].append((index[id(layer)], x, acc))
-            return acc
-        return run
-
-    x = images[:INT8_CPU_IMAGES]
-    with mock.patch.object(quant, "conv_int8", recording("card", on_card)):
-        grid = quant.forward_int8(on_card, x.to(dev), **kw)
-    with mock.patch.object(quant, "conv_int8", recording("cpu", on_cpu)):
-        cpu_grid = quant.forward_int8(on_cpu, x, **kw)
-    check([i for i, _, _ in seen["card"]] == list(range(len(layers))),
-          f"int8 {head}: every conv ran once, in order")
-    fed = 0
-    for (i, x_card, acc_card), (_, x_cpu, acc_cpu) in zip(seen["card"],
-                                                           seen["cpu"]):
-        if not torch.equal(x_card.cpu(), x_cpu):  # feed the card's input
-            fed += 1
-            acc_cpu = quant.conv_int8(x_card.cpu(), on_cpu[i])
-        check(torch.equal(acc_card.cpu(), acc_cpu),
-              f"int8 {head}: conv {i}'s int32 sums on the card equal the "
-              f"CPU's from the same int8 input")
-    grid_rel = ((grid.cpu().double() - cpu_grid.double()).norm() /
-                cpu_grid.double().norm()).item()
-    print(f"int8 {head}: {len(layers)} convs, int32 sums on the card equal "
-          f"the CPU's float64 conv of the same int8 input at every layer "
-          f"({fed} inputs differed and were fed from the card); grid vs "
-          f"the CPU's int8 forward: relative norm {grid_rel:.3e} (bound "
-          f"{INT8_GRID_REL_TOL})")
-    check(grid_rel <= INT8_GRID_REL_TOL,
-          f"int8 {head}: card grid agrees with the CPU's")
-    del seen
+    grid_rel, fed = check_int8_sums(
+        f"int8 {head}", on_card, on_cpu, images[:INT8_CPU_IMAGES],
+        functools.partial(quant.forward_int8, **kw), "grid")
 
     detect = pdd.make_detect_fn_int8(yolo, layers, 0.5, use_nms=True, v2=v2,
                                      passthrough=passthrough, device=dev)
@@ -1591,10 +1673,11 @@ def serve_demo_cli(image: np.ndarray, layers, yolo, native_info: dict,
                 "image_size": yolo.image_size})
             draw = pdd.draw_detections
 
-            def recording(path, boxes, scores, classes, out_path):
+            def recording(path, boxes, scores, classes, class_names,
+                          out_path):
                 drawn.append((boxes, scores, classes))
-                return draw(path, boxes, scores, classes, out_path) \
-                    if native_info["decode"] == "cv2" else out_path
+                return draw(path, boxes, scores, classes, class_names,
+                            out_path) if native_info["draws"] else out_path
 
             out = io.StringIO()  # the CLI prints every box it draws
             with mock.patch.object(pdd, "draw_detections", recording), \
@@ -1623,6 +1706,281 @@ def serve_demo_cli(image: np.ndarray, layers, yolo, native_info: dict,
           f"the native NMS, equal to numpy's greedy NMS; B3 launches "
           f"{launches['decode_grid']}")
     return {"route": route, "kept": len(want), "launches": launches}
+
+
+def cls_batch(rng: np.random.RandomState, batch: int,
+              num_classes: int = CLS_CLASSES, size: int = CLS_SIZE):
+    """Seeded uint8 images (batch, size, size, 3) and int32 labels."""
+    return (rng.randint(0, 256, (batch, size, size, 3)).astype(np.uint8),
+            rng.randint(0, num_classes, batch).astype(np.int32))
+
+
+def make_cls_trainer(dtype: torch.dtype, device, state_dict=None):
+    """The classifier's trainer as ``imagenet_train_darknet`` builds it
+    (``Darknet19Classifier`` with 1000 classes, ``softmax_task``,
+    momentum 0.9 at 1e-3) and its state on ``device``: fresh weights
+    from seed 0 (flax's initializers) or ``state_dict``'s."""
+    from tensorflow_yolo2_torch.entries.imagenet_train_darknet import (
+        momentum_config,
+    )
+    from tensorflow_yolo2_torch.models.darknet import Darknet19Classifier
+    from tensorflow_yolo2_torch.train.trainer import Trainer, softmax_task
+
+    trainer = Trainer(Darknet19Classifier(CLS_CLASSES), softmax_task(),
+                      momentum_config(1e-3), device=device,
+                      compute_dtype=dtype)
+    return trainer, trainer.create_state(torch.Generator().manual_seed(0),
+                                         state_dict)
+
+
+def check_cls_pool_sites(dev) -> float:
+    """B5 at the classifier's five pool sites at batch 48 (224², 112²,
+    56², 28², 14² with 32 to 512 channels), bf16 and float32: bit for
+    bit its plain version and torch's autograd of ``F.max_pool2d``."""
+    gen = torch.Generator(device=dev).manual_seed(7)
+    err = 0.0
+    for shape in pool_sites(CLS_BATCHES[0], CLS_SIZE):
+        n, c, h, w = shape
+        for dtype in (torch.bfloat16, torch.float32):
+            x, dout = (torch.randn(t, generator=gen, device=dev).to(dtype)
+                       .contiguous(memory_format=torch.channels_last)
+                       for t in (shape, (n, c, h // 2, w // 2)))
+            err = max(err, check_pool(x, dout, f"classifier {dtype} {shape}"))
+    torch.cuda.synchronize()
+    return err
+
+
+def check_classifier_training(dev) -> dict:
+    """The classifier's training path at full width (1000 classes, 224²,
+    bf16, momentum 0.9 at 1e-3, fresh seeded weights): B5 at the five
+    pool sites of a batch-48 step against its plain version; 30 steps of
+    ``Trainer.train_step`` on one seeded uint8 batch of 48 (B5 5 times a
+    step, the loss falling); from the weights they reached, a float32
+    step on the card against float64 on the CPU (the detector steps'
+    bounds) on CLS_CHECK_IMAGES of the batch; then images/s at batch 48
+    and 64 with the device's idle share and a profile."""
+    from tensorflow_yolo2_torch.ops import cuda_pool
+    from tensorflow_yolo2_torch.utils.profiling import (
+        classifier_flops_per_image,
+    )
+
+    pool_err = check_cls_pool_sites(dev)
+    print(f"max_pool2_bwd at the classifier's pool sites, batch "
+          f"{CLS_BATCHES[0]}, {CLS_SIZE}², bf16 and float32: bit-equal to "
+          f"its plain version and to autograd (max abs err {pool_err})")
+    rng = np.random.RandomState(8)
+    images, labels = (torch.from_numpy(a).to(dev)
+                      for a in cls_batch(rng, CLS_BATCHES[0]))
+    trainer, state = make_cls_trainer(torch.bfloat16, dev)
+    metrics_seen = []
+    cuda_pool.reset_launch_counts()
+    for _ in range(FALL_STEPS):
+        state, metrics = trainer.train_step(state, images, labels)
+        metrics_seen.append(torch.stack([metrics["loss"],
+                                         metrics["accuracy"]]))
+    torch.cuda.synchronize()
+    launches = cuda_pool.MAX_POOL2_BWD_LAUNCHES
+    losses, accuracy = torch.stack(metrics_seen).T.tolist()
+    print(f"train path classifier {CLS_SIZE}², {CLS_CLASSES} classes, "
+          f"launches: max_pool2_bwd {launches} in {FALL_STEPS} steps; loss "
+          f"on one batch of {CLS_BATCHES[0]}: " +
+          ", ".join(f"{v:.4f}" for v in losses) + "; accuracy: " +
+          ", ".join(f"{v:.3f}" for v in accuracy))
+    check(launches == 5 * FALL_STEPS, "B5 ran 5 times a classifier step")
+    check(all(math.isfinite(v) for v in losses), "finite classifier losses")
+    check(sum(losses[-5:]) / 5 < losses[0],
+          "the classifier's loss fell on a fixed batch (mean of the last 5 "
+          "steps under the first)")
+    check(state.step == FALL_STEPS and all(
+        bool(torch.isfinite(p).all()) for p in state.params.values()),
+        "finite classifier parameters after the steps")
+    trained = {k: v.detach().cpu().clone()
+               for k, v in state.model.state_dict().items()}
+    step_check = check_train_step_against_cpu(
+        make_cls_trainer, images[:CLS_CHECK_IMAGES],
+        labels[:CLS_CHECK_IMAGES], dev, trained)
+    del images, labels
+    times = time_train(trainer, state, lambda b: cls_batch(rng, b),
+                       classifier_flops_per_image(CLS_SIZE, CLS_CLASSES),
+                       f"classifier {CLS_SIZE}²", CLS_BATCHES)
+    return {"losses": losses, "accuracy": accuracy, "launches": launches,
+            "pool_err": pool_err, "checks": step_check, **times,
+            "trained": trained}
+
+
+def check_int8_classifier(state_dict: dict, dev) -> dict:
+    """Int8 of the classifier at full width (1000 classes, 224²), from
+    the weights of ``state_dict`` with BN folded: calibration on the card
+    (TF32 off) held to the CPU's; each conv's int32 sums on the card, the
+    1×1 ``conv19`` among them, equal to the CPU's from the same int8
+    input, and the logits to the CPU's; images/s of
+    ``forward_int8_classifier`` at batch 256 beside the operation bound,
+    and its profile by phase (no float conv)."""
+    from tensorflow_yolo2_torch.models.fold import fold_params
+    from tensorflow_yolo2_torch.ops import quant
+    from tensorflow_yolo2_torch.utils.device import device_normalize
+    from tensorflow_yolo2_torch.utils.profiling import (
+        classifier_flops_per_image,
+    )
+
+    folded = fold_params(state_dict)
+    images = torch.from_numpy(cls_batch(np.random.RandomState(9), BATCH)[0])
+    calib = images[:INT8_CALIB_IMAGES]
+    card_scales = quant.calibrate({k: v.to(dev) for k, v in folded.items()},
+                                  device_normalize(calib.to(dev)),
+                                  head="classifier")
+    cpu_scales = quant.calibrate(folded, device_normalize(calib),
+                                 head="classifier")
+    calib_rel = ((card_scales - cpu_scales).abs() / cpu_scales).max().item()
+    print(f"int8 classifier: calibration on {INT8_CALIB_IMAGES} images, card "
+          f"(TF32 off) vs CPU: {len(card_scales)} scales within "
+          f"{calib_rel:.3e} relative (bound {INT8_CALIB_REL_TOL})")
+    check(calib_rel <= INT8_CALIB_REL_TOL,
+          "int8 classifier: card and CPU calibration agree")
+    layers = quant.quantize_folded(folded, card_scales, head="classifier")
+    on_card, on_cpu = quant.prepare(layers, dev), quant.prepare(layers, "cpu")
+    logits_rel, fed = check_int8_sums(
+        "int8 classifier", on_card, on_cpu, images[:INT8_CPU_IMAGES],
+        quant.forward_int8_classifier, "logits")
+    flops = classifier_flops_per_image(CLS_SIZE, CLS_CLASSES)
+    xb = images.to(dev)
+    with torch.inference_mode():
+        ms = cuda_ms(lambda: quant.forward_int8_classifier(on_card, xb), 5)
+        out = quant.forward_int8_classifier(on_card, xb)
+        check(out.shape == (BATCH, CLS_CLASSES) and
+              bool(torch.isfinite(out).all()),
+              "int8 classifier logits: shape and finite")
+        prof = int8_phase_profile(
+            lambda: quant.forward_int8_classifier(on_card, xb),
+            f"classifier {CLS_SIZE}² batch {BATCH}")
+    check(not prof["float_conv_names"],
+          f"int8 classifier: no float conv in the profiled forward "
+          f"({prof['float_conv_names']})")
+    bound_ms = BATCH * flops / INT8_OPS_PER_S * 1e3
+    print(f"int8 classifier {CLS_SIZE}², uint8 batch {BATCH} on the card: "
+          f"{BATCH / ms * 1e3:.1f} images/s ({ms:.3f} ms a batch); "
+          f"operation bound {bound_ms:.3f} ms ({flops / 1e9:.2f} GOP an "
+          f"image at {INT8_OPS_PER_S / 1e12:.0f} int8 TOPS)")
+    return {"calib_rel_err": calib_rel, "logits_rel_err": logits_rel,
+            "fed_inputs": fed, "ms_per_batch": ms,
+            "images_per_s": BATCH / ms * 1e3, "bound_ms": bound_ms,
+            "profile": prof}
+
+
+def write_ilsvrc_tree(root: str, rng: np.random.RandomState) -> str:
+    """A small ILSVRC CLS-LOC tree, laid out as the tests'
+    ``ilsvrc_dir`` fixture lays it out (per-synset train dirs and
+    ``train_cls.txt``, val images labelled by XML), of seeded uint8
+    images of random sizes written with cv2: CLS_TREE synsets, train
+    images a synset and val images."""
+    import cv2
+
+    n_syn, n_train, n_val = CLS_TREE
+    synsets = [f"n0{1000001 + i}" for i in range(n_syn)]
+    lines = []
+
+    def image(path):
+        os.makedirs(os.path.dirname(path), exist_ok=True)
+        h, w = rng.randint(120, 320, 2)
+        check(cv2.imwrite(path, rng.randint(0, 256, (h, w, 3)).astype(
+            np.uint8)), f"cv2 wrote {path}")
+
+    for syn in synsets:
+        for i in range(n_train):
+            rel = f"{syn}/{syn}_{i}"
+            image(os.path.join(root, "Data", "CLS-LOC", "train",
+                               rel + ".JPEG"))
+            lines.append(f"{rel} {len(lines) + 1}")
+    os.makedirs(os.path.join(root, "ImageSets", "CLS-LOC"))
+    with open(os.path.join(root, "ImageSets", "CLS-LOC", "train_cls.txt"),
+              "w") as f:
+        f.write("\n".join(lines) + "\n")
+    ann = os.path.join(root, "Annotations", "CLS-LOC", "val")
+    os.makedirs(ann)
+    for i in range(n_val):
+        name = f"ILSVRC2012_val_{i:08d}"
+        image(os.path.join(root, "Data", "CLS-LOC", "val", name + ".JPEG"))
+        with open(os.path.join(ann, name + ".xml"), "w") as f:
+            f.write(f"<annotation><object><name>{synsets[i % n_syn]}"
+                    "</name></object></annotation>")
+    return root
+
+
+def run_cli(main, argv: list[str], what: str) -> str:
+    """An entry point's ``main(argv)`` in this process: it must return 0.
+    Prints and returns what it printed."""
+    out = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        rc = main(argv)
+    text = out.getvalue()
+    print(f"{what} ({time.perf_counter() - t0:.1f} s), exit {rc}:\n  " +
+          "\n  ".join(text.strip().splitlines()[-6:]))
+    check(rc == 0, f"{what} exits 0")
+    return text
+
+
+def run_classifier_clis(dev) -> dict:
+    """The classifier's three CLIs with ``--device cuda`` on a synthetic
+    ILSVRC tree (``write_ilsvrc_tree``) under a run root of their own:
+    ``imagenet_train_darknet`` three times, each an epoch of 5 iterations
+    at batch 8 resuming the last (plain, ``--uint8-transfer``,
+    ``--process-workers 2``), with a validation batch every 2 iterations
+    and a snapshot an epoch (B5 5 times a train step); then
+    ``imagenet_test_darknet`` in bf16 and with ``--int8``, and
+    ``imagenet_predict_darknet`` on a val image. Each must exit 0."""
+    import tempfile
+
+    from tensorflow_yolo2_torch.entries import (
+        imagenet_predict_darknet,
+        imagenet_test_darknet,
+        imagenet_train_darknet,
+    )
+    from tensorflow_yolo2_torch.ops import cuda_pool
+    from tensorflow_yolo2_torch.train.checkpoint import CheckpointManager
+    from tensorflow_yolo2_torch.utils import cuda_build
+
+    out = {}
+    with tempfile.TemporaryDirectory(dir=cuda_build.BUILD_DIR) as root, \
+            mock.patch.dict(os.environ, {"TFY2_ROOT": root}):
+        data = write_ilsvrc_tree(os.path.join(root, "data", "ILSVRC"),
+                                 np.random.RandomState(10))
+        epoch = CLS_TREE[0] * CLS_TREE[1] // CLS_CLI_BATCH
+        train = ["--batch-size", str(CLS_CLI_BATCH), "--iters", str(epoch),
+                 "--save-every", str(epoch), "--eval-every", "2",
+                 "--log-every", str(epoch), "--num-workers", "2",
+                 "--device", str(dev)]
+        cuda_pool.reset_launch_counts()
+        runs = {"plain": [], "uint8_transfer": ["--uint8-transfer"],
+                "process_workers": ["--process-workers", "2"]}
+        for name, extra in runs.items():
+            run_cli(imagenet_train_darknet.main, train + extra,
+                    f"imagenet_train_darknet {' '.join(extra)}")
+        torch.cuda.synchronize()
+        out["train_launches"] = cuda_pool.MAX_POOL2_BWD_LAUNCHES
+        steps = CheckpointManager("darknet19", "ilsvrc_2017_cls",
+                                  save_by_epoch=True).all_steps()
+        print(f"classifier CLIs: snapshots at epochs {steps}; B5 launched "
+              f"{out['train_launches']} times in {3 * epoch} train steps")
+        check(steps == [1, 2, 3], "an epoch-named snapshot a run, resumed")
+        check(out["train_launches"] == 5 * 3 * epoch,
+              "B5 ran 5 times a CLI train step")
+        test = ["--batch-size", str(CLS_CLI_BATCH), "--max-batches", "2",
+                "--num-workers", "2", "--device", str(dev)]
+        for name, extra in (("test_bf16", []), ("test_int8", ["--int8"])):
+            text = run_cli(imagenet_test_darknet.main, test + extra,
+                           f"imagenet_test_darknet {' '.join(extra)}")
+            check("top-1 accuracy" in text, f"{name} reports top-1")
+            out[name] = text.strip().splitlines()[-2:]
+        val = os.path.join(data, "Data", "CLS-LOC", "val",
+                           "ILSVRC2012_val_00000000.JPEG")
+        text = run_cli(imagenet_predict_darknet.main,
+                       [val, "--device", str(dev)], "imagenet_predict_darknet")
+        rows = text.strip().splitlines()
+        check(len(rows) == 5 and rows[0].startswith("1. n0"),
+              "the predict CLI prints 5 ranked synsets")
+        out["predict"] = rows
+    return out
 
 
 def card_grid(yolo, state, images, dev, pallas_stem: bool = False,
@@ -2249,7 +2607,7 @@ def main(argv: list[str] | None = None) -> int:
         bool(torch.isfinite(p).all()) for p in tstate.params.values()),
         "finite parameters after the steps")
     train_check = check_train_step_against_cpu(
-        tyolo, images24, labels24, dev,
+        functools.partial(make_trainer, tyolo), images24, labels24, dev,
         {k: v.cpu() for k, v in tstate.model.state_dict().items()})
 
     # 7. the v2p training path at full width: YOLOv2 at 416², bf16 ----------
@@ -2287,8 +2645,8 @@ def main(argv: list[str] | None = None) -> int:
     v2p_trained = {k: v.detach().cpu().clone()
                    for k, v in vstate.model.state_dict().items()}
     v2p_train_check = check_train_step_against_cpu(
-        vyolo, vimages[:V2P_CHECK_IMAGES], vlabels[:V2P_CHECK_IMAGES], dev,
-        v2p_trained)
+        functools.partial(make_trainer, vyolo), vimages[:V2P_CHECK_IMAGES],
+        vlabels[:V2P_CHECK_IMAGES], dev, v2p_trained)
 
     # 8. evaluation on the card: run_eval at threshold 0.005, v2p and v1 ----
     # With the serving weights of 4 and 3 every slot of the v2p grid and
@@ -2321,7 +2679,13 @@ def main(argv: list[str] | None = None) -> int:
         "v1 int8", yolo, v1_state, *train_batch(erng, EVAL_IMAGES, yolo),
         dev, calib=train_batch(erng, EVAL_BATCH, yolo)[0])
 
-    # 11. times --------------------------------------------------------------
+    # 11. the classifier at full width: training, int8, its three CLIs ----
+    cls_train = check_classifier_training(dev)
+    cls_int8 = check_int8_classifier(cls_train.pop("trained"), dev)
+    cls_clis = run_classifier_clis(dev)
+    errs["max_pool2_bwd"] = max(errs["max_pool2_bwd"], cls_train["pool_err"])
+
+    # 12. times --------------------------------------------------------------
     print(f"times on {card}:")
     v1_flops = conv_flops_per_image(448, yolo.cell_channels)
     tf32 = (f"TF32: cudnn.allow_tf32={torch.backends.cudnn.allow_tf32}, "
@@ -2342,14 +2706,17 @@ def main(argv: list[str] | None = None) -> int:
         "v2p_416": time_path(v2p_detect, v2_images, dev, "v2p 416²",
                              conv_flops_per_image(416, v2cfg.cell_channels,
                                                   passthrough=True)),
-        "train_224": time_train(trainer, tstate, trng, tyolo, dev),
+        "train_224": detector_train_times(trainer, tstate, trng, tyolo),
         "train_checks": train_check,
         "train_v2p_416": {
-            **time_train(vtrainer, vstate, vrng, vyolo, dev),
+            **detector_train_times(vtrainer, vstate, vrng, vyolo),
             "losses": vlosses, "burnin_losses": vburnin,
             "max_pool2_bwd_launches": v2p_pool_launches,
             "checks": v2p_train_check},
         **evals,
+        "train_cls_224": cls_train,
+        "int8_cls_224": cls_int8,
+        "cls_clis": cls_clis,
         "tf32": {"cudnn": torch.backends.cudnn.allow_tf32,
                  "matmul": torch.backends.cuda.matmul.allow_tf32},
     }
@@ -2441,21 +2808,33 @@ def main(argv: list[str] | None = None) -> int:
               f"{s['library_ms'] * 1e3:.2f} us, plain {s['plain_ms']:.3f} "
               f"ms, bound {s['bound_ms'] * 1e3:.2f} us ({s['bound_by']}); "
               f"{s['copies']} input sets in turn")
-    total = {k: sum(s[k] for s in sites)
-             for k in ("ms", "library_ms", "plain_ms", "bound_ms")}
+    keys = ("ms", "library_ms", "plain_ms", "bound_ms")
+    total = {k: sum(s[k] for s in sites) for k in keys}
+    cls_sites = time_pool_sites(dev, CLS_BATCHES[0])
+    cls_total = {k: sum(s[k] for s in cls_sites) for k in keys}
     kernels.append({
         "name": "max_pool2_bwd", "route": "cuda", "source": POOL_SOURCE,
         "replaces": TPU_KERNELS["max_pool2_bwd"],
         "launches": launches["max_pool2_bwd"],
         "max_abs_err": errs["max_pool2_bwd"],
-        "launches_v2p_train": v2p_pool_launches, **total,
+        "launches_v2p_train": v2p_pool_launches,
+        "launches_classifier_train": cls_train["launches"],
+        "launches_classifier_clis": cls_clis["train_launches"], **total,
         "bound_by": "bytes" if all(s["bound_by"] == "bytes" for s in sites)
-        else "operations", "sites": sites})
-    print(f"max_pool2_bwd, the five sites of a 224² bf16 step at batch "
-          f"{TRAIN_BATCHES[0]}: kernel {total['ms'] * 1e3:.2f} us, "
-          f"max_pool2d_with_indices_backward {total['library_ms'] * 1e3:.2f}"
-          f" us, plain {total['plain_ms']:.3f} ms, bound "
-          f"{total['bound_ms'] * 1e3:.2f} us")
+        else "operations", "sites": sites,
+        "classifier_batch_48": {**cls_total, "sites": cls_sites}})
+    for r in cls_sites:
+        print(f"max_pool2_bwd, bf16 {tuple(r['shape'])}: kernel "
+              f"{r['ms'] * 1e3:.2f} us, max_pool2d_with_indices_backward "
+              f"{r['library_ms'] * 1e3:.2f} us, bound "
+              f"{r['bound_ms'] * 1e3:.2f} us")
+    for batch, tot in ((TRAIN_BATCHES[0], total), (CLS_BATCHES[0], cls_total)):
+        print(f"max_pool2_bwd, the five sites of a 224² bf16 step at batch "
+              f"{batch}: kernel {tot['ms'] * 1e3:.2f} us, "
+              f"max_pool2d_with_indices_backward "
+              f"{tot['library_ms'] * 1e3:.2f} us, plain "
+              f"{tot['plain_ms']:.3f} ms, bound {tot['bound_ms'] * 1e3:.2f} "
+              f"us")
     st = time_stem(dev, yolo, v1_state, images[:BATCH])
     kernels.append({
         "name": "stem", "route": "cuda", "source": STEM_SOURCE,

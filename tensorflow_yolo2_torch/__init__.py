@@ -11,11 +11,14 @@ nothing of JAX.
                  the run-dir layout (``Paths``), the VOC class list.
 - ``data``     — ``anchors``: k-means dimension clusters and the priors
                  stored beside a snapshot; ``voc``: VOC2007 with v1 and
-                 per-slot label grids; ``augment``: image reads;
-                 ``prefetch``: threads and pinned copies to the card.
+                 per-slot label grids; ``ilsvrc``: ILSVRC CLS-LOC;
+                 ``synsets``: synset maps; ``augment``: image reads and
+                 the classifier's augmentation chain; ``prefetch``:
+                 threads, worker processes, pinned copies to the card.
 - ``models``   — Darknet19 trunk (pool or stride downsample), the v1 head,
-                 the YOLOv2 passthrough head, BatchNorm with flax's running
-                 statistics, flax's initializers, BN folding.
+                 the YOLOv2 passthrough head, the ImageNet classifier,
+                 BatchNorm with flax's running statistics, flax's
+                 initializers, BN folding.
 - ``ops``      — IoU, the v1 and anchor grid decodes, fixed-shape NMS, and
                  the hand-written CUDA kernels (sources in ``csrc/``):
                  decode / decode+NMS (``ops.cuda_decode``), the 2×2
@@ -24,15 +27,20 @@ nothing of JAX.
 - ``losses``   — ``yolo``: the YOLOv1 grid loss; ``yolo_v2``: the YOLOv2
                  anchor loss.
 - ``eval``     — the VOC mAP evaluator.
-- ``train``    — schedules and Adam, the train step, snapshots, metrics.
+- ``train``    — schedules, Adam and momentum, the train step (YOLO and
+                 softmax tasks), snapshots, metrics.
 - ``convert``  — flax parameter trees (as numpy) → torch state dicts, and
                  the ``.npz`` format that carries them between machines.
 - ``entries``  — ``pascal_detect_darknet``: the serving entry point (v1,
                  ``--v2``, ``--v2 --passthrough``); ``pascal_train_darknet``:
                  detector training (the same three heads);
-                 ``pascal_eval_map``: VOC mAP of a snapshot.
-- ``utils``    — the kernels' build, the device default, timers and the
-                 profiler trace.
+                 ``pascal_eval_map``: VOC mAP of a snapshot;
+                 ``imagenet_train_darknet``, ``imagenet_test_darknet``,
+                 ``imagenet_predict_darknet``: the classifier's
+                 pretraining, accuracy (bf16, int8) and top-5.
+- ``utils``    — the kernels' build, the device default, the native host
+                 layer, timers, the profiler trace and the detection
+                 drawing.
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``.
 """

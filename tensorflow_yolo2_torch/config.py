@@ -30,13 +30,18 @@ def root_dir() -> str:
 @dataclass(frozen=True)
 class Paths:
     """Run-directory layout, the JAX package's: ``data/VOCdevkit``,
-    ``cache/``, ``ckpts/<net>/<imdb>/``, ``tensorboard/<net>/<imdb>/``."""
+    ``data/ILSVRC``, ``cache/``, ``ckpts/<net>/<imdb>/``,
+    ``tensorboard/<net>/<imdb>/``."""
 
     root: str = field(default_factory=root_dir)
 
     @property
     def pascal(self) -> str:
         return os.path.join(self.root, "data", "VOCdevkit")
+
+    @property
+    def ilsvrc(self) -> str:
+        return os.path.join(self.root, "data", "ILSVRC")
 
     @property
     def cache(self) -> str:

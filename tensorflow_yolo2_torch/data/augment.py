@@ -19,12 +19,23 @@ image_size² with bilinear interpolation, optionally flipped, and scaled to
   package does: not pixel-identical to a full decode.
 
 With neither cv2 nor a native library that decodes, a read raises with
-the compiler's output. The augmentation chain is not ported yet.
+the compiler's output.
+
+The augmentation chain of classifier training (``augment_image``,
+``augment_image_u8``, ``read_and_augment``): flip, 0–359° rotation, an
+HSV hue and saturation shift, a gamma exposure shift and a random crop
+from a short side in [image_size, upbound] (a 75% chance; a warp resize
+otherwise), drawn from a ``random.Random`` in the JAX package's order and
+computed with the same cv2 calls on arrays of the same types, so that a
+seed gives the same bytes in both packages; ±ε sign noise as an option
+of the float path.
 """
 
 from __future__ import annotations
 
 import os
+import random
+from dataclasses import dataclass, replace
 
 import numpy as np
 
@@ -140,3 +151,131 @@ def jpeg_size(path: str) -> tuple[int, int]:
             break
         i += 2 + length
     raise FileNotFoundError(f"{path}: no frame header in the JPEG")
+
+
+@dataclass
+class AugmentConfig:
+    """The augmentation distribution (the JAX package's defaults; the
+    reference's crop upbound 292 at 224²)."""
+
+    image_size: int = 224
+    rand_crop_upbound: int = 292
+    flip: bool = True
+    rotate: bool = True
+    color_pert: bool = True
+    exposure_shift: bool = True
+    random_crop: bool = True
+    # ±ε sign noise, ε drawn from {4, 8, 12, 16}/255·2: float path only
+    random_noise: bool = False
+
+
+def augment_image(image: np.ndarray, cfg: AugmentConfig,
+                  rng: random.Random, rgb: bool = False) -> np.ndarray:
+    """A uint8 image (BGR, or RGB with ``rgb``) through the augmentation
+    chain → float32 (image_size, image_size, 3) in [-1, 1].
+
+    The uint8 chain is ``augment_image_u8``'s; the sign noise (when
+    ``cfg.random_noise``) is drawn after all of its draws, so the two
+    paths see the same augmentations for a seed."""
+    u8_cfg = replace(cfg, random_noise=False) if cfg.random_noise else cfg
+    out = normalize(augment_image_u8(image, u8_cfg, rng, rgb=rgb))
+    if cfg.random_noise:
+        eps = rng.choice([4, 8, 12, 16]) / 255.0 * 2.0
+        np_rng = np.random.RandomState(rng.randrange(2**32))
+        sign = np.sign(np_rng.uniform(-1, 1, out.shape)).astype(np.float32)
+        out = np.clip(out + eps * sign, -1.0, 1.0)
+    return out
+
+
+def augment_image_u8(image: np.ndarray, cfg: AugmentConfig,
+                     rng: random.Random, rgb: bool = False) -> np.ndarray:
+    """:func:`augment_image` without the normalize: the augmented uint8
+    (image_size, image_size, 3) image, for the on-device normalize.
+    Refuses ``random_noise`` (float arithmetic).
+
+    Draws, in order: flip, rotation, crop chance, colour, exposure; then
+    hue and saturation (with their signs), the gamma, the short side and
+    the crop offsets as each step needs them."""
+    import cv2
+
+    if cfg.random_noise:
+        raise ValueError("random_noise is float-valued; use augment_image "
+                         "(float transfer)")
+    size = cfg.image_size
+
+    do_flip = cfg.flip and bool(rng.getrandbits(1))
+    rotate_deg = rng.randint(0, 359) if cfg.rotate else 0
+    # a 75% chance of a random crop; otherwise a plain warp resize
+    crop_chance = rng.randint(0, 3) if cfg.random_crop else 0
+    do_color = cfg.color_pert and bool(rng.getrandbits(1))
+    do_exposure = cfg.exposure_shift and bool(rng.getrandbits(1))
+
+    if do_flip:
+        image = image[:, ::-1, :]
+
+    if cfg.rotate:
+        rows, cols, _ = image.shape
+        m = cv2.getRotationMatrix2D((cols / 2, rows / 2), rotate_deg, 1)
+        image = cv2.warpAffine(image, m, (cols, rows))
+
+    if do_color:
+        # uint8 HSV arithmetic, wrapping as numpy's uint8 does, ±[0, 10]
+        to_hsv = cv2.COLOR_RGB2HSV if rgb else cv2.COLOR_BGR2HSV
+        from_hsv = cv2.COLOR_HSV2RGB if rgb else cv2.COLOR_HSV2BGR
+        hsv = cv2.cvtColor(image, to_hsv)
+        hue = rng.randint(0, 10)
+        sat = rng.randint(0, 10)
+        if bool(rng.getrandbits(1)):
+            hsv[:, :, 0] += np.uint8(hue)
+        else:
+            hsv[:, :, 0] -= np.uint8(hue)
+        if bool(rng.getrandbits(1)):
+            hsv[:, :, 1] += np.uint8(sat)
+        else:
+            hsv[:, :, 1] -= np.uint8(sat)
+        image = cv2.cvtColor(hsv, from_hsv)
+
+    if do_exposure:
+        gamma = (rng.uniform(1, 2) if bool(rng.getrandbits(1))
+                 else rng.uniform(0.5, 1))
+        image = (((image / 255.0) ** (1.0 / gamma)) * 255).astype(np.uint8)
+
+    too_small = False
+    if crop_chance > 0:
+        rows, cols, _ = image.shape
+        # the reference's 292/224 headroom where the target size is above
+        # the configured upbound (299², 448²), so the range is never empty
+        upbound = max(cfg.rand_crop_upbound,
+                      int(size * cfg.rand_crop_upbound / 224.0))
+        short_len = rng.randint(size, upbound)
+        if cols <= rows:
+            scaled_cols = short_len
+            scaled_rows = int(rows * short_len / float(cols))
+        else:
+            scaled_rows = short_len
+            scaled_cols = int(cols * short_len / float(rows))
+        if scaled_cols < size or scaled_rows < size:
+            too_small = True
+        else:
+            image = cv2.resize(image, (scaled_cols, scaled_rows))
+            co = rng.randint(0, scaled_cols - size)
+            ro = rng.randint(0, scaled_rows - size)
+            image = image[ro:ro + size, co:co + size]
+
+    if crop_chance == 0 or too_small:
+        image = cv2.resize(image, (size, size))
+    return image
+
+
+def read_and_augment(path: str, cfg: AugmentConfig, rng: random.Random,
+                     rgb: bool = False) -> np.ndarray:
+    """``cv2.imread`` (then BGR → RGB with ``rgb``) and
+    :func:`augment_image`."""
+    import cv2
+
+    image = cv2.imread(path)
+    if image is None:
+        raise FileNotFoundError(path)
+    if rgb:
+        image = cv2.cvtColor(image, cv2.COLOR_BGR2RGB)
+    return augment_image(image, cfg, rng, rgb=rgb)

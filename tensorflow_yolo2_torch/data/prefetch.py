@@ -4,11 +4,17 @@
   bounded queue, so that image decoding overlaps the device step (cv2 and
   numpy release the GIL). A worker's error reaches the consumer after the
   batches already queued.
+- :class:`ProcessPrefetchLoader`: the same over worker processes, each
+  with its own dataset built by a picklable factory, for per-batch work
+  that holds the GIL. Workers start by ``spawn``: a forked child of a
+  parent that holds a CUDA context is unsafe. They do numpy and cv2 work
+  only and never touch the card.
+- :class:`EpochShardedStream`: the factory that gives each worker its
+  share of a seeded per-epoch permutation, so that every example is read
+  once an epoch across the workers with no coordination between them.
 - :func:`device_prefetch`: keeps ``size`` batches on their way to the
   device, copied from pinned host memory with ``non_blocking=True`` on a
   CUDA device, so that a step does not wait for its batch's copy.
-
-The process-pool loader and the epoch-sharded stream are not ported yet.
 """
 
 from __future__ import annotations
@@ -103,6 +109,205 @@ class PrefetchLoader:
 
     def __exit__(self, *exc: Any) -> None:
         self.close()
+
+
+class _WorkerDone:
+    """End-of-stream sentinel (one a worker)."""
+
+
+class _WorkerError:
+    def __init__(self, formatted: str):
+        self.formatted = formatted
+
+
+def _pp_worker(factory, worker_id: int, num_workers: int, q, stop) -> None:
+    """A worker process: build its ``get_batch`` and stream batches into
+    the queue until the stream ends or the loader stops; an error goes to
+    the parent as its formatted traceback. Top-level, so that it pickles
+    under spawn."""
+    try:
+        get_batch = factory(worker_id, num_workers)
+        while not stop.is_set():
+            try:
+                batch = get_batch()
+            except StopIteration:
+                q.put(_WorkerDone())
+                return
+            while not stop.is_set():
+                try:
+                    q.put(batch, timeout=0.1)
+                    break
+                except queue.Full:
+                    continue
+    except Exception:  # reported to the parent, which raises it
+        import traceback
+
+        try:
+            q.put(_WorkerError(traceback.format_exc()), timeout=5.0)
+        except queue.Full:
+            pass
+
+
+class ProcessPrefetchLoader:
+    """Batch producer over worker processes.
+
+    ``factory(worker_id, num_workers)``, a picklable module-level
+    callable, builds and returns the worker's ``get_batch`` inside the
+    child: each worker has a dataset of its own (no shared cursor, no
+    lock). A stream that must read every example once an epoch shards
+    itself in the factory (:class:`EpochShardedStream`). Each batch is
+    pickled across the process boundary. A worker's error is raised in
+    the parent, with the worker's traceback, by ``__next__``, as is the
+    exit of a worker that reported neither; the stream ends when every
+    worker has ended its own.
+    """
+
+    def __init__(self, factory: Callable[[int, int], Callable[[], Any]],
+                 num_workers: int = 4, prefetch_size: int = 8):
+        import multiprocessing as mp
+
+        ctx = mp.get_context("spawn")
+        self._queue = ctx.Queue(maxsize=prefetch_size)
+        self._stop = ctx.Event()
+        self._live = num_workers
+        self._closed = False
+        self._procs = [
+            ctx.Process(target=_pp_worker,
+                        args=(factory, i, num_workers, self._queue,
+                              self._stop),
+                        daemon=True, name=f"prefetch-proc-{i}")
+            for i in range(num_workers)
+        ]
+        for proc in self._procs:
+            proc.start()
+
+    def __iter__(self) -> "ProcessPrefetchLoader":
+        return self
+
+    def __next__(self) -> Any:
+        while True:
+            try:
+                item = self._queue.get(timeout=0.1)
+            except queue.Empty:
+                if self._live <= 0:
+                    raise StopIteration
+                if not any(p.is_alive() for p in self._procs):
+                    # gone without an end-of-stream or an error report
+                    codes = [p.exitcode for p in self._procs]
+                    self.close()
+                    raise RuntimeError(f"prefetch worker processes exited "
+                                       f"before their stream ended (exit "
+                                       f"codes {codes})")
+                continue
+            if isinstance(item, _WorkerDone):
+                self._live -= 1
+                if self._live <= 0:
+                    raise StopIteration
+                continue
+            if isinstance(item, _WorkerError):
+                self.close()
+                raise RuntimeError(
+                    "prefetch worker process failed:\n" + item.formatted)
+            return item
+
+    def close(self) -> None:
+        """Stop the workers: drain the queue (a worker blocked on a put
+        then exits), join them, terminate any that did not exit."""
+        if self._closed:
+            return
+        self._closed = True
+        self._stop.set()
+        try:
+            while True:
+                self._queue.get_nowait()
+        except queue.Empty:
+            pass
+        for p in self._procs:
+            p.join(timeout=5.0)
+        for p in self._procs:
+            if p.is_alive():
+                p.terminate()
+                p.join(timeout=5.0)
+        self._queue.close()
+        self._queue.cancel_join_thread()
+
+    def __enter__(self) -> "ProcessPrefetchLoader":
+        return self
+
+    def __exit__(self, *exc: Any) -> None:
+        self.close()
+
+
+def _classification_example(imdb: Any, entry: Any) -> tuple[Any, Any]:
+    """The default example of :class:`EpochShardedStream`: a
+    classification dataset's (path, class index) entry read by its
+    ``image_read``."""
+    path, cls = entry
+    return imdb.image_read(path), cls
+
+
+class EpochShardedStream:
+    """Every example once an epoch across the workers of a
+    :class:`ProcessPrefetchLoader`, with no coordination between them.
+
+    Each worker derives epoch e's permutation of all the dataset's
+    entries from ``(seed, e)`` and reads its slice
+    ``perm[worker_id::num_workers]``; the slices partition the entries,
+    and each epoch is a fresh global shuffle. An instance is the
+    ``factory(worker_id, num_workers)`` the loader takes (it also runs in
+    one process). ``imdb_factory``, a picklable module-level callable,
+    builds a worker's dataset and must give every worker the same
+    ``gt_labels`` (the datasets' seeded shuffles do).
+    ``example_fn(imdb, entry)`` maps an entry to (image, label). An
+    epoch's remainder is a last, smaller batch, or is dropped with
+    ``drop_remainder`` (fixed device shapes). ``epochs`` ends the stream
+    after that many; None streams on.
+    """
+
+    def __init__(self, imdb_factory: Callable[[], Any], batch_size: int,
+                 epochs: Optional[int] = None, seed: int = 0,
+                 example_fn: Optional[Callable[[Any, Any], tuple]] = None,
+                 drop_remainder: bool = False):
+        self._imdb_factory = imdb_factory
+        self._batch_size = batch_size
+        self._epochs = epochs
+        self._seed = seed
+        self._example_fn = example_fn
+        self._drop_remainder = drop_remainder
+
+    def epoch_slice(self, epoch: int, worker_id: int, num_workers: int,
+                    n: int) -> list[int]:
+        """The entry indices of worker ``worker_id`` in epoch ``epoch``:
+        its modulo slice of the epoch's seeded permutation of range(n)."""
+        import random
+
+        perm = list(range(n))
+        random.Random(self._seed * 1_000_003 + epoch).shuffle(perm)
+        return perm[worker_id::num_workers]
+
+    def __call__(self, worker_id: int, num_workers: int
+                 ) -> Callable[[], Any]:
+        imdb = self._imdb_factory()
+        example_fn = self._example_fn or _classification_example
+        n = len(imdb.gt_labels)
+
+        def batches():
+            epoch = 0
+            while self._epochs is None or epoch < self._epochs:
+                idxs = self.epoch_slice(epoch, worker_id, num_workers, n)
+                for lo in range(0, len(idxs), self._batch_size):
+                    part = idxs[lo:lo + self._batch_size]
+                    if self._drop_remainder and \
+                            len(part) < self._batch_size:
+                        break
+                    pairs = [example_fn(imdb, imdb.gt_labels[i])
+                             for i in part]
+                    yield (np.stack([p[0] for p in pairs]),
+                           np.asarray([p[1] for p in pairs]))
+                epoch += 1
+
+        it = batches()
+        return lambda: next(it)
 
 
 def to_device(batch: Any, device: torch.device) -> Any:

@@ -121,21 +121,32 @@ def run_train_loop(trainer: Trainer, state: TrainState,
                    start_iter: int, num_iters: int,
                    log_every: int = 10, save_every: int = 1000,
                    num_workers: int = 4,
-                   trace_dir: Optional[str] = None) -> TrainState:
+                   eval_fn: Optional[Callable[[TrainState, int], None]] = None,
+                   eval_every: int = 0,
+                   trace_dir: Optional[str] = None,
+                   save_step_divisor: int = 1) -> TrainState:
     """Prefetched host batches → device copies kept two ahead → the train
     step. Right after a step is queued, its scalar metrics (stacked into
     one tensor) and, on logging steps, its histograms start their copy to
     pinned host memory behind it on the stream; they are read one step
     later, after the next step is queued, so that logging waits for the
-    step before, never for the step in flight. Snapshots every
-    ``save_every`` iterations and at the end. With ``trace_dir``, the
+    step before, never for the step in flight. With ``trace_dir``, the
     loop runs under a ``torch.profiler`` trace written there
-    (``utils.profiling.maybe_trace``)."""
+    (``utils.profiling.maybe_trace``).
+
+    ``eval_fn(state, i)`` runs after every ``eval_every``-th iteration i
+    (a validation batch, say). Snapshots are saved every ``save_every``
+    iterations, as step ``i // save_step_divisor`` (an epoch-interval
+    manager names snapshots by epoch: the divisor is the iterations of an
+    epoch), and after the last iteration, unless that one was saved; a
+    tail whose step already names a snapshot of this run (a mid-epoch end
+    after an epoch's snapshot) is not saved over it."""
     timer = Timer()
     on_card = trainer.device.type == "cuda"
     pending: list[tuple[int, list[str], dict[str, torch.Tensor],
                         Optional[torch.cuda.Event]]] = []
     last_saved_iter = start_iter
+    saved_steps: set[int] = set()
 
     def stage(it: int, metrics: Mapping[str, torch.Tensor]) -> None:
         names = [k for k, v in metrics.items() if v.dim() == 0]
@@ -176,14 +187,23 @@ def run_train_loop(trainer: Trainer, state: TrainState,
             timer.toc()
             stage(i, metrics)
             flush(1)
+            if eval_fn is not None and eval_every and i % eval_every == 0:
+                eval_fn(state, i)
             if save_every and i % save_every == 0:
-                mgr.save(i, state)
+                step = i // save_step_divisor
+                mgr.save(step, state)
+                saved_steps.add(step)
                 last_saved_iter = i
-                print(f"Saved snapshot at iter {i} ({mgr.interval} {i})")
+                print(f"Saved snapshot at iter {i} ({mgr.interval} {step})")
         flush(0)
     final = start_iter + num_iters
     if num_iters > 0 and last_saved_iter != final:
-        mgr.save(final, state)
-        print(f"Saved final snapshot at iter {final} "
-              f"({mgr.interval} {final})")
+        tail = final // save_step_divisor
+        if tail in saved_steps:
+            print(f"Skipping tail save at iter {final}: {mgr.interval} "
+                  f"{tail} already holds the epoch-boundary snapshot")
+        else:
+            mgr.save(tail, state)
+            print(f"Saved final snapshot at iter {final} "
+                  f"({mgr.interval} {tail})")
     return state

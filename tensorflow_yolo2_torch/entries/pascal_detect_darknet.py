@@ -24,9 +24,10 @@ convs, calibrated on the input image; ``--int8-export NPZ`` also writes
 it), ``--int8-weights NPZ`` serves such an artifact, of this package or
 of the JAX package, with no weights and no calibration. ``--host-nms``
 decodes without NMS on the card and runs the greedy NMS on the host, in
-the native layer (``utils.native.nms``). The image is read by
-``data.augment.image_read`` (cv2 or libjpeg, then the native resize); the
-drawing needs cv2.
+the native layer (``utils.native.nms``). The image (``assets/demo.jpg``
+by default) is read by ``data.augment.image_read`` (cv2 or libjpeg, then
+the native resize); the boxes are drawn onto it with PIL and matplotlib
+(``utils.visualize``, the JAX package's drawing).
 
 Weights come from a ``.npz`` written by ``convert.save_npz`` (a flax
 params / batch_stats pair); reading Orbax snapshots or TF checkpoints
@@ -49,7 +50,6 @@ import argparse
 import os
 from typing import Any, Mapping
 
-import numpy as np
 import torch
 
 from tensorflow_yolo2_torch.config import VOC_CLASSES, YoloConfig
@@ -81,6 +81,7 @@ from tensorflow_yolo2_torch.utils.device import (
     device_normalize,
     resolve_device,
 )
+from tensorflow_yolo2_torch.utils.visualize import draw_detections
 
 
 def as_state_dict(params_or_state_dict: Mapping[str, Any],
@@ -285,35 +286,11 @@ def make_detect_fn_int8(yolo: YoloConfig, qlayers, object_thresh: float = 0.5,
     return detect
 
 
-def draw_detections(image_path: str, boxes: np.ndarray, scores: np.ndarray,
-                    classes: np.ndarray, out_path: str) -> str:
-    """Draw the boxes with score > 0 (fractional corners) onto the image."""
-    import cv2
-
-    image = cv2.imread(image_path)
-    if image is None:
-        raise FileNotFoundError(image_path)
-    h, w = image.shape[:2]
-    for box, score, cls in zip(boxes, scores, classes):
-        if score <= 0:
-            continue
-        x1, y1, x2, y2 = (int(box[0] * w), int(box[1] * h),
-                          int(box[2] * w), int(box[3] * h))
-        print(f"predicted bounding box: ({x1}, {y1}), width:{x2 - x1}, "
-              f"height:{y2 - y1}")
-        cv2.rectangle(image, (x1, y1), (x2, y2), (0, 0, 255), 2)
-        cv2.putText(image, f"{VOC_CLASSES[int(cls)]}:{float(score):.2f}",
-                    (x1, max(y1 - 4, 12)), cv2.FONT_HERSHEY_SIMPLEX, 0.5,
-                    (0, 0, 255), 1)
-    if not cv2.imwrite(out_path, image):
-        raise OSError(f"could not write {out_path}")
-    return out_path
-
-
 def main(argv: list[str] | None = None) -> int:
     p = argparse.ArgumentParser(description=__doc__,
                                 formatter_class=argparse.RawTextHelpFormatter)
-    p.add_argument("image")
+    p.add_argument("image", nargs="?", default="assets/demo.jpg",
+                   help="the image to detect on (default: assets/demo.jpg)")
     p.add_argument("--weights", default=None, metavar="NPZ",
                    help="params / batch_stats written by convert.save_npz "
                         "(required unless --int8-weights)")
@@ -436,7 +413,7 @@ def main(argv: list[str] | None = None) -> int:
         keep = native.nms(boxes, scores, classes, iou_thresh=0.5,
                           class_aware=True, score_thresh=0.0)
         boxes, scores, classes = boxes[keep], scores[keep], classes[keep]
-    out = draw_detections(args.image, boxes, scores, classes,
+    out = draw_detections(args.image, boxes, scores, classes, VOC_CLASSES,
                           args.out or args.image + ".detections.png")
     print(f"Wrote {out}")
     return 0

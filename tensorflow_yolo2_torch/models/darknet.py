@@ -1,13 +1,15 @@
-"""Darknet19 trunk, the v1 detection head and the YOLOv2 passthrough head
-(port of tensorflow_yolo2_tpu/models/darknet.py).
+"""Darknet19 trunk, the v1 detection head, the YOLOv2 passthrough head and
+the ImageNet classifier (port of tensorflow_yolo2_tpu/models/darknet.py).
 
 Module attribute names follow the flax parameter names
-(``backbone.conv1.conv``, ``detection.output.bn``, …), so the weight
-converter (``convert``) only renames paths.
+(``backbone.conv1.conv``, ``detection.output.bn``, ``conv19.bn``, …), so
+the weight converter (``convert``) only renames paths, and a detector
+takes its trunk from a classifier snapshot by name.
 
 Public layout is the JAX package's: images in as NHWC (N, H, W, 3), the
-grid out as (N, S, S, output_channels) float32. Inside, the convs run on
-NCHW views in ``channels_last`` memory.
+grid out as (N, S, S, output_channels) float32 (the classifier's logits
+as (N, num_classes) float32). Inside, the convs run on NCHW views in
+``channels_last`` memory.
 """
 
 from __future__ import annotations
@@ -20,6 +22,7 @@ from torch import nn
 from tensorflow_yolo2_torch.models.layers import (
     BN_MOMENTUM,
     ConvBN,
+    avg_pool,
     max_pool,
     space_to_depth,
 )
@@ -88,6 +91,37 @@ class Darknet19Backbone(nn.Module):
                 conv_i += 1
                 x = getattr(self, f"conv{conv_i}")(x)
         return (x, mid) if return_mid else x
+
+
+class Darknet19Classifier(nn.Module):
+    """Darknet19 ImageNet classifier: NHWC images → (N, num_classes)
+    float32 logits.
+
+    The trunk, a 1×1 ``conv19`` to ``num_classes`` channels (with the
+    reference's BN + leaky when ``bn_on_output``; linear without), then
+    the SAME average pool over an H×H window (``layers.avg_pool``), so
+    that 448² inputs work too. A map wider than it is high leaves more
+    than one output a class, which the reshape refuses, as in the JAX
+    package.
+    """
+
+    def __init__(self, num_classes: int = 1000, bn_on_output: bool = True,
+                 fold_bn: bool = False, downsample: str = "pool",
+                 bn_momentum: float = BN_MOMENTUM):
+        super().__init__()
+        self.num_classes = num_classes
+        self.backbone = Darknet19Backbone(fold_bn=fold_bn,
+                                          downsample=downsample,
+                                          bn_momentum=bn_momentum)
+        self.conv19 = ConvBN(1024, num_classes, 1,
+                             use_bn=bn_on_output and not fold_bn,
+                             activate=bn_on_output, bn_momentum=bn_momentum)
+
+    def forward(self, images: torch.Tensor) -> torch.Tensor:
+        x = self.conv19(self.backbone(images.permute(0, 3, 1, 2)))
+        h = x.shape[2]
+        x = avg_pool(x, h, h)
+        return x.reshape(x.shape[0], self.num_classes).float()
 
 
 class DetectionHead(nn.Module):

@@ -59,6 +59,28 @@ def max_pool(x: torch.Tensor) -> torch.Tensor:
     return F.max_pool2d(x, 2, 2, ceil_mode=True)
 
 
+def _same_pads(size: int, window: int, stride: int) -> tuple[int, int]:
+    """XLA's SAME padding of one dimension: (low, high)."""
+    out = -(-size // stride)
+    total = max((out - 1) * stride + window - size, 0)
+    return total // 2, total - total // 2
+
+
+def avg_pool(x: torch.Tensor, window: int, stride: int) -> torch.Tensor:
+    """window×window SAME average pool of an NCHW tensor, flax's
+    ``avg_pool``: the padded zeros count in the divisor, so every output
+    is the window's sum over window².
+
+    For the classifier's global pool (window = stride = H): on an H×H
+    map the mean; on an H×W map with W < H, the sum over H·W values
+    divided by H² (one output); with W > H, ⌈W/H⌉ outputs along W."""
+    (top, bottom), (left, right) = (_same_pads(s, window, stride)
+                                    for s in x.shape[-2:])
+    if top or bottom or left or right:
+        x = F.pad(x, (left, right, top, bottom))
+    return F.avg_pool2d(x, window, stride)
+
+
 class BatchNorm(nn.BatchNorm2d):
     """BatchNorm over NCHW with flax's running statistics.
 

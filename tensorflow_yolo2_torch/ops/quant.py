@@ -1,5 +1,5 @@
-"""Post-training int8 quantization of the folded Darknet19 detectors (port
-of tensorflow_yolo2_tpu/ops/quant.py).
+"""Post-training int8 quantization of the folded Darknet19 detectors and
+classifier (port of tensorflow_yolo2_tpu/ops/quant.py).
 
 After BatchNorm folding (``models.fold``) every conv is quantized to
 symmetric int8: per-output-channel weight scales, per-tensor activation
@@ -26,9 +26,8 @@ channels N to a multiple of 8 and the rows M past 16 with zeros, which
 (``CHUNK_BYTES``). On the CPU the conv is ``F.conv2d`` in float64 on the
 integer values, which is exact (|sum| ≤ 127·127·9·1280 < 2⁵³; float32
 would not be above 2²⁴). Nothing falls back to a float conv on the card.
-
-Not ported yet: ``forward_int8_classifier`` (with the classifier,
-``ROADMAP.md`` A5).
+The classifier (``head="classifier"``) ends in its 1×1 ``conv19`` and a
+float32 global mean (``forward_int8_classifier``).
 """
 
 from __future__ import annotations
@@ -203,7 +202,7 @@ def calibrate(state_dict: Mapping[str, torch.Tensor], images: torch.Tensor,
 def quantize_folded(state_dict: Mapping[str, torch.Tensor],
                     act_scales: torch.Tensor, v2: bool = False,
                     head: str = "detector") -> tuple:
-    """Quantize a folded detector (``models.fold.fold_params``) to an int8
+    """Quantize a folded network (``models.fold.fold_params``) to an int8
     layer chain, on the CPU: per conv ``kernel`` (int8 HWIO), ``scale``
     (input scale × per-channel weight scale: the int32 sum's dequantize
     factor), ``bias`` and ``inv_in`` (1 / input scale). Quantizing on the
@@ -358,8 +357,8 @@ def forward_int8(layers: Sequence[Mapping[str, torch.Tensor]],
                  head: str = "detector") -> torch.Tensor:
     """The quantized forward: NHWC images (float in [-1, 1], or uint8,
     normalized on their device as (x/255)·2 − 1 first) → the float32
-    output map (the detection grid). ``layers`` lie on the images'
-    device (``prepare``)."""
+    output map (the detection grid, or the classifier's class map).
+    ``layers`` lie on the images' device (``prepare``)."""
     plan, convs = layer_plan(v2, head)
     x = device_normalize(images).float()
     x = quantize_act(x, layers[0]["inv_in"])
@@ -393,6 +392,15 @@ def forward_int8(layers: Sequence[Mapping[str, torch.Tensor]],
         nxt = ci + 1 if plan[si + 1] == "pt" else ci
         x = _conv_step(x, layer, activated, layers[nxt]["inv_in"])
     raise AssertionError("plan ended without the output conv")
+
+
+def forward_int8_classifier(layers: Sequence[Mapping[str, torch.Tensor]],
+                            images: torch.Tensor) -> torch.Tensor:
+    """The quantized Darknet19 classifier: the int8 chain to the float32
+    (N, H/32, W/32, num_classes) class map (``conv19``'s epilogue), then
+    its mean over the map in float32 → (N, num_classes) logits."""
+    class_map = forward_int8(layers, images, head="classifier")
+    return class_map.mean(dim=(1, 2))
 
 
 def save_quantized(path: str, layers: Sequence[Mapping[str, Any]],

@@ -4,9 +4,10 @@ tensorflow_yolo2_tpu/train/checkpoint.py).
 The JAX package's layout and naming: ``ckpts/<net>/<imdb>/train_iter_N/``
 (``train_epoch_N`` for epoch intervals), the newest by step, at most
 ``keep`` kept. A snapshot dir holds one torch file, ``state.pt``: the
-model's state dict, Adam's state, the step and the ``YoloConfig`` fields
-of the run. Orbax snapshots of the JAX package need JAX to read and are
-not read here.
+model's state dict, the optimizer's state (its count and its slots: Adam's
+``mu`` and ``nu``, momentum's ``trace``), the step and the ``YoloConfig``
+fields of the run. Orbax snapshots of the JAX package need JAX to read
+and are not read here.
 
 Restore modes: exact resume (``restore``; ``ValueError`` when the
 snapshot's model or optimizer state does not fit the target), and
@@ -63,6 +64,14 @@ def load_into(model: torch.nn.Module,
     with torch.no_grad():
         for key, value in entries.items():
             own[key].copy_(value)
+
+
+def optimizer_slots(opt_state: Any) -> dict[str, dict[str, torch.Tensor]]:
+    """The per-parameter slots of an optimizer state by field name
+    (Adam's ``mu`` and ``nu``, momentum's ``trace``): everything but the
+    step count."""
+    return {f.name: getattr(opt_state, f.name)
+            for f in dataclasses.fields(opt_state) if f.name != "count"}
 
 
 def read_snapshot(path: str) -> dict[str, Any]:
@@ -132,8 +141,8 @@ class CheckpointManager:
                       state.model.state_dict().items()},
             "optimizer": {
                 "count": opt.count,
-                "mu": {k: v.cpu() for k, v in opt.mu.items()},
-                "nu": {k: v.cpu() for k, v in opt.nu.items()}},
+                **{name: {k: v.cpu() for k, v in slot.items()}
+                   for name, slot in optimizer_slots(opt).items()}},
             "yolo": (dataclasses.asdict(self.yolo)
                      if self.yolo is not None else None),
         }, os.path.join(tmp, SNAPSHOT_FILE))
@@ -150,8 +159,9 @@ class CheckpointManager:
         raw = read_snapshot(path)
         own = target.model.state_dict()
         opt, saved = target.opt_state, raw.get("optimizer") or {}
-        pairs = [(own, raw["model"]), (opt.mu, saved.get("mu", {})),
-                 (opt.nu, saved.get("nu", {}))]
+        pairs = [(own, raw["model"])] + [
+            (slot, saved.get(name, {}))
+            for name, slot in optimizer_slots(opt).items()]
         for mine, theirs in pairs:
             if mine.keys() != theirs.keys() or any(
                     mine[k].shape != theirs[k].shape for k in mine):

@@ -1,4 +1,4 @@
-"""Learning-rate schedules and the Adam optimizer (port of
+"""Learning-rate schedules and the Adam and momentum optimizers (port of
 tensorflow_yolo2_tpu/train/optimizers.py).
 
 The JAX package builds optax chains; here the same functions are written
@@ -11,15 +11,17 @@ out on tensors, so that a step equals optax's:
   ``join_schedules``. A schedule maps the optimizer's step count *before*
   the update (optax's ``scale_by_schedule``) to a learning rate.
 - ``make_optimizer``: Adam (epsilon outside the square root, bias
-  correction) after optax's ``clip_by_global_norm``, which scales the
+  correction), or momentum SGD (optax's ``sgd(lr, momentum)``: the trace
+  ``t ← g + μ·t``, then the step ``−lr·t``), after optax's
+  ``clip_by_global_norm``, which scales the
   gradients by ``max_norm / ‖g‖`` as ``(g / ‖g‖) · max_norm`` only when
   ``‖g‖ ≥ max_norm`` (``torch.nn.utils.clip_grad_norm_`` divides by
   ``‖g‖ + 1e-6`` instead). ``torch.optim`` and its schedulers are not
   used.
 
-The update runs in place on the parameters and moments with
-``torch._foreach_*`` operations: a few multi-tensor launches a step.
-Other optimizers, weight decay, EMA, gradient accumulation and
+The update runs in place on the parameters and the optimizer's slots
+with ``torch._foreach_*`` operations: a few multi-tensor launches a
+step. Other optimizers, weight decay, EMA, gradient accumulation and
 trainable scopes are not ported yet.
 """
 
@@ -35,7 +37,7 @@ import torch
 from tensorflow_yolo2_torch.config import LRScheduleConfig, OptimizerConfig
 
 Schedule = Callable[[int], float]
-NOT_PORTED = "not ported yet (ROADMAP.md, queue A, A5/A6)"
+NOT_PORTED = "not ported yet (ROADMAP.md, queue A, A6)"
 
 
 def make_schedule(cfg: LRScheduleConfig) -> Schedule:
@@ -95,9 +97,12 @@ class AdamState:
 
 
 def global_norm(tensors) -> torch.Tensor:
-    """sqrt(Σ ‖t‖²) over a list of tensors, as a 0-d float32 tensor."""
-    return torch.linalg.vector_norm(torch.stack(
-        torch._foreach_norm(list(tensors))).float())
+    """sqrt(Σ ‖t‖²) over a list of tensors, as a 0-d float32 tensor
+    (float64 for float64 tensors)."""
+    norms = torch.stack(torch._foreach_norm(list(tensors)))
+    if norms.dtype != torch.float64:
+        norms = norms.float()
+    return torch.linalg.vector_norm(norms)
 
 
 def _bias_correction(decay: float, count: int, dtype: torch.dtype) -> float:
@@ -106,6 +111,22 @@ def _bias_correction(decay: float, count: int, dtype: torch.dtype) -> float:
     away from the double one."""
     t = np.float64 if dtype == torch.float64 else np.float32
     return float(t(1.0) - t(decay) ** t(count))
+
+
+def clip_by_global_norm(grads: list[torch.Tensor],
+                        max_norm: float | None,
+                        norm: torch.Tensor | None = None
+                        ) -> list[torch.Tensor]:
+    """optax's ``clip_by_global_norm``: ``(g / ‖g‖) · max_norm`` when
+    ``‖g‖ ≥ max_norm``, else ``g`` as it is (no clipping without
+    ``max_norm``). ``norm`` is ‖g‖ where the caller has it already."""
+    if not max_norm:
+        return grads
+    norm = global_norm(grads) if norm is None else norm
+    keep = norm < max_norm
+    grads = torch._foreach_div(grads, torch.where(keep, 1.0, norm))
+    torch._foreach_mul_(grads, torch.where(keep, 1.0, float(max_norm)))
+    return grads
 
 
 class Adam:
@@ -138,12 +159,7 @@ class Adam:
         mu = [state.mu[k] for k in keys]
         nu = [state.nu[k] for k in keys]
         lr = self.schedule(state.count)
-        if cfg.grad_clip_norm:
-            norm = global_norm(g) if grad_norm is None else grad_norm
-            keep = norm < cfg.grad_clip_norm
-            g = torch._foreach_div(g, torch.where(keep, 1.0, norm))
-            torch._foreach_mul_(g, torch.where(keep, 1.0,
-                                               float(cfg.grad_clip_norm)))
+        g = clip_by_global_norm(g, cfg.grad_clip_norm, grad_norm)
         b1, b2 = cfg.adam_beta1, cfg.adam_beta2
         torch._foreach_mul_(mu, b1)
         torch._foreach_add_(mu, torch._foreach_mul(g, 1.0 - b1))
@@ -165,16 +181,60 @@ class Adam:
         return state
 
 
-def make_optimizer(cfg: OptimizerConfig) -> Adam:
-    """The optimizer of ``cfg``: Adam, with clipping when
+@dataclass
+class MomentumState:
+    """The momentum trace, keyed like the parameters, and the step
+    count."""
+
+    count: int
+    trace: dict[str, torch.Tensor]
+
+
+class Momentum:
+    """SGD with momentum after optional global-norm clipping (optax's
+    ``chain(clip_by_global_norm, sgd(lr, momentum))``), updating in
+    place."""
+
+    def __init__(self, cfg: OptimizerConfig):
+        self.cfg = cfg
+        self.schedule = make_schedule(cfg.schedule)
+
+    def init(self, params: Mapping[str, torch.Tensor]) -> MomentumState:
+        return MomentumState(0, {
+            k: torch.zeros_like(p, memory_format=torch.preserve_format)
+            for k, p in params.items()})
+
+    @torch.no_grad()
+    def update_(self, grads: Mapping[str, torch.Tensor],
+                state: MomentumState, params: Mapping[str, torch.Tensor],
+                grad_norm: torch.Tensor | None = None) -> MomentumState:
+        """One step: t ← g + μ·t, params ← params + (−lr)·t, in place."""
+        keys = list(params)
+        p = [params[k] for k in keys]
+        t = [state.trace[k] for k in keys]
+        lr = self.schedule(state.count)
+        g = clip_by_global_norm([grads[k] for k in keys],
+                                self.cfg.grad_clip_norm, grad_norm)
+        torch._foreach_mul_(t, self.cfg.momentum)
+        torch._foreach_add_(t, g)
+        torch._foreach_add_(p, torch._foreach_mul(t, -lr))
+        state.count += 1
+        return state
+
+
+OPTIMIZERS = {"adam": Adam, "momentum": Momentum}
+
+
+def make_optimizer(cfg: OptimizerConfig) -> Adam | Momentum:
+    """The optimizer of ``cfg``: Adam or momentum, with clipping when
     ``grad_clip_norm`` is set. Anything else raises ``ValueError``."""
-    if cfg.name.lower() != "adam":
+    if cfg.name.lower() not in OPTIMIZERS:
         raise ValueError(f"optimizer {cfg.name!r} is {NOT_PORTED}; the "
-                         "port trains with 'adam'")
+                         "port trains with 'adam' or 'momentum'")
     for name, value in (("weight_decay", cfg.weight_decay),
                         ("moving_average_decay", cfg.moving_average_decay),
                         ("trainable_scopes", cfg.trainable_scopes),
                         ("grad_accum_steps", cfg.grad_accum_steps > 1)):
         if value:
             raise ValueError(f"{name} is {NOT_PORTED}")
-    return Adam(cfg)
+    return OPTIMIZERS[cfg.name.lower()](cfg)

@@ -2,15 +2,18 @@
 
 One step: images → the model in train mode (BatchNorm on batch
 statistics, running statistics updated as flax does) → the task's loss in
-float32 → gradients → global norm → Adam (``train.optimizers``). The JAX
-step is one jitted function that donates its input state; here the step
-runs eagerly on ``Trainer.device`` and updates the parameters, BatchNorm
-statistics and Adam moments of the state in place.
+float32 → gradients → global norm → Adam or momentum
+(``train.optimizers``). Tasks: the YOLO grid loss (``yolo_task``,
+``losses.yolo_v2.yolo_v2_task``) and the classifier's softmax
+cross-entropy (``softmax_task``). The JAX step is one jitted function
+that donates its input state; here the step runs eagerly on
+``Trainer.device`` and updates the parameters, BatchNorm statistics and
+optimizer slots of the state in place.
 
 Mixed precision follows ``compute_dtype``: with bfloat16 the forward runs
 under ``torch.autocast``, so that convs compute in bf16, while parameters,
-gradients and Adam moments stay float32, and the head output and the loss
-are float32 (the JAX package's ``dtype`` / ``param_dtype`` split).
+gradients and optimizer slots stay float32, and the head output and the
+loss are float32 (the JAX package's ``dtype`` / ``param_dtype`` split).
 
 On the card the trunk's activations stay in ``channels_last`` memory and
 its five pools run backward through the CUDA kernel of
@@ -25,6 +28,7 @@ from dataclasses import dataclass
 from typing import Any, Callable, Mapping
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from tensorflow_yolo2_torch.config import OptimizerConfig, YoloConfig
@@ -32,6 +36,7 @@ from tensorflow_yolo2_torch.losses.yolo import yolo_loss
 from tensorflow_yolo2_torch.models.darknet import init_params_
 from tensorflow_yolo2_torch.train.optimizers import (
     AdamState,
+    MomentumState,
     global_norm,
     make_optimizer,
 )
@@ -46,12 +51,12 @@ Metrics = dict[str, torch.Tensor]
 @dataclass
 class TrainState:
     """What a step updates: the model (parameters and BatchNorm running
-    statistics, on the trainer's device), Adam's state and the step
-    count."""
+    statistics, on the trainer's device), the optimizer's state and the
+    step count."""
 
     step: int
     model: nn.Module
-    opt_state: AdamState
+    opt_state: AdamState | MomentumState
 
     @property
     def params(self) -> dict[str, torch.nn.Parameter]:
@@ -87,6 +92,45 @@ def yolo_task(yolo_cfg: YoloConfig, histograms: bool = False) -> Callable:
             metrics["hist/iou"] = aux.ious
             metrics["hist/confidence"] = outputs[..., C:C + yolo_cfg.B]
         return total, metrics
+
+    return task
+
+
+def softmax_task(aux_weight: float = 0.4,
+                 label_smoothing: float = 0.0) -> Callable:
+    """Classification task: (logits, integer labels) → (mean sparse
+    softmax cross-entropy, metrics ``loss`` and ``accuracy``), in the
+    logits' type (float32 for the classifier).
+
+    ``label_smoothing`` ε blends the one-hot target toward uniform,
+    ``onehot·(1−ε) + ε/K``. A model that returns ``(logits, aux_logits)``
+    adds ``aux_weight`` times the aux head's cross-entropy (with the same
+    smoothing) to the loss and reports it as ``aux_loss``; ``accuracy`` is
+    the main head's."""
+
+    def ce(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+        if label_smoothing:
+            k = logits.shape[-1]
+            onehot = F.one_hot(labels, k).to(logits.dtype)
+            smoothed = onehot * (1.0 - label_smoothing) + label_smoothing / k
+            return torch.mean(-(smoothed * F.log_softmax(logits, -1)).sum(-1))
+        picked = logits.gather(-1, labels[:, None])[:, 0]
+        return torch.mean(torch.logsumexp(logits, -1) - picked)
+
+    def task(outputs, labels: torch.Tensor):
+        labels = labels.long()
+        aux = None
+        if isinstance(outputs, tuple):
+            outputs, aux = outputs
+        loss = ce(outputs, labels)
+        metrics = {"loss": loss}
+        if aux is not None:
+            aux_loss = ce(aux, labels)
+            loss = loss + aux_weight * aux_loss
+            metrics = {"loss": loss, "aux_loss": aux_loss}
+        metrics["accuracy"] = torch.mean(
+            (torch.argmax(outputs, -1) == labels).float())
+        return loss, metrics
 
     return task
 
@@ -156,6 +200,12 @@ class Trainer:
             outputs = self.model(images)
         return outputs.float()
 
+    def _labels(self, labels: Any) -> torch.Tensor:
+        """Labels on the device: float ones (label grids) in float32,
+        integer ones (class indices) as they are."""
+        labels = torch.as_tensor(labels).to(self.device)
+        return labels.float() if labels.is_floating_point() else labels
+
     def loss_and_grads(self, state: TrainState, images: Any, labels: Any
                        ) -> tuple[Metrics, dict[str, torch.Tensor]]:
         """Forward in train mode (updating the BatchNorm running
@@ -163,7 +213,7 @@ class Trainer:
         name). The parameters are not changed."""
         state.model.train()
         params = state.params
-        labels = torch.as_tensor(labels).to(self.device, torch.float32)
+        labels = self._labels(labels)
         kw = {"step": state.step} if self._task_takes_step else {}
         loss, metrics = self.task(self._forward(images), labels, **kw)
         grads = torch.autograd.grad(loss, list(params.values()))
@@ -173,10 +223,10 @@ class Trainer:
     def train_step(self, state: TrainState, images: Any, labels: Any
                    ) -> tuple[TrainState, Metrics]:
         """One optimizer step on a batch (NHWC images, float or uint8,
-        and label grids; numpy or tensors). Updates ``state`` in place and
-        returns it with the step's metrics, ``grad_norm`` (the global
-        norm of the gradients before clipping) among them; the metrics
-        stay on the device."""
+        and label grids or class indices; numpy or tensors). Updates
+        ``state`` in place and returns it with the step's metrics,
+        ``grad_norm`` (the global norm of the gradients before clipping)
+        among them; the metrics stay on the device."""
         metrics, grads = self.loss_and_grads(state, images, labels)
         norm = global_norm(grads.values())
         metrics["grad_norm"] = norm
@@ -190,6 +240,6 @@ class Trainer:
         """The task's metrics in eval mode (running statistics); a task
         that takes ``step`` gets None (no burn-in at evaluation)."""
         state.model.eval()
-        labels = torch.as_tensor(labels).to(self.device, torch.float32)
+        labels = self._labels(labels)
         kw = {"step": None} if self._task_takes_step else {}
         return self.task(self._forward(images), labels, **kw)[1]

@@ -3,8 +3,8 @@
 ``maybe_trace`` records a ``torch.profiler`` trace of a region (the train
 loop's ``--profile-dir``) and writes it as Chrome trace JSON, which
 TensorBoard's profiler plugin and ``chrome://tracing`` read. The analytic
-conv FLOPs of the detector and the H100's peaks turn a throughput into a
-share of the card's compute.
+conv FLOPs of the detector and the classifier and the H100's peaks turn a
+throughput into a share of the card's compute.
 """
 
 from __future__ import annotations
@@ -83,3 +83,12 @@ def conv_flops_per_image(image_size: int, cell_channels: int,
                             _DARKNET19_SCHEDULE + ((3, 1024),) * 2)
     return trunk + 2.0 * ((2 * hw) ** 2 * 512 * 64 +
                           hw * hw * (9 * 1280 * 1024 + 1024 * cell_channels))
+
+
+def classifier_flops_per_image(image_size: int, num_classes: int) -> float:
+    """Forward conv FLOPs (2 × MACs) of the Darknet19 classifier on one
+    image: the trunk and the 1×1 ``conv19`` to ``num_classes``."""
+    from tensorflow_yolo2_torch.models.darknet import _DARKNET19_SCHEDULE
+
+    return _schedule_flops(image_size,
+                           _DARKNET19_SCHEDULE + ((1, num_classes),))

@@ -31,6 +31,7 @@ chip_smoke.INT8_GRID_REL_TOL of the CPU's; no float conv runs.
 """
 
 import ctypes
+import functools
 import math
 
 import numpy as np
@@ -645,7 +646,8 @@ def test_train_step_matches_cpu(card, no_tf32):
     assert cuda_pool.MAX_POOL2_BWD_LAUNCHES == 5 * 20
     assert losses[-1] < losses[0]
     chip_smoke.check_train_step_against_cpu(
-        yolo, images, labels, card,
+        functools.partial(chip_smoke.make_trainer, yolo), images, labels,
+        card,
         {k: v.cpu() for k, v in state.model.state_dict().items()})
 
 
@@ -888,3 +890,94 @@ def test_native_read_serves_on_the_card(card):
                               torch.from_numpy(image[None]).to(card), **kw)
     chip_smoke.compare_kept(kept, cuda_decode.decode_nms_plain(
         grid, yolo, 0.05, 0.5, K))
+
+
+# -- the Darknet19 classifier -------------------------------------------------
+
+
+def test_pool_kernel_at_the_classifier_sites(card):
+    """B5 at the five pool sites of a 224² classifier step at batch 48,
+    bf16 and float32: bit for bit its plain version and autograd."""
+    assert chip_smoke.check_cls_pool_sites(card) == 0.0
+
+
+def test_classifier_train_step_matches_cpu(card, no_tf32):
+    """10 bf16 steps of the 1000-class classifier at 224², batch 4, on one
+    batch (B5 5 times a step, the loss falling); then a float32 step on
+    the card against float64 on the CPU: chip_smoke's checks and
+    bounds."""
+    images, labels = (torch.from_numpy(a).to(card) for a in
+                      chip_smoke.cls_batch(np.random.RandomState(0), 4))
+    trainer, state = chip_smoke.make_cls_trainer(torch.bfloat16, card)
+    cuda_pool.reset_launch_counts()
+    losses = [trainer.train_step(state, images, labels)[1]["loss"].item()
+              for _ in range(10)]
+    assert cuda_pool.MAX_POOL2_BWD_LAUNCHES == 5 * 10
+    assert losses[-1] < losses[0]
+    chip_smoke.check_train_step_against_cpu(
+        chip_smoke.make_cls_trainer, images, labels, card,
+        {k: v.cpu() for k, v in state.model.state_dict().items()})
+
+
+def test_classifier_train_cli_uint8_transfer(card, tmp_path, monkeypatch,
+                                             capsys):
+    """``imagenet_train_darknet --uint8-transfer --device cuda`` on a small
+    ILSVRC tree: exits 0, an epoch-named snapshot, B5 5 times a step."""
+    from tensorflow_yolo2_torch.entries import imagenet_train_darknet
+
+    monkeypatch.setenv("TFY2_ROOT", str(tmp_path))
+    chip_smoke.write_ilsvrc_tree(str(tmp_path / "data" / "ILSVRC"),
+                                 np.random.RandomState(0))
+    cuda_pool.reset_launch_counts()
+    assert imagenet_train_darknet.main(
+        ["--batch-size", "8", "--iters", "5", "--save-every", "5",
+         "--eval-every", "2", "--num-workers", "2", "--uint8-transfer",
+         "--device", "cuda"]) == 0
+    torch.cuda.synchronize()
+    assert cuda_pool.MAX_POOL2_BWD_LAUNCHES == 5 * 5
+    assert "Saved snapshot at iter 5 (epoch 1)" in capsys.readouterr().out
+
+
+def test_int8_classifier_sums_on_the_card_equal_the_cpu(card, no_tf32):
+    """The 1000-class classifier at 224², seeded weights, BN folded: each
+    conv's int32 sums, ``conv19``'s among them, from the card's int8
+    input equal the CPU's exact conv; the logits agree (relative norm
+    chip_smoke.INT8_GRID_REL_TOL)."""
+    from tensorflow_yolo2_torch.models.darknet import Darknet19Classifier
+    from tensorflow_yolo2_torch.models.fold import fold_params
+    from tensorflow_yolo2_torch.ops import quant
+
+    state = fold_params(randomize_(Darknet19Classifier(1000),
+                                   torch.Generator().manual_seed(0))
+                        .state_dict())
+    images = torch.from_numpy(chip_smoke.cls_batch(
+        np.random.RandomState(1), 2)[0])
+    scales = quant.calibrate({k: v.to(card) for k, v in state.items()},
+                             device_normalize(images.to(card)),
+                             head="classifier")
+    layers = quant.quantize_folded(state, scales, head="classifier")
+    rel, _ = chip_smoke.check_int8_sums(
+        "int8 classifier", quant.prepare(layers, card),
+        quant.prepare(layers, "cpu"), images[:1],
+        quant.forward_int8_classifier, "logits")
+    assert rel <= chip_smoke.INT8_GRID_REL_TOL
+
+
+def test_importing_the_entries_initialises_no_cuda(card):
+    """A spawned prefetch worker imports the train entry: the import must
+    not create a CUDA context."""
+    import subprocess
+    import sys
+
+    code = ("import torch\n"
+            "from tensorflow_yolo2_torch.entries import (\n"
+            "    imagenet_predict_darknet, imagenet_test_darknet,\n"
+            "    imagenet_train_darknet, pascal_train_darknet)\n"
+            "assert not torch.cuda.is_initialized()\n")
+    import os
+
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, timeout=120,
+                         cwd=os.path.dirname(os.path.abspath(
+                             chip_smoke.__file__)))
+    assert out.returncode == 0, out.stderr

@@ -13,6 +13,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from PIL import Image
 
 from tensorflow_yolo2_torch import config as pt_config
 from tensorflow_yolo2_torch import convert
@@ -120,4 +121,7 @@ def test_cli_draws_detections(weights, tmp_path):
     assert pt_detect.main([image, "--weights", npz, "--image-size", "64",
                            "--threshold", str(THRESH), "--nms", "--out", out,
                            "--device", "cpu"]) == 0
-    assert cv2.imread(out).shape == (64, 64, 3)
+    # drawn by matplotlib, as the JAX package draws (utils.visualize)
+    with Image.open(out) as drawn:
+        assert drawn.format == "PNG" and min(drawn.size) > 0
+        assert "matplotlib" in drawn.info.get("Software", "")

@@ -123,7 +123,7 @@ def run_cli(argv, monkeypatch) -> tuple[np.ndarray, ...]:
     """The detect CLI on the CPU; what it would draw."""
     drawn = []
 
-    def draw(path, boxes, scores, classes, out_path):
+    def draw(path, boxes, scores, classes, class_names, out_path):
         drawn.append((boxes, scores, classes))
         return out_path
 

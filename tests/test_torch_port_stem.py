@@ -28,6 +28,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from PIL import Image
 
 import chip_smoke
 from tensorflow_yolo2_torch import config as pt_config
@@ -508,4 +509,7 @@ def test_cli_pallas_stem(detector_weights, tmp_path):
                            "--threshold", str(THRESH), "--nms",
                            "--pallas-stem", "--out", out,
                            "--device", "cpu"]) == 0
-    assert cv2.imread(out).shape == (64, 64, 3)
+    # drawn by matplotlib, as the JAX package draws (utils.visualize)
+    with Image.open(out) as drawn:
+        assert drawn.format == "PNG" and min(drawn.size) > 0
+        assert "matplotlib" in drawn.info.get("Software", "")

@@ -28,6 +28,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from PIL import Image
 
 import chip_smoke
 from tensorflow_yolo2_torch import config as pt_config
@@ -364,4 +365,7 @@ def test_cli_serves_v2p_with_stored_anchors(v2_weights, tmp_path, capsys):
     jx_anchors.save_anchors(str(tmp_path), ((1.0, 1.5),) * 5, S=13)
     assert pt_detect.main(args) == 0
     assert str(tmp_path / "anchors.json") in capsys.readouterr().out
-    assert cv2.imread(str(tmp_path / "out.png")).shape == (64, 64, 3)
+    # drawn by matplotlib, as the JAX package draws (utils.visualize)
+    with Image.open(str(tmp_path / "out.png")) as drawn:
+        assert drawn.format == "PNG" and min(drawn.size) > 0
+        assert "matplotlib" in drawn.info.get("Software", "")
