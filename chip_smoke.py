@@ -101,7 +101,29 @@
    ``--uint8-transfer`` and with ``--process-workers 2`` (an epoch each,
    resumed, B5 5 times a step), ``imagenet_test_darknet`` in bf16 and
    with ``--int8``, ``imagenet_predict_darknet``; each exits 0.
-12. Times the v1, v1 ``--pallas-stem`` and v2p serving paths in bf16 and
+12. Drives the ResNet50 family at full width (``models.resnet``;
+   224², S=7, B=2, C=20; flax's initializers drawn on the card, the
+   detector's BatchNorms moved off the identity and its box outputs held
+   near wide boxes so that NMS has work): serving through
+   ``make_resnet_detect_fn`` in bf16 with BN unfolded at the CLI's
+   threshold 0.2, B1 once a call with NMS and B3 once without, the grid
+   of 2 images against the float32 CPU forward, B1 and B3 against their
+   plain versions on the card grid of 256 images at 0.2 and 0.05; the
+   detector's training (Adam 5e-4, dropout 0.5 from the train state's
+   generator): 30 steps on one seeded batch of 4 (the loss falling, no
+   B5), a float32 step on the card against float64 on the CPU at 64²
+   on 4 images with dropout off, from 3 float64 steps on the CPU
+   (gradient bounds 1e-1 worst and 3e-2 all: ``RESNET_GRAD_BOUNDS``),
+   images/s at batch 4 and 32 with the idle share; the
+   frozen-trunk ImageNet fine-tune (1000 classes, momentum 0.9 at 1e-3,
+   ``trainable_scopes=("logits",)``) at batch 32: after 10 steps every
+   trunk parameter bit-equal, every running statistic moved, the logits
+   moved, then images/s; and the three CLIs with ``--device cuda`` under
+   a temporary run root: ``pascal_train_resnet`` (2 iterations at batch
+   4 on a synthetic VOC tree), ``pascal_detect_resnet --nms`` on its
+   snapshot (its boxes equal ``make_resnet_detect_fn``'s, B1 once),
+   ``imagenet_train_resnet`` (an epoch on the synthetic ILSVRC tree).
+13. Times the v1, v1 ``--pallas-stem`` and v2p serving paths in bf16 and
    the v1 and v1 ``--pallas-stem`` paths in float32 with TF32 off
    (images/s at batch 32 and 256, with a profile), the v1 224² and v2p
    416² train steps (steps/s and images/s at batch 24 and 64, with a
@@ -115,8 +137,11 @@
    and the int8 paths (images/s at batch 32 and 256 beside the int8
    operation bound, with a profile split into im2col, ``_int_mm``, the
    float32 epilogue and the pools); B5 is also timed at the classifier's
-   batch-48 sites.
-13. Ends with ``{"ok": true, "device": {...}}``.
+   batch-48 sites; the ResNet serving path (images/s at batch 32 and 256
+   with a profile), and B1 and B3 on the ResNet grid at batch 256,
+   threshold 0.2, as the entries ``decode_nms_resnet`` and
+   ``decode_grid_resnet``.
+14. Ends with ``{"ok": true, "device": {...}}``.
 
     python3 chip_smoke.py --stem-ab [OTHER_STEM_CU ...]
 
@@ -175,6 +200,7 @@ from tensorflow_yolo2_torch.utils.profiling import (
     INT8_OPS_PER_S,
     TF32_FLOPS_PER_S,
     conv_flops_per_image,
+    resnet50_flops_per_image,
 )
 
 
@@ -276,6 +302,30 @@ CLS_CHECK_IMAGES = 16
 # images a synset, val images; 8 a batch, 5 train iterations an epoch
 CLS_TREE = (10, 4, 16)
 CLS_CLI_BATCH = 8
+# the ResNet50 family: the detector at the reference's 224² (S=7, B=2,
+# C=20) served at the CLI's threshold 0.2, trained at the reference's
+# batch 4 and at 32; its float32-vs-float64 step at 64² on 4 images
+# (full width; the CPU's float64 step at 224² is too slow); the
+# 1000-class fine-tune at the reference's batch 32, 10 steps checked
+RESNET_THRESH = 0.2
+RESNET_TRAIN_BATCHES = (4, 32)
+RESNET_CHECK_SIZE = 64
+RESNET_CHECK_IMAGES = 4
+# the check's weights: fresh ones after 3 float64 Adam steps on the CPU
+# (resnet_check_weights). Float32 rounding alone puts ResNet50's
+# gradients at 64², batch 4, there 1.35e-2 from float64 on the card and
+# 8.1e-3 on the CPU (all, relative norm; the worst tensor 2.8e-2 and
+# 1.3e-2; the same every run under torch 2.11), over the detector steps'
+# 1e-2; from other weights up to 1.9e-2 all. So the card is held to 1e-1
+# worst and 3e-2 all; TF32 convs are 0.35–0.47 / 0.25–0.30 off, bf16
+# 0.95–1.2 / 0.78–0.95, both rejected
+RESNET_WARM_STEPS = 3
+RESNET_GRAD_BOUNDS = (1e-1, 3e-2)
+FINE_TUNE_BATCH = 32
+FINE_TUNE_STEPS = 10
+# the synthetic VOC tree of the ResNet detector's CLIs: images, batch
+VOC_TREE_IMAGES = 8
+RESNET_CLI_BATCH = 4
 
 
 def check(ok: bool, what: str) -> None:
@@ -880,7 +930,10 @@ def grad_errors(grads: dict, want: dict) -> tuple[float, str, float]:
 
 
 def check_train_step_against_cpu(build, images, labels, dev,
-                                 state_dict) -> dict:
+                                 state_dict,
+                                 bounds: tuple[float, float] = (
+                                     GRAD_REL_TOL, ALL_GRADS_REL_TOL)
+                                 ) -> dict:
     """One step (forward in train mode and gradients) from the weights of
     ``state_dict`` on one batch: float32 on the card, TF32 off, held to
     the float64 step on the CPU, with the CPU's own float32 step printed
@@ -896,7 +949,13 @@ def check_train_step_against_cpu(build, images, labels, dev,
     is held to float64, not to the other. The weights are those of a few
     steps on this batch: from fresh ones the predicted boxes are random
     and the responsible box of a cell (the larger of two small IoUs)
-    flips under bf16's rounding, which moves the coordinate loss ~10%."""
+    flips under bf16's rounding, which moves the coordinate loss ~10%.
+
+    ``bounds`` = (worst, all) are the gradient bounds: GRAD_REL_TOL and
+    ALL_GRADS_REL_TOL, or wider ones for a network whose float32
+    rounding alone reaches those (ResNet50's 53 BatchNorms at 64²:
+    ``RESNET_GRAD_BOUNDS``). The TF32 control must be rejected by
+    them."""
     cpu = torch.device("cpu")
     loss, grads = step_grads(build, torch.float32, dev, state_dict, images,
                              labels)
@@ -914,12 +973,15 @@ def check_train_step_against_cpu(build, images, labels, dev,
                                    images, labels)
     finally:
         torch.backends.cudnn.allow_tf32 = False
+    check(any(bool(g.any()) for g in grads64.values()),
+          "the float64 step has gradients (the output is not all cut off)")
     worst, key, total = grad_errors(grads, grads64)
     cpu_worst, cpu_key, cpu_total = grad_errors(grads32, grads64)
+    grad_tol, all_tol = bounds
     controls = {}
     for name, g in (("tf32", tf32_grads), ("bf16", bf16_grads)):
         c_worst, c_key, c_total = grad_errors(g, grads64)
-        rejected = c_worst > GRAD_REL_TOL or c_total > ALL_GRADS_REL_TOL
+        rejected = c_worst > grad_tol or c_total > all_tol
         controls[name] = {"grad_rel_err": c_worst, "all_grads_rel_err":
                           c_total, "rejected": rejected}
         print(f"control, {name} card gradients against float64: worst "
@@ -931,16 +993,18 @@ def check_train_step_against_cpu(build, images, labels, dev,
           f"float32 card loss {loss:.6f} vs {loss64:.6f} (rel. err "
           f"{loss_err:.2e}, bound {LOSS_REL_TOL}); float32 card gradients: "
           f"worst {worst:.2e} ({key}), all {total:.2e} (bounds "
-          f"{GRAD_REL_TOL}, {ALL_GRADS_REL_TOL}, relative norm); float32 "
+          f"{grad_tol:.2e}, {all_tol:.2e}, relative norm); float32 "
           f"CPU gradients: worst {cpu_worst:.2e} ({cpu_key}), all "
           f"{cpu_total:.2e}; bf16 card loss {bf16_loss:.6f} (rel. err to "
           f"float32 {bf16_err:.2e}, bound {BF16_LOSS_REL_TOL})")
     check(loss_err <= LOSS_REL_TOL, "float32 card loss vs float64")
-    check(worst <= GRAD_REL_TOL and total <= ALL_GRADS_REL_TOL,
+    check(worst <= grad_tol and total <= all_tol,
           "float32 card gradients vs float64")
+    check(controls["tf32"]["rejected"], "the gradient bounds reject TF32")
     check(bf16_err <= BF16_LOSS_REL_TOL, "bf16 loss vs float32 loss")
     return {"loss_rel_err": loss_err, "grad_rel_err": worst,
-            "all_grads_rel_err": total, "cpu_f32_grad_rel_err": cpu_worst,
+            "all_grads_rel_err": total, "grad_bounds": [grad_tol, all_tol],
+            "cpu_f32_grad_rel_err": cpu_worst,
             "cpu_f32_all_grads_rel_err": cpu_total,
             "bf16_loss_rel_err": bf16_err, "controls": controls}
 
@@ -1089,19 +1153,18 @@ def time_path(detect, images, dev, label: str, flops: float,
 
 
 def time_train(trainer, state, make_batch, flops: float, label: str,
-               batches=TRAIN_BATCHES) -> dict:
+               batches=TRAIN_BATCHES, pools: int = 5) -> dict:
     """Steps/s and images/s of ``Trainer.train_step`` at each of
     ``batches`` on seeded batches (``make_batch(b)``: numpy images and
     labels) already on the card (as the train loop's device prefetch
     hands them over), host clock around steps that end in a synchronize;
-    B5's launches checked at 5 a step; then one profiled step a batch.
-    ``flops`` are an image's forward conv FLOPs (the bound counts three
-    times them: forward and backward)."""
+    B5's launches checked at ``pools`` a step (the Darknet trunk's 5, 0
+    for ResNet's); then one profiled step a batch. ``flops`` are the
+    FLOPs of a step an image, forward and backward, for the bound."""
     from tensorflow_yolo2_torch.ops import cuda_pool
 
     dev = trainer.device
     out, on_card = {}, {}
-    flops = 3 * flops
     for b in batches:
         images, labels = (torch.from_numpy(a).to(dev) for a in make_batch(b))
         on_card[b] = (images, labels)
@@ -1116,8 +1179,9 @@ def time_train(trainer, state, make_batch, flops: float, label: str,
         torch.cuda.synchronize()
         dt = (time.perf_counter() - t0) / TIMED_STEPS
         n = cuda_pool.MAX_POOL2_BWD_LAUNCHES
-        check(n == 5 * TIMED_STEPS, f"B5 ran 5 times a step at batch {b} "
-                                    f"({n} in {TIMED_STEPS} steps)")
+        check(n == pools * TIMED_STEPS, f"B5 ran {pools} times a step at "
+                                        f"batch {b} ({n} in {TIMED_STEPS} "
+                                        f"steps)")
         check(math.isfinite(metrics["loss"].item()), f"finite loss at {b}")
         peak = torch.cuda.max_memory_allocated() / 2**30
         out[b] = {"steps_per_s": 1 / dt, "images_per_s": b / dt,
@@ -1125,9 +1189,9 @@ def time_train(trainer, state, make_batch, flops: float, label: str,
                   "bound_images_per_s": BF16_FLOPS_PER_S / flops}
         print(f"train step {label}, bf16, batch {b}: "
               f"{1 / dt:.2f} steps/s, {b / dt:.1f} images/s ({dt * 1e3:.2f} "
-              f"ms a step; conv bound {BF16_FLOPS_PER_S / flops:.0f} "
-              f"images/s at {flops / 1e9:.2f} GFLOP an image, forward and "
-              f"backward); peak memory {peak:.2f} GiB")
+              f"ms a step; matmul bound {BF16_FLOPS_PER_S / flops:.0f} "
+              f"images/s at {flops / 1e9:.2f} GFLOP an image a step); peak "
+              f"memory {peak:.2f} GiB")
     for b, (images, labels) in on_card.items():
         prof = profile_call(lambda: trainer.train_step(state, images, labels),
                             f"train step {label} batch {b}", top=16)
@@ -1147,8 +1211,8 @@ def detector_train_times(trainer, state, rng, yolo) -> dict:
     """``time_train`` of a detector trainer on ``train_batch`` batches."""
     return time_train(
         trainer, state, lambda b: train_batch(rng, b, yolo),
-        conv_flops_per_image(yolo.image_size, yolo.cell_channels,
-                             passthrough=yolo.per_slot_classes),
+        3 * conv_flops_per_image(yolo.image_size, yolo.cell_channels,
+                                 passthrough=yolo.per_slot_classes),
         f"{'v2p' if yolo.per_slot_classes else 'v1'} {yolo.image_size}²")
 
 
@@ -1801,7 +1865,7 @@ def check_classifier_training(dev) -> dict:
         labels[:CLS_CHECK_IMAGES], dev, trained)
     del images, labels
     times = time_train(trainer, state, lambda b: cls_batch(rng, b),
-                       classifier_flops_per_image(CLS_SIZE, CLS_CLASSES),
+                       3 * classifier_flops_per_image(CLS_SIZE, CLS_CLASSES),
                        f"classifier {CLS_SIZE}²", CLS_BATCHES)
     return {"losses": losses, "accuracy": accuracy, "launches": launches,
             "pool_err": pool_err, "checks": step_check, **times,
@@ -1980,6 +2044,382 @@ def run_classifier_clis(dev) -> dict:
         check(len(rows) == 5 and rows[0].startswith("1. n0"),
               "the predict CLI prints 5 ranked synsets")
         out["predict"] = rows
+    return out
+
+
+def resnet_detector(dev):
+    """The ResNet50 detector at 224² (S=7, B=2, C=20), flax's fresh
+    weights from seed 0 drawn on the card, with its BatchNorms moved off
+    the identity (scale U(0.5, 1.5), bias N(0, 0.1), running mean
+    N(0, 0.1), variance U(0.5, 2)) so that the ReLU'd grid is not all
+    zeros; the box outputs (channels 22-29 of every cell) near their
+    biases (weights ×0.1, x, y 0.5, w, h roots 0.6: boxes ~2.5 cells
+    wide) and the confidences raised (+0.3) so that both boxes of a cell
+    often pass the threshold and overlap, and NMS has work: its config and
+    state dict (on the CPU)."""
+    from tensorflow_yolo2_torch.config import YoloConfig
+    from tensorflow_yolo2_torch.models.darknet import init_params_
+    from tensorflow_yolo2_torch.models.resnet import ResNet50Detector
+
+    yolo = YoloConfig()
+    with torch.device(dev):
+        model = ResNet50Detector(yolo.cell_channels, yolo.S, yolo.image_size)
+    gen = torch.Generator(dev).manual_seed(0)
+    init_params_(model, gen)
+    with torch.no_grad():
+        for m in model.modules():
+            if isinstance(m, torch.nn.BatchNorm2d):
+                m.weight.uniform_(0.5, 1.5, generator=gen)
+                m.bias.normal_(0.0, 0.1, generator=gen)
+                m.running_mean.normal_(0.0, 0.1, generator=gen)
+                m.running_var.uniform_(0.5, 2.0, generator=gen)
+        C, B = yolo.num_class, yolo.B
+        weight = model.yolo_fc2.weight.view(-1, yolo.cell_channels, 4096)
+        bias = model.yolo_fc2.bias.view(-1, yolo.cell_channels)
+        weight[:, C + B:] *= 0.1
+        bias[:, C + B:] = torch.tensor([0.5, 0.5, 0.6, 0.6] * B)
+        bias[:, C:C + B] += 0.3
+    return yolo, {k: v.cpu() for k, v in model.state_dict().items()}
+
+
+def check_resnet_serving(dev, images: torch.Tensor) -> dict:
+    """The ResNet detector's serving path, ``make_resnet_detect_fn`` at
+    224², bf16, BN unfolded, threshold 0.2: one call with NMS and one
+    without on a uint8 batch of 16 (B1 once, B3 once); the bf16 card grid
+    of 2 images against the float32 CPU forward; B1 (K=32 and K=n,
+    class-aware on and off) and B3 against their plain versions on the
+    card grid of 256 images at 0.2 and 0.05. Returns the detect function
+    with NMS, the grid, the config, the launches and the errors."""
+    from tensorflow_yolo2_torch.entries.pascal_detect_resnet import (
+        build_resnet_detector,
+        make_resnet_detect_fn,
+    )
+    from tensorflow_yolo2_torch.ops import cuda_decode as cd
+    from tensorflow_yolo2_torch.utils.device import device_normalize
+
+    yolo, state = resnet_detector(dev)
+    detect_nms = make_resnet_detect_fn(yolo, state, RESNET_THRESH,
+                                       use_nms=True)
+    detect_dense = make_resnet_detect_fn(yolo, state, RESNET_THRESH)
+    batch = images[:16]
+    cd.reset_launch_counts()
+    kept = detect_nms(batch)
+    dense = detect_dense(batch)
+    torch.cuda.synchronize()
+    launches = {"decode_nms": cd.DECODE_NMS_LAUNCHES,
+                "decode_grid": cd.DECODE_GRID_LAUNCHES,
+                "decode_nms_v2": cd.DECODE_NMS_V2_LAUNCHES}
+    print(f"resnet50 224² path launches, one call with NMS and one without: "
+          f"{launches}")
+    check(launches == {"decode_nms": 1, "decode_grid": 1, "decode_nms_v2": 0},
+          "the ResNet path launched B1 once with NMS and B3 once without")
+    n = yolo.S * yolo.S * yolo.B
+    check(kept.boxes.shape == (16, K, 4) and dense.boxes.shape == (16, n, 4),
+          "ResNet output shapes")
+    check(all(bool(torch.isfinite(t).all()) for t in (*kept[:2], *dense[:2])),
+          "ResNet finite outputs")
+    check(bool((kept.scores > 0).any()), "the ResNet path kept detections")
+    del detect_dense
+
+    model = build_resnet_detector(yolo, state, device=dev)
+    x = images[:BATCH].to(dev)
+    with torch.inference_mode():
+        grid = model(device_normalize(x).to(torch.bfloat16))
+        on_card = grid[:2].double().cpu()
+    cpu = build_resnet_detector(yolo, state, torch.float32, "cpu")
+    with torch.inference_mode():
+        on_cpu = cpu(images[:2].float() / 255.0 * 2.0 - 1.0).double()
+    del cpu, model
+    rel = ((on_card - on_cpu).norm() / on_cpu.norm()).item()
+    print(f"resnet50 grid, bf16 card vs float32 CPU forward: relative norm "
+          f"error {rel:.3e} (bound {GRID_REL_TOL})")
+    check(rel <= GRID_REL_TOL, "ResNet card grid agrees with the CPU forward")
+    errs = {"decode_nms": 0.0, "decode_grid": 0.0}
+    for thresh in (RESNET_THRESH, 0.05):
+        errs["decode_grid"] = max(errs["decode_grid"], compare_dense(
+            cd.decode_grid_fused(grid, yolo, thresh),
+            cd.decode_grid_plain(grid, yolo, thresh)))
+        for class_aware in (True, False):
+            errs["decode_nms"] = max(errs["decode_nms"], compare_kept(
+                cd.decode_nms_fused(grid, yolo, thresh, 0.5, K, class_aware),
+                cd.decode_nms_plain(grid, yolo, thresh, 0.5, K,
+                                    class_aware)))
+        want = cd.decode_nms_plain(grid, yolo, thresh, 0.5, n)
+        errs["decode_nms"] = max(errs["decode_nms"], compare_kept(
+            cd.decode_nms_fused(grid, yolo, thresh, 0.5, n), want))
+        valid = (cd.decode_grid_plain(grid, yolo, thresh).scores > 0).sum(1)
+        n_kept = (want.scores > 0).sum(1)
+        print(f"resnet50 real grid, threshold {thresh}: "
+              f"{valid.float().mean():.1f} valid and "
+              f"{n_kept.float().mean():.1f} surviving slots per image")
+        check(bool((n_kept > 0).any()), "the ResNet grid keeps boxes")
+        check(bool((n_kept <= valid).all()) and bool((n_kept < valid).any()),
+              "ResNet NMS suppressed boxes")
+    torch.cuda.synchronize()
+    print(f"resnet50 real grid: B1 and B3 match their plain versions (max "
+          f"abs err {errs})")
+    return {"detect": detect_nms, "grid": grid, "yolo": yolo,
+            "launches": launches, "errs": errs, "grid_rel_err": rel}
+
+
+def fresh_state_dict(model: torch.nn.Module, device) -> dict:
+    """flax's fresh weights for ``model`` (``init_params_``), drawn on
+    ``device`` from seed 0: the host draws the 224² ResNet detector's 435M
+    weights in ~30 s (its truncated normal resamples the whole tensor
+    until no value lies out of range)."""
+    from tensorflow_yolo2_torch.models.darknet import init_params_
+
+    model = init_params_(model.to(device),
+                         torch.Generator(device).manual_seed(0))
+    return {k: v.cpu() for k, v in model.state_dict().items()}
+
+
+def make_resnet_trainer(dtype: torch.dtype, device, state_dict=None,
+                        size: int = 224, dropout_rate: float = 0.5):
+    """The detector's trainer as ``pascal_train_resnet`` builds it
+    (``ResNet50Detector`` at ``size``², the YOLO loss, Adam at 5e-4) and
+    its state on ``device``: fresh weights from seed 0 drawn there
+    (``fresh_state_dict``) or ``state_dict``'s."""
+    from tensorflow_yolo2_torch.config import (
+        LRScheduleConfig,
+        OptimizerConfig,
+        YoloConfig,
+    )
+    from tensorflow_yolo2_torch.models.resnet import ResNet50Detector
+    from tensorflow_yolo2_torch.train.trainer import Trainer, yolo_task
+
+    yolo = YoloConfig(image_size=size)
+    with torch.device(device):
+        model = ResNet50Detector(yolo.cell_channels, yolo.S, size,
+                                 dropout_rate=dropout_rate)
+    if state_dict is None:
+        state_dict = fresh_state_dict(model, device)
+    trainer = Trainer(model, yolo_task(yolo), OptimizerConfig(
+        name="adam", schedule=LRScheduleConfig(learning_rate=5e-4)),
+        device=device, compute_dtype=dtype)
+    return trainer, trainer.create_state(torch.Generator().manual_seed(0),
+                                         state_dict)
+
+
+def resnet_check_weights(images: torch.Tensor, labels: torch.Tensor
+                         ) -> dict:
+    """The float32 weights the ResNet step check starts from: fresh ones
+    from seed 0 drawn on the CPU at ``RESNET_CHECK_SIZE``², then
+    ``RESNET_WARM_STEPS`` Adam steps in float64 on the CPU on ``images``
+    and ``labels``, dropout off. Float32 steps on the card would make
+    them a function of the card's rounding: Adam's first steps move each
+    weight by ~lr whatever its gradient's size, and the point they reach,
+    and the float32 gradients' distance from float64 there, changed from
+    run to run (all 1.8e-5 to 1.2e-2, and once over 3e-2)."""
+    cpu = torch.device("cpu")
+    trainer, state = make_resnet_trainer(torch.float32, cpu,
+                                         size=RESNET_CHECK_SIZE,
+                                         dropout_rate=0.0)
+    state.model.double()
+    trainer.resume_optimizer(state)
+    images = images.cpu().double() / 255.0 * 2.0 - 1.0
+    for _ in range(RESNET_WARM_STEPS):
+        trainer.train_step(state, images, labels.cpu())
+    return {k: v.detach().float() if v.is_floating_point() else v
+            for k, v in state.model.state_dict().items()}
+
+
+def check_resnet_training(dev) -> dict:
+    """The detector's training path at full width, bf16, Adam at 5e-4,
+    dropout on: 30 steps on one seeded batch of 4 at 224² (no B5, the
+    loss falling); a float32 step on the card against float64 on the CPU
+    with dropout off at 64² on 4 images, from the weights of 3 float64
+    steps on the CPU (``resnet_check_weights``; ``RESNET_GRAD_BOUNDS``);
+    images/s at batch 4 and 32 with the idle share."""
+    from tensorflow_yolo2_torch.config import YoloConfig
+    from tensorflow_yolo2_torch.ops import cuda_pool
+    from tensorflow_yolo2_torch.utils.profiling import (
+        resnet50_flops_per_image,
+    )
+
+    yolo = YoloConfig()
+    rng = np.random.RandomState(11)
+    images, labels = (torch.from_numpy(a).to(dev) for a in
+                      train_batch(rng, RESNET_TRAIN_BATCHES[0], yolo))
+    trainer, state = make_resnet_trainer(torch.bfloat16, dev)
+    losses = []
+    cuda_pool.reset_launch_counts()
+    for _ in range(FALL_STEPS):
+        state, metrics = trainer.train_step(state, images, labels)
+        losses.append(metrics["loss"])
+    torch.cuda.synchronize()
+    losses = torch.stack(losses).tolist()
+    print(f"train path resnet50 224², dropout 0.5: loss on one batch of "
+          f"{RESNET_TRAIN_BATCHES[0]}: " + ", ".join(f"{v:.3f}"
+                                                     for v in losses))
+    check(cuda_pool.MAX_POOL2_BWD_LAUNCHES == 0, "no B5 in a ResNet step")
+    check(all(math.isfinite(v) for v in losses), "finite ResNet losses")
+    # Adam's first steps move every weight by ~lr, and the ReLU'd grid
+    # with them: the loss jumps by orders of magnitude before it falls (a
+    # float32 CPU rehearsal: 385 → 70391 at step 2 → 80 at step 29), so
+    # the last steps are held to the first five
+    check(sum(losses[-5:]) < 0.1 * sum(losses[:5]),
+          "the ResNet loss fell on a fixed batch (mean of the last 5 steps "
+          "under a tenth of the first 5's)")
+    check(state.step == FALL_STEPS and all(
+        bool(torch.isfinite(p).all()) for p in state.params.values()),
+        "finite ResNet parameters after the steps")
+
+    small = YoloConfig(image_size=RESNET_CHECK_SIZE)
+    build = functools.partial(make_resnet_trainer, size=RESNET_CHECK_SIZE,
+                              dropout_rate=0.0)
+    cimages, clabels = (torch.from_numpy(a).to(dev) for a in train_batch(
+        np.random.RandomState(15), RESNET_CHECK_IMAGES, small))
+    cuda_pool.reset_launch_counts()
+    step_check = check_train_step_against_cpu(
+        build, cimages, clabels, dev, resnet_check_weights(cimages, clabels),
+        bounds=RESNET_GRAD_BOUNDS)
+    check(cuda_pool.MAX_POOL2_BWD_LAUNCHES == 0,
+          "no B5 in the ResNet step check")
+    flops = 3 * resnet50_flops_per_image(224, grid_outputs=yolo.S ** 2 *
+                                         yolo.cell_channels)
+    times = time_train(trainer, state, lambda b: train_batch(rng, b, yolo),
+                       flops, "resnet50 224²", RESNET_TRAIN_BATCHES, pools=0)
+    return {"losses": losses, "checks": step_check, **times}
+
+
+def check_fine_tune(dev) -> dict:
+    """The frozen-trunk ImageNet fine-tune as ``imagenet_train_resnet``
+    builds it (``ResNet50V1``, 1000 classes, 224², momentum 0.9 at 1e-3,
+    ``trainable_scopes=("logits",)``), bf16, at batch 32: after 10 steps
+    every trunk parameter bit-equal to its start, every running statistic
+    of the trunk moved, the logits moved; then images/s."""
+    from tensorflow_yolo2_torch.entries.imagenet_train_resnet import (
+        fine_tune_config,
+    )
+    from tensorflow_yolo2_torch.models.resnet import ResNet50V1
+    from tensorflow_yolo2_torch.train.trainer import Trainer, softmax_task
+    from tensorflow_yolo2_torch.utils.profiling import (
+        resnet50_flops_per_image,
+    )
+
+    with torch.device(dev):
+        model = ResNet50V1(CLS_CLASSES, global_pool=True)
+    fresh = fresh_state_dict(model, dev)
+    trainer = Trainer(model, softmax_task(), fine_tune_config(1e-3),
+                      device=dev)
+    state = trainer.create_state(torch.Generator().manual_seed(0), fresh)
+    start = {k: v.detach().clone()
+             for k, v in state.model.state_dict().items()}
+    rng = np.random.RandomState(12)
+    images, labels = (torch.from_numpy(a).to(dev)
+                      for a in cls_batch(rng, FINE_TUNE_BATCH))
+    for _ in range(FINE_TUNE_STEPS):
+        state, metrics = trainer.train_step(state, images, labels)
+    torch.cuda.synchronize()
+    after = state.model.state_dict()
+    params = dict(state.model.named_parameters())
+    trunk = [k for k in params if not k.startswith("logits.")]
+    stats = [k for k in after if "running" in k]
+    frozen_equal = all(torch.equal(after[k], start[k]) for k in trunk)
+    stats_moved = all(not torch.equal(after[k], start[k]) for k in stats)
+    logits_moved = all(not torch.equal(after[k], start[k])
+                       for k in ("logits.weight", "logits.bias"))
+    print(f"fine-tune resnet50 224², {CLS_CLASSES} classes, batch "
+          f"{FINE_TUNE_BATCH}, {FINE_TUNE_STEPS} steps: {len(trunk)} trunk "
+          f"parameters bit-equal to their start: {frozen_equal}; "
+          f"{len(stats)} running statistics moved: {stats_moved}; logits "
+          f"moved: {logits_moved}; slots: {sorted(state.opt_state.trace)}; "
+          f"loss {metrics['loss'].item():.4f}")
+    check(frozen_equal, "the frozen trunk's parameters are bit-equal")
+    check(stats_moved, "the frozen trunk's BatchNorm statistics moved")
+    check(logits_moved, "the logits trained")
+    check(sorted(state.opt_state.trace) == ["logits.bias", "logits.weight"],
+          "optimizer slots for the logits alone")
+    # the frozen trunk runs forward only; the logits' backward is ~0
+    flops = resnet50_flops_per_image(224, num_classes=CLS_CLASSES)
+    times = time_train(trainer, state, lambda b: cls_batch(rng, b), flops,
+                       f"fine-tune resnet50 {CLS_SIZE}²", (FINE_TUNE_BATCH,),
+                       pools=0)
+    return {"frozen_equal": frozen_equal, "stats_moved": stats_moved,
+            "logits_moved": logits_moved, **times}
+
+
+def run_resnet_clis(dev) -> dict:
+    """The ResNet family's three CLIs with ``--device cuda`` under a run
+    root of their own (a temporary dir, deleted after: a 224² detector
+    snapshot with Adam's slots is ~5 GB): ``pascal_train_resnet`` for 2
+    iterations at batch 4 on a synthetic VOC tree written with cv2;
+    ``pascal_detect_resnet --nms`` on its snapshot, drawing recorded
+    through a patched ``draw_detections`` (the card machine has no
+    matplotlib), its boxes equal to ``make_resnet_detect_fn``'s (B1 once
+    a call); ``imagenet_train_resnet`` for an epoch on the
+    ``write_ilsvrc_tree`` tree. Each must exit 0."""
+    import tempfile
+
+    from tensorflow_yolo2_torch.config import YoloConfig
+    from tensorflow_yolo2_torch.data.augment import image_read
+    from tensorflow_yolo2_torch.entries import (
+        imagenet_train_resnet,
+        pascal_detect_resnet,
+        pascal_train_resnet,
+    )
+    from tensorflow_yolo2_torch.ops import cuda_decode as cd
+    from tensorflow_yolo2_torch.train.checkpoint import (
+        CheckpointManager,
+        read_snapshot,
+    )
+    from tensorflow_yolo2_torch.utils import cuda_build
+    from tests import synthetic
+
+    out = {}
+    with tempfile.TemporaryDirectory(dir=cuda_build.BUILD_DIR) as root, \
+            mock.patch.dict(os.environ, {"TFY2_ROOT": root}):
+        voc = synthetic.make_voc(os.path.join(root, "data", "VOCdevkit"),
+                                 n_images=VOC_TREE_IMAGES)
+        run_cli(pascal_train_resnet.main,
+                ["--iters", "2", "--batch-size", str(RESNET_CLI_BATCH),
+                 "--save-every", "2", "--log-every", "1", "--num-workers",
+                 "2", "--device", str(dev)], "pascal_train_resnet")
+        mgr = CheckpointManager("resnet50", "voc_2007")
+        check(mgr.all_steps() == [2], "pascal_train_resnet saved train_iter_2")
+        image = os.path.join(voc, "JPEGImages", "000000.jpg")
+        drawn = []
+
+        def record(path, boxes, scores, classes, names, out_path=None):
+            drawn.append((boxes, scores, classes))
+            return os.path.join(root, "detections.png")
+
+        cd.reset_launch_counts()
+        with mock.patch.object(pascal_detect_resnet, "draw_detections",
+                               record):
+            run_cli(pascal_detect_resnet.main,
+                    [image, "--nms", "--device", str(dev)],
+                    "pascal_detect_resnet --nms")
+        torch.cuda.synchronize()
+        out["detect_launches"] = cd.DECODE_NMS_LAUNCHES
+        check(out["detect_launches"] == 1, "the detect CLI launched B1 once")
+        snap = read_snapshot(mgr.latest_path())
+        yolo = YoloConfig()
+        detect = pascal_detect_resnet.make_resnet_detect_fn(
+            yolo, snap["model"], RESNET_THRESH, use_nms=True, device=dev)
+        del snap
+        want = [t[0].cpu().numpy()
+                for t in detect(image_read(image, yolo.image_size)[None])]
+        (got,) = drawn
+        check(all(np.array_equal(g, w) for g, w in zip(got, want)),
+              "the detect CLI's boxes equal make_resnet_detect_fn's")
+        out["detect_kept"] = int((want[1] > 0).sum())
+        print(f"pascal_detect_resnet --nms: {out['detect_kept']} boxes kept "
+              f"at {RESNET_THRESH}, equal to make_resnet_detect_fn's")
+        del detect
+
+        write_ilsvrc_tree(os.path.join(root, "data", "ILSVRC"),
+                          np.random.RandomState(13))
+        epoch = CLS_TREE[0] * CLS_TREE[1] // CLS_CLI_BATCH
+        run_cli(imagenet_train_resnet.main,
+                ["--batch-size", str(CLS_CLI_BATCH), "--iters", str(epoch),
+                 "--save-every", str(epoch), "--eval-every", "2",
+                 "--log-every", str(epoch), "--num-workers", "2",
+                 "--device", str(dev)], "imagenet_train_resnet")
+        steps = CheckpointManager("resnet50", "ilsvrc_2017_cls",
+                                  save_by_epoch=True).all_steps()
+        check(steps == [1], "imagenet_train_resnet saved train_epoch_1")
     return out
 
 
@@ -2286,6 +2726,11 @@ def main(argv: list[str] | None = None) -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     dev = torch.device("cuda")
 
+    start = time.perf_counter()
+
+    def mark(section: str) -> None:
+        print(f"[{time.perf_counter() - start:.1f} s] {section}", flush=True)
+
     # 1. header and build ----------------------------------------------------
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -2317,6 +2762,7 @@ def main(argv: list[str] | None = None) -> int:
     launches = {}
 
     # 2. kernels against their plain versions on synthetic grids -------------
+    mark("section 2")
     for S in (7, 14):
         cfg = YoloConfig(S=S, image_size=32 * S)
         net = torch.from_numpy(synthetic_grid(cfg, BATCH, seed=S)).to(dev)
@@ -2355,6 +2801,7 @@ def main(argv: list[str] | None = None) -> int:
     images, v2_images = serving_images()
 
     # 3. the v1 serving path at full width (the main path) -------------------
+    mark("section 3")
     yolo, state = v1_detector()
     v1_state = state
     batch = images[:16]
@@ -2413,6 +2860,7 @@ def main(argv: list[str] | None = None) -> int:
           f"{errs})")
 
     # 4. the anchor serving paths at full width: YOLOv2 at 416² -------------
+    mark("section 4")
     for head in ("v2p", "v2"):
         passthrough = head == "v2p"
         v2cfg, state = v2_detector(passthrough)
@@ -2478,6 +2926,7 @@ def main(argv: list[str] | None = None) -> int:
 
     # 5. B4, B4-f32 and the --pallas-stem serving paths in bf16 and float32:
     # v1 448², --v2 416² -----------------------------------------------------
+    mark("section 5")
     from tensorflow_yolo2_torch.ops import cuda_stem as cs
 
     errs["stem"] = check_stem_kernel(dev, v1_state)
@@ -2579,6 +3028,7 @@ def main(argv: list[str] | None = None) -> int:
           f"match their plain versions (max abs err {errs})")
 
     # 6. the v1 training path at full width: 224², bf16 ---------------------
+    mark("section 6")
     from tensorflow_yolo2_torch.ops import cuda_pool
 
     tyolo = YoloConfig()  # the reference's: 224², S=7, B=2, C=20
@@ -2611,6 +3061,7 @@ def main(argv: list[str] | None = None) -> int:
         {k: v.cpu() for k, v in tstate.model.state_dict().items()})
 
     # 7. the v2p training path at full width: YOLOv2 at 416², bf16 ----------
+    mark("section 7")
     vyolo = yolo_v2_config(V2P_TRAIN_SIZE)  # S=13, B=5, C=20, classic
     vrng = np.random.RandomState(4)
     vbatch = train_batch(vrng, TRAIN_BATCHES[0], vyolo)
@@ -2653,6 +3104,7 @@ def main(argv: list[str] | None = None) -> int:
     # most of the v1 grid pass the threshold: B2 and B1 meet their most
     # candidates. (The v2p weights of 7, taught mostly "no object" in 30
     # steps, put no slot above it.)
+    mark("section 8")
     erng = np.random.RandomState(5)
     evals = {
         "eval_v2p_416": check_eval(
@@ -2663,9 +3115,11 @@ def main(argv: list[str] | None = None) -> int:
     }
 
     # 9. the native host layer ----------------------------------------------
+    mark("section 9")
     demo, native_info = check_native()
 
     # 10. int8 serving at full width: v1 448², --v2 and v2p 416² ------------
+    mark("section 10")
     int8 = {head: check_int8(head, cfg, st, imgs, dev) for head, cfg, st, imgs
             in (("v1", yolo, v1_state, images),
                 ("v2", v2cfg, v2_state, v2_images),
@@ -2680,12 +3134,26 @@ def main(argv: list[str] | None = None) -> int:
         dev, calib=train_batch(erng, EVAL_BATCH, yolo)[0])
 
     # 11. the classifier at full width: training, int8, its three CLIs ----
+    mark("section 11")
     cls_train = check_classifier_training(dev)
     cls_int8 = check_int8_classifier(cls_train.pop("trained"), dev)
     cls_clis = run_classifier_clis(dev)
     errs["max_pool2_bwd"] = max(errs["max_pool2_bwd"], cls_train["pool_err"])
 
-    # 12. times --------------------------------------------------------------
+    # 12. the ResNet50 family at full width: serving through B1 / B3 at
+    # 224², detector training, the frozen-trunk fine-tune, the three CLIs
+    mark("section 12")
+    resnet_images = torch.from_numpy(np.random.RandomState(14).randint(
+        0, 256, (BATCH, 224, 224, 3)).astype(np.uint8))
+    resnet = check_resnet_serving(dev, resnet_images)
+    for name in ("decode_nms", "decode_grid"):
+        errs[name] = max(errs[name], resnet["errs"][name])
+    resnet_train = check_resnet_training(dev)
+    fine_tune = check_fine_tune(dev)
+    resnet_clis = run_resnet_clis(dev)
+
+    # 13. times --------------------------------------------------------------
+    mark("section 13")
     print(f"times on {card}:")
     v1_flops = conv_flops_per_image(448, yolo.cell_channels)
     tf32 = (f"TF32: cudnn.allow_tf32={torch.backends.cudnn.allow_tf32}, "
@@ -2717,6 +3185,15 @@ def main(argv: list[str] | None = None) -> int:
         "train_cls_224": cls_train,
         "int8_cls_224": cls_int8,
         "cls_clis": cls_clis,
+        "resnet50_224": {
+            **time_path(resnet["detect"], resnet_images, dev,
+                        "resnet50 224²", resnet50_flops_per_image(
+                            224, grid_outputs=1470)),
+            "grid_rel_err": resnet["grid_rel_err"],
+            "launches": resnet["launches"]},
+        "train_resnet50_224": resnet_train,
+        "fine_tune_resnet50_224": fine_tune,
+        "resnet_clis": resnet_clis,
         "tf32": {"cudnn": torch.backends.cudnn.allow_tf32,
                  "matmul": torch.backends.cuda.matmul.allow_tf32},
     }
@@ -2752,17 +3229,18 @@ def main(argv: list[str] | None = None) -> int:
         "decode_nms": (
             lambda: cd.decode_nms_fused(v1_grid, yolo, 0.5, 0.5, K),
             lambda: cd.decode_nms_plain(v1_grid, yolo, 0.5, 0.5, K),
-            decode_bound(yolo, BATCH, kept_v1), "448² (S=14)",
+            decode_bound(yolo, BATCH, kept_v1), "448² (S=14), threshold 0.5",
             lambda: cd.decode_nms_fused(v1_grid, yolo, 0.5, 0.5, 1)),
         "decode_nms_v2": (
             lambda: cd.decode_nms_fused(v2_grid, v2cfg, 0.5, 0.5, K),
             lambda: cd.decode_nms_v2_plain(v2_grid, v2cfg, 0.5, 0.5, K),
-            decode_bound(v2cfg, BATCH, kept_v2), "416² (S=13, B=5)",
+            decode_bound(v2cfg, BATCH, kept_v2),
+            "416² (S=13, B=5), threshold 0.5",
             lambda: cd.decode_nms_fused(v2_grid, v2cfg, 0.5, 0.5, 1)),
         "decode_grid": (
             lambda: cd.decode_grid_fused(v1_grid, yolo, 0.5),
             lambda: cd.decode_grid_plain(v1_grid, yolo, 0.5),
-            decode_bound(yolo, BATCH), "448² (S=14)", None),
+            decode_bound(yolo, BATCH), "448² (S=14), threshold 0.5", None),
     }
     launches_int8 = {  # the decode kernels' launches on the int8 paths
         "decode_nms": {"int8_v1_448": int8["v1"]["launches"]["decode_nms"]},
@@ -2773,6 +3251,25 @@ def main(argv: list[str] | None = None) -> int:
             "int8_v1_448_host_nms": native_info["demo_cli"]["launches"][
                 "decode_grid"]},
     }
+    rgrid, ryolo = resnet["grid"], resnet["yolo"]
+    kept_resnet = (cd.decode_nms_plain(rgrid, ryolo, RESNET_THRESH, 0.5, K)
+                   .scores > 0).sum(1)
+    runs.update({  # B1 and B3 on the ResNet grid, at the CLI's threshold
+        "decode_nms_resnet": (
+            lambda: cd.decode_nms_fused(rgrid, ryolo, RESNET_THRESH, 0.5, K),
+            lambda: cd.decode_nms_plain(rgrid, ryolo, RESNET_THRESH, 0.5, K),
+            decode_bound(ryolo, BATCH, kept_resnet),
+            f"224² (S=7), ResNet50 grid, threshold {RESNET_THRESH}", None),
+        "decode_grid_resnet": (
+            lambda: cd.decode_grid_fused(rgrid, ryolo, RESNET_THRESH),
+            lambda: cd.decode_grid_plain(rgrid, ryolo, RESNET_THRESH),
+            decode_bound(ryolo, BATCH),
+            f"224² (S=7), ResNet50 grid, threshold {RESNET_THRESH}", None)})
+    launches["decode_nms_resnet"] = resnet["launches"]["decode_nms"]
+    launches["decode_grid_resnet"] = resnet["launches"]["decode_grid"]
+    errs["decode_nms_resnet"] = resnet["errs"]["decode_nms"]
+    errs["decode_grid_resnet"] = resnet["errs"]["decode_grid"]
+    launches_int8.update(decode_nms_resnet={}, decode_grid_resnet={})
     kernels = []
     for name, (fused, plain, (bound, by), shape, one_step) in runs.items():
         ms = graph_ms(fused)
@@ -2780,7 +3277,8 @@ def main(argv: list[str] | None = None) -> int:
         plain_ms = cuda_ms(plain, 5)
         kernels.append({
             "name": name, "route": "cuda", "source": SOURCE,
-            "replaces": TPU_KERNELS[name], "launches": launches[name],
+            "replaces": TPU_KERNELS[name.removesuffix("_resnet")],
+            "launches": launches[name],
             "max_abs_err": errs[name], "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound, "bound_by": by, "library_ms": None,
             "call_ms": call_ms, "launches_int8": launches_int8[name]})
@@ -2791,7 +3289,7 @@ def main(argv: list[str] | None = None) -> int:
             for ev_name, ev in evals.items() if ev["kernel"] == name}
         if eval_runs:
             kernels[-1]["eval"] = eval_runs
-        print(f"{name}, batch {BATCH}, {shape}, threshold 0.5: kernel "
+        print(f"{name}, batch {BATCH}, {shape}: kernel "
               f"{ms * 1e3:.2f} us (graph replay; {call_ms * 1e3:.2f} us a "
               f"call from Python), plain {plain_ms * 1e3:.1f} us, bound "
               f"{bound * 1e3:.2f} us ({by}); no single PyTorch call computes "
@@ -2861,6 +3359,7 @@ def main(argv: list[str] | None = None) -> int:
           f"{st['ops_bound_ms']:.3f} ms, bytes {st['bytes_bound_ms']:.3f} "
           f"ms; 3xTF32 on the tensor cores {st['ops_bound_3xtf32_ms']:.3f} "
           f"ms); no single PyTorch call computes it")
+    mark("done")
     print(json.dumps({"path": path, "card": card}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -30,7 +30,7 @@ def root_dir() -> str:
 @dataclass(frozen=True)
 class Paths:
     """Run-directory layout, the JAX package's: ``data/VOCdevkit``,
-    ``data/ILSVRC``, ``cache/``, ``ckpts/<net>/<imdb>/``,
+    ``data/ILSVRC``, ``cache/``, ``weights/``, ``ckpts/<net>/<imdb>/``,
     ``tensorboard/<net>/<imdb>/``."""
 
     root: str = field(default_factory=root_dir)
@@ -46,6 +46,10 @@ class Paths:
     @property
     def cache(self) -> str:
         return os.path.join(self.root, "cache")
+
+    @property
+    def weights(self) -> str:
+        return os.path.join(self.root, "weights")
 
     @property
     def ckpts(self) -> str:

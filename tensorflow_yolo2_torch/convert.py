@@ -11,6 +11,14 @@ and renaming the leaf:
     batch_stats <path>/bn/mean  → <path>.bn.running_mean
     batch_stats <path>/bn/var   → <path>.bn.running_var
 
+A bare ``nn.Conv`` or ``nn.Dense`` of ResNet50 (``conv1`` to ``conv3``,
+``shortcut_conv``, ``logits``, ``yolo_fc1``, ``yolo_fc2``) keeps its own
+name:
+
+    <path>/<layer>/kernel (HWIO)   → <path>.<layer>.weight (OIHW)
+    <path>/<layer>/kernel (in, out) → <path>.<layer>.weight (out, in)
+    <path>/<layer>/bias             → <path>.<layer>.bias
+
 Folded trees (no ``bn`` children) convert the same way and load into a
 model built with ``fold_bn=True``. ``save_npz`` / ``load_npz`` carry such
 a pair between machines as one ``.npz`` with ``/``-joined keys.
@@ -55,6 +63,12 @@ def unflatten(flat: Mapping[str, Any]) -> dict[str, Any]:
     return tree
 
 
+_BARE_LEAVES = {(layer, leaf): f"{layer}.{name}"
+                for layer in ("conv1", "conv2", "conv3", "shortcut_conv",
+                              "logits", "yolo_fc1", "yolo_fc2")
+                for leaf, name in (("kernel", "weight"), ("bias", "bias"))}
+
+
 def _map(tree: Mapping[str, Any], leaves: Mapping[tuple, str],
          what: str) -> dict[str, torch.Tensor]:
     out: dict[str, torch.Tensor] = {}
@@ -64,8 +78,10 @@ def _map(tree: Mapping[str, Any], leaves: Mapping[tuple, str],
         if name is None:
             raise ValueError(f"unknown {what} leaf {path!r}")
         t = torch.from_numpy(np.array(value, dtype=np.float32))
-        if name == "conv.weight":
-            t = t.permute(3, 2, 0, 1).contiguous()  # HWIO → OIHW
+        if leaf == "kernel":
+            # HWIO → OIHW; a dense (in, out) → (out, in)
+            t = t.permute(3, 2, 0, 1) if t.dim() == 4 else t.t()
+            t = t.contiguous()
         out[".".join(module + [name])] = t
     return out
 
@@ -74,7 +90,7 @@ def state_dict_from_flax(params: Mapping[str, Any],
                          batch_stats: Mapping[str, Any] | None = None
                          ) -> dict[str, torch.Tensor]:
     """Flax ``params`` (+ ``batch_stats``) of numpy arrays → state dict."""
-    sd = _map(params, _PARAM_LEAVES, "params")
+    sd = _map(params, {**_PARAM_LEAVES, **_BARE_LEAVES}, "params")
     sd.update(_map(batch_stats or {}, _STAT_LEAVES, "batch_stats"))
     for key in [k for k in sd if k.endswith(".bn.weight")]:
         sd[key[:-len("weight")] + "num_batches_tracked"] = torch.tensor(0)

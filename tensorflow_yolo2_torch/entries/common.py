@@ -6,6 +6,7 @@ threads → device copies → step → metrics → snapshots)."""
 from __future__ import annotations
 
 import argparse
+import os
 from typing import Any, Callable, Mapping, Optional
 
 import torch
@@ -49,6 +50,25 @@ def base_parser(description: str) -> argparse.ArgumentParser:
     p.add_argument("--device", default=None,
                    help="torch device (default: cuda)")
     return p
+
+
+def refuse_resnet_tf_import(parser: argparse.ArgumentParser,
+                            tf_checkpoint: Optional[str],
+                            weights_dir: str) -> None:
+    """The ResNet entries of the JAX package warm-start from a TF
+    checkpoint given with ``--tf-checkpoint`` or found at
+    ``<weights>/resnet_v1_50.ckpt[.index]``. That import is not ported
+    (ROADMAP.md, queue A, A7), so either case is refused here, never
+    passed over: a run starts from fresh weights only where the JAX one
+    would too."""
+    if tf_checkpoint:
+        parser.error("--tf-checkpoint is not ported yet (ROADMAP.md, queue "
+                     "A, A7)")
+    ckpt = os.path.join(weights_dir, "resnet_v1_50.ckpt")
+    if os.path.exists(ckpt) or os.path.exists(ckpt + ".index"):
+        parser.error(f"{ckpt} is a TF checkpoint the JAX package would "
+                     "import; TF checkpoint import is not ported yet "
+                     "(ROADMAP.md, queue A, A7)")
 
 
 def _as_state_dict(params: Mapping[str, Any],

@@ -117,7 +117,9 @@ class Darknet19Classifier(nn.Module):
                              use_bn=bn_on_output and not fold_bn,
                              activate=bn_on_output, bn_momentum=bn_momentum)
 
-    def forward(self, images: torch.Tensor) -> torch.Tensor:
+    def forward(self, images: torch.Tensor,
+                generator: torch.Generator | None = None) -> torch.Tensor:
+        del generator  # no dropout; the trainer passes one to every model
         x = self.conv19(self.backbone(images.permute(0, 3, 1, 2)))
         h = x.shape[2]
         x = avg_pool(x, h, h)
@@ -195,7 +197,9 @@ class Darknet19Detector(nn.Module):
         self.detection = DetectionHead(output_channels, bn_on_output, fold_bn,
                                        bn_momentum=bn_momentum)
 
-    def forward(self, images: torch.Tensor) -> torch.Tensor:
+    def forward(self, images: torch.Tensor,
+                generator: torch.Generator | None = None) -> torch.Tensor:
+        del generator  # no dropout; the trainer passes one to every model
         x = images.permute(0, 3, 1, 2)  # NHWC storage = NCHW channels_last
         x = self.detection(self.backbone(x))
         return x.permute(0, 2, 3, 1).contiguous()
@@ -214,7 +218,9 @@ class Darknet19DetectorV2(nn.Module):
         self.detection = DetectionHeadV2(output_channels, fold_bn,
                                          bn_momentum)
 
-    def forward(self, images: torch.Tensor) -> torch.Tensor:
+    def forward(self, images: torch.Tensor,
+                generator: torch.Generator | None = None) -> torch.Tensor:
+        del generator  # no dropout; the trainer passes one to every model
         x, mid = self.backbone(images.permute(0, 3, 1, 2), return_mid=True)
         return self.detection(x, mid).permute(0, 2, 3, 1).contiguous()
 
@@ -227,16 +233,17 @@ _TRUNCATED_STD = 0.87962566103423978
 @torch.no_grad()
 def init_params_(model: nn.Module, generator: torch.Generator) -> nn.Module:
     """Seeded fresh weights with flax's defaults, in place: lecun-normal
-    conv kernels (variance 1/fan_in, truncated at two standard
-    deviations), zero conv biases, BatchNorm scale 1, bias 0, running
-    mean 0 and variance 1."""
+    conv and dense kernels (variance 1/fan_in, truncated at two standard
+    deviations), zero biases, BatchNorm scale 1, bias 0, running mean 0
+    and variance 1."""
     for m in model.modules():
-        if isinstance(m, nn.Conv2d):
-            fan_in = m.in_channels * m.kernel_size[0] * m.kernel_size[1]
+        if isinstance(m, (nn.Conv2d, nn.Linear)):
+            fan_in = m.weight[0].numel()
             std = math.sqrt(1.0 / fan_in) / _TRUNCATED_STD
             nn.init.trunc_normal_(m.weight, 0.0, std, -2.0 * std, 2.0 * std,
                                   generator=generator)
-            m.bias.zero_()
+            if m.bias is not None:
+                m.bias.zero_()
         elif isinstance(m, nn.BatchNorm2d):
             m.reset_parameters()
     return model

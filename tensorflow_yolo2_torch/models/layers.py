@@ -66,6 +66,35 @@ def _same_pads(size: int, window: int, stride: int) -> tuple[int, int]:
     return total // 2, total - total // 2
 
 
+def max_pool_same(x: torch.Tensor, window: int, stride: int) -> torch.Tensor:
+    """window×window SAME max pool of an NCHW tensor, flax's ``max_pool``
+    with ``padding="SAME"``: XLA's padding, −inf, then a VALID pool. On
+    an even map a 3×3/2 pads low 0 and high 1; ``nn.MaxPool2d(3, 2, 1)``
+    pads 1 on both sides, which gives the same shape with every window
+    one row and one column further up and left."""
+    (top, bottom), (left, right) = (_same_pads(s, window, stride)
+                                    for s in x.shape[-2:])
+    if top or bottom or left or right:
+        x = F.pad(x, (left, right, top, bottom), value=float("-inf"))
+    return F.max_pool2d(x, window, stride)
+
+
+def dropout(x: torch.Tensor, rate: float,
+            generator: torch.Generator) -> torch.Tensor:
+    """flax's ``Dropout`` in training: ``where(keep, x / keep_prob, 0)``
+    with ``keep`` drawn with probability ``keep_prob = 1 − rate`` from
+    ``generator`` (on x's device), not from the global generator. The
+    divisor is a tensor of x's type on x's device, as JAX rounds its
+    weak-typed ``keep_prob`` to x's type (CUDA turns a division by a
+    Python number into a multiplication by its reciprocal)."""
+    keep_prob = 1.0 - rate
+    keep = torch.rand(x.shape, generator=generator, device=x.device) < \
+        keep_prob
+    divisor = torch.full((), keep_prob, dtype=x.dtype, device=x.device)
+    return torch.where(keep, x / divisor, torch.zeros((), dtype=x.dtype,
+                                                      device=x.device))
+
+
 def avg_pool(x: torch.Tensor, window: int, stride: int) -> torch.Tensor:
     """window×window SAME average pool of an NCHW tensor, flax's
     ``avg_pool``: the padded zeros count in the divisor, so every output

@@ -5,9 +5,10 @@ The JAX package's layout and naming: ``ckpts/<net>/<imdb>/train_iter_N/``
 (``train_epoch_N`` for epoch intervals), the newest by step, at most
 ``keep`` kept. A snapshot dir holds one torch file, ``state.pt``: the
 model's state dict, the optimizer's state (its count and its slots: Adam's
-``mu`` and ``nu``, momentum's ``trace``), the step and the ``YoloConfig``
-fields of the run. Orbax snapshots of the JAX package need JAX to read
-and are not read here.
+``mu`` and ``nu``, momentum's ``trace``, of the trained parameters), the
+step, the dropout generator's state where the run has one, and the
+``YoloConfig`` fields of the run. Orbax snapshots of the JAX package need
+JAX to read and are not read here.
 
 Restore modes: exact resume (``restore``; ``ValueError`` when the
 snapshot's model or optimizer state does not fit the target), and
@@ -143,6 +144,7 @@ class CheckpointManager:
                 "count": opt.count,
                 **{name: {k: v.cpu() for k, v in slot.items()}
                    for name, slot in optimizer_slots(opt).items()}},
+            "rng": state.rng.get_state(),
             "yolo": (dataclasses.asdict(self.yolo)
                      if self.yolo is not None else None),
         }, os.path.join(tmp, SNAPSHOT_FILE))
@@ -173,6 +175,8 @@ class CheckpointManager:
                     mine[k].copy_(v)
         opt.count = int(saved["count"])
         target.step = int(raw["step"])
+        if raw.get("rng") is not None:  # none in an older snapshot
+            target.rng.set_state(raw["rng"])
         return target, step
 
     def restore_raw(self, step: int | None = None) -> dict[str, Any]:

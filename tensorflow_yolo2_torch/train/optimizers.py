@@ -21,8 +21,15 @@ out on tensors, so that a step equals optax's:
 
 The update runs in place on the parameters and the optimizer's slots
 with ``torch._foreach_*`` operations: a few multi-tensor launches a
-step. Other optimizers, weight decay, EMA, gradient accumulation and
-trainable scopes are not ported yet.
+step.
+
+``trainable_scopes`` trains only the parameters inside those scopes, as
+the JAX package's ``optax.multi_transform({"train": tx, "freeze":
+set_to_zero()})`` over its ``trainable_mask``: the optimizer's slots
+hold the trained parameters only, an update touches no other, and the
+global-norm clip, inside the trained branch, takes its norm over the
+trained gradients. Other optimizers, weight decay, EMA and gradient
+accumulation are not ported yet.
 """
 
 from __future__ import annotations
@@ -34,7 +41,11 @@ from typing import Callable, Mapping
 import numpy as np
 import torch
 
-from tensorflow_yolo2_torch.config import LRScheduleConfig, OptimizerConfig
+from tensorflow_yolo2_torch.config import (
+    LRScheduleConfig,
+    OptimizerConfig,
+    scope_matches,
+)
 
 Schedule = Callable[[int], float]
 NOT_PORTED = "not ported yet (ROADMAP.md, queue A, A6)"
@@ -85,6 +96,18 @@ def make_schedule(cfg: LRScheduleConfig) -> Schedule:
         inner, offset = schedule, cfg.offset_steps
         return lambda count: inner(max(count - offset, 0))
     return schedule
+
+
+def trainable_names(names, scopes: tuple[str, ...]) -> list[str]:
+    """The parameter names inside any of ``scopes`` (all of them without
+    scopes), matched per path component. A scope may be written with the
+    flax path's ``/`` or the port's ``.``: ``"logits"`` takes
+    ``logits.weight`` and ``logits.bias``, ``"backbone/block4"`` every
+    ``backbone.block4...`` name but no ``backbone.block40...`` one."""
+    if not scopes:
+        return list(names)
+    scopes = tuple(s.replace("/", ".") for s in scopes)
+    return [n for n in names if scope_matches(n, scopes)]
 
 
 @dataclass
@@ -138,8 +161,10 @@ class Adam:
         self.schedule = make_schedule(cfg.schedule)
 
     def init(self, params: Mapping[str, torch.Tensor]) -> AdamState:
-        zeros = {k: torch.zeros_like(p, memory_format=torch.preserve_format)
-                 for k, p in params.items()}
+        """Zero moments for the trained parameters of ``params``."""
+        zeros = {k: torch.zeros_like(params[k],
+                                     memory_format=torch.preserve_format)
+                 for k in trainable_names(params, self.cfg.trainable_scopes)}
         return AdamState(0, zeros, {k: torch.zeros_like(z)
                                     for k, z in zeros.items()})
 
@@ -147,13 +172,15 @@ class Adam:
     def update_(self, grads: Mapping[str, torch.Tensor], state: AdamState,
                 params: Mapping[str, torch.Tensor],
                 grad_norm: torch.Tensor | None = None) -> AdamState:
-        """One step: params ← params − lr · m̂ / (√v̂ + ε), in place.
+        """One step of the trained parameters (those with slots in
+        ``state``): params ← params − lr · m̂ / (√v̂ + ε), in place.
 
-        ``grad_norm`` is the global norm of ``grads`` when the caller has
-        it already (it is computed otherwise, if clipping needs it).
+        ``grad_norm`` is the global norm of their gradients when the
+        caller has it already (it is computed otherwise, if clipping
+        needs it).
         """
         cfg = self.cfg
-        keys = list(params)
+        keys = list(state.mu)
         p = [params[k] for k in keys]
         g = [grads[k] for k in keys]
         mu = [state.mu[k] for k in keys]
@@ -200,16 +227,18 @@ class Momentum:
         self.schedule = make_schedule(cfg.schedule)
 
     def init(self, params: Mapping[str, torch.Tensor]) -> MomentumState:
+        """A zero trace for the trained parameters of ``params``."""
         return MomentumState(0, {
-            k: torch.zeros_like(p, memory_format=torch.preserve_format)
-            for k, p in params.items()})
+            k: torch.zeros_like(params[k], memory_format=torch.preserve_format)
+            for k in trainable_names(params, self.cfg.trainable_scopes)})
 
     @torch.no_grad()
     def update_(self, grads: Mapping[str, torch.Tensor],
                 state: MomentumState, params: Mapping[str, torch.Tensor],
                 grad_norm: torch.Tensor | None = None) -> MomentumState:
-        """One step: t ← g + μ·t, params ← params + (−lr)·t, in place."""
-        keys = list(params)
+        """One step of the trained parameters (those with a trace in
+        ``state``): t ← g + μ·t, params ← params + (−lr)·t, in place."""
+        keys = list(state.trace)
         p = [params[k] for k in keys]
         t = [state.trace[k] for k in keys]
         lr = self.schedule(state.count)
@@ -227,13 +256,13 @@ OPTIMIZERS = {"adam": Adam, "momentum": Momentum}
 
 def make_optimizer(cfg: OptimizerConfig) -> Adam | Momentum:
     """The optimizer of ``cfg``: Adam or momentum, with clipping when
-    ``grad_clip_norm`` is set. Anything else raises ``ValueError``."""
+    ``grad_clip_norm`` is set and a frozen remainder outside
+    ``trainable_scopes``. Anything else raises ``ValueError``."""
     if cfg.name.lower() not in OPTIMIZERS:
         raise ValueError(f"optimizer {cfg.name!r} is {NOT_PORTED}; the "
                          "port trains with 'adam' or 'momentum'")
     for name, value in (("weight_decay", cfg.weight_decay),
                         ("moving_average_decay", cfg.moving_average_decay),
-                        ("trainable_scopes", cfg.trainable_scopes),
                         ("grad_accum_steps", cfg.grad_accum_steps > 1)):
         if value:
             raise ValueError(f"{name} is {NOT_PORTED}")

@@ -16,9 +16,23 @@ gradients and optimizer slots stay float32, and the head output and the
 loss are float32 (the JAX package's ``dtype`` / ``param_dtype`` split).
 
 On the card the trunk's activations stay in ``channels_last`` memory and
-its five pools run backward through the CUDA kernel of
-``ops.cuda_pool`` (B5). EMA, gradient accumulation and trainable scopes
-are not ported yet.
+the Darknet trunk's five pools run backward through the CUDA kernel of
+``ops.cuda_pool`` (B5).
+
+With ``trainable_scopes`` (``train.optimizers.trainable_names``) the
+parameters outside them are frozen: ``requires_grad`` off, no gradient
+computed, no optimizer slot. BatchNorm still runs in train mode there and
+updates its running statistics, as the JAX package's
+``mutable=["batch_stats"]`` apply does. ``grad_norm`` is then the norm of
+the trained parameters' gradients (the JAX package computes the frozen
+ones too and counts them in its metric).
+
+Every model's ``forward`` takes ``generator``: a train step passes
+``TrainState.rng``, a generator on the trainer's device seeded from the
+caller's, and an eval step passes none. Only a model with dropout
+(``models.resnet.ResNet50Detector``) draws from it, once a step, as the
+JAX step splits ``state.rng``; the others ignore it. EMA and gradient
+accumulation are not ported yet.
 """
 
 from __future__ import annotations
@@ -39,6 +53,7 @@ from tensorflow_yolo2_torch.train.optimizers import (
     MomentumState,
     global_norm,
     make_optimizer,
+    trainable_names,
 )
 from tensorflow_yolo2_torch.utils.device import (
     device_normalize,
@@ -51,12 +66,13 @@ Metrics = dict[str, torch.Tensor]
 @dataclass
 class TrainState:
     """What a step updates: the model (parameters and BatchNorm running
-    statistics, on the trainer's device), the optimizer's state and the
-    step count."""
+    statistics, on the trainer's device), the optimizer's state, the step
+    count, and the dropout generator on that device."""
 
     step: int
     model: nn.Module
     opt_state: AdamState | MomentumState
+    rng: torch.Generator
 
     @property
     def params(self) -> dict[str, torch.nn.Parameter]:
@@ -174,16 +190,27 @@ class Trainer:
                      ) -> TrainState:
         """Fresh seeded weights (``models.darknet.init_params_``, flax's
         defaults; ``generator`` is a CPU generator), or ``state_dict``'s,
-        on the device, with a fresh optimizer state."""
+        on the device, with a fresh optimizer state; the parameters
+        outside ``trainable_scopes`` frozen (a ``ValueError`` when the
+        scopes take none); the dropout generator on the device, seeded
+        from ``generator`` after the weights."""
         self.model.to("cpu")
         if state_dict is None:
             init_params_(self.model, generator)
         else:
             self.model.load_state_dict(state_dict)
         self.model.to(self.device, memory_format=torch.channels_last)
-        return TrainState(0, self.model,
-                          self.optimizer.init(dict(
-                              self.model.named_parameters())))
+        params = dict(self.model.named_parameters())
+        scopes = self.opt_cfg.trainable_scopes
+        trained = set(trainable_names(params, scopes))
+        if not trained:
+            raise ValueError(f"trainable_scopes {scopes} take no parameter "
+                             "of the model")
+        for name, p in params.items():
+            p.requires_grad_(name in trained)
+        seed = int(torch.randint(2**62, (), generator=generator))
+        rng = torch.Generator(self.device).manual_seed(seed)
+        return TrainState(0, self.model, self.optimizer.init(params), rng)
 
     def resume_optimizer(self, state: TrainState) -> TrainState:
         """The optimizer swap of a resume: a fresh optimizer state for the
@@ -193,11 +220,12 @@ class Trainer:
 
     # -- steps ----------------------------------------------------------------
 
-    def _forward(self, images: torch.Tensor) -> torch.Tensor:
+    def _forward(self, images: torch.Tensor,
+                 generator: torch.Generator | None = None) -> torch.Tensor:
         images = device_normalize(torch.as_tensor(images).to(self.device))
         with torch.autocast(self.device.type, dtype=torch.bfloat16,
                             enabled=self.compute_dtype == torch.bfloat16):
-            outputs = self.model(images)
+            outputs = self.model(images, generator=generator)
         return outputs.float()
 
     def _labels(self, labels: Any) -> torch.Tensor:
@@ -209,13 +237,15 @@ class Trainer:
     def loss_and_grads(self, state: TrainState, images: Any, labels: Any
                        ) -> tuple[Metrics, dict[str, torch.Tensor]]:
         """Forward in train mode (updating the BatchNorm running
-        statistics) and backward: (metrics, gradients by parameter
-        name). The parameters are not changed."""
+        statistics, drawing the dropout mask from ``state.rng``) and
+        backward: (metrics, gradients by name of the trained
+        parameters). The parameters are not changed."""
         state.model.train()
-        params = state.params
+        params = {k: p for k, p in state.params.items() if p.requires_grad}
         labels = self._labels(labels)
         kw = {"step": state.step} if self._task_takes_step else {}
-        loss, metrics = self.task(self._forward(images), labels, **kw)
+        loss, metrics = self.task(self._forward(images, state.rng), labels,
+                                  **kw)
         grads = torch.autograd.grad(loss, list(params.values()))
         return ({k: v.detach() for k, v in metrics.items()},
                 dict(zip(params, grads)))
@@ -225,8 +255,9 @@ class Trainer:
         """One optimizer step on a batch (NHWC images, float or uint8,
         and label grids or class indices; numpy or tensors). Updates
         ``state`` in place and returns it with the step's metrics,
-        ``grad_norm`` (the global norm of the gradients before clipping)
-        among them; the metrics stay on the device."""
+        ``grad_norm`` (the global norm of the trained parameters'
+        gradients before clipping) among them; the metrics stay on the
+        device."""
         metrics, grads = self.loss_and_grads(state, images, labels)
         norm = global_norm(grads.values())
         metrics["grad_norm"] = norm

@@ -92,3 +92,34 @@ def classifier_flops_per_image(image_size: int, num_classes: int) -> float:
 
     return _schedule_flops(image_size,
                            _DARKNET19_SCHEDULE + ((1, num_classes),))
+
+
+def resnet50_flops_per_image(image_size: int, num_classes: int | None = None,
+                             grid_outputs: int | None = None) -> float:
+    """Forward conv and dense FLOPs (2 × MACs) of ResNet50 on one image
+    (``models.resnet``): the root 7×7/2 conv and the 16 bottleneck units
+    with their projection shortcuts; then the classifier's 1×1
+    ``logits`` on the pooled 2048 features (``num_classes``), or the
+    detector's ``yolo_fc1`` (2048·⌈size/32⌉² → 4096) and ``yolo_fc2``
+    (4096 → ``grid_outputs``, S·S·(5B+C)). BatchNorm, ReLU, the adds and
+    the pools are not counted."""
+    from tensorflow_yolo2_torch.models.resnet import _R50_BLOCKS
+
+    hw = -(-image_size // 2)
+    flops = 2.0 * hw * hw * 7 * 7 * 3 * 64
+    hw, cin = -(-hw // 2), 64
+    for bi, (depth, depth_bn, units) in enumerate(_R50_BLOCKS, start=1):
+        for ui in range(1, units + 1):
+            stride = 2 if ui == units and bi < len(_R50_BLOCKS) else 1
+            out = -(-hw // stride)
+            flops += 2.0 * (hw * hw * cin * depth_bn +
+                            out * out * (9 * depth_bn * depth_bn +
+                                         depth_bn * depth))
+            if cin != depth:
+                flops += 2.0 * out * out * cin * depth
+            hw, cin = out, depth
+    if num_classes is not None:
+        flops += 2.0 * cin * num_classes
+    if grid_outputs is not None:
+        flops += 2.0 * (hw * hw * cin * 4096 + 4096 * grid_outputs)
+    return flops

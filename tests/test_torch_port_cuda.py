@@ -972,7 +972,9 @@ def test_importing_the_entries_initialises_no_cuda(card):
     code = ("import torch\n"
             "from tensorflow_yolo2_torch.entries import (\n"
             "    imagenet_predict_darknet, imagenet_test_darknet,\n"
-            "    imagenet_train_darknet, pascal_train_darknet)\n"
+            "    imagenet_train_darknet, imagenet_train_resnet,\n"
+            "    pascal_detect_resnet, pascal_train_darknet,\n"
+            "    pascal_train_resnet)\n"
             "assert not torch.cuda.is_initialized()\n")
     import os
 
@@ -981,3 +983,98 @@ def test_importing_the_entries_initialises_no_cuda(card):
                          cwd=os.path.dirname(os.path.abspath(
                              chip_smoke.__file__)))
     assert out.returncode == 0, out.stderr
+
+
+# -- the ResNet50 family ------------------------------------------------------
+
+
+def test_resnet_serving_runs_b1_and_b3(card):
+    """``make_resnet_detect_fn`` at 224², bf16, threshold 0.2: B1 once a
+    call with NMS, B3 once without, each equal to its plain version on
+    the card grid; the grid within chip_smoke.GRID_REL_TOL of the
+    float32 CPU forward (chip_smoke.check_resnet_serving)."""
+    images = torch.from_numpy(np.random.RandomState(0).randint(
+        0, 256, (chip_smoke.BATCH, 224, 224, 3)).astype(np.uint8))
+    out = chip_smoke.check_resnet_serving(card, images)
+    assert out["launches"] == {"decode_nms": 1, "decode_grid": 1,
+                               "decode_nms_v2": 0}
+    assert out["errs"]["decode_grid"] <= chip_smoke.BOX_TOL
+
+
+def test_resnet_train_step_matches_cpu(card, no_tf32):
+    """A float32 step of the ResNet detector at 64², batch 4, dropout off
+    (no B5) on the card against float64 on the CPU, from the weights of
+    chip_smoke.resnet_check_weights (float64 steps on the CPU):
+    chip_smoke's checks, with the gradient bounds of
+    chip_smoke.RESNET_GRAD_BOUNDS, 1e-1 worst and 3e-2 all (float32
+    rounding alone crosses the detector steps' 1e-2 on all gradients on
+    ResNet50 at 64²)."""
+    from tensorflow_yolo2_torch.config import YoloConfig
+
+    build = functools.partial(chip_smoke.make_resnet_trainer,
+                              size=chip_smoke.RESNET_CHECK_SIZE,
+                              dropout_rate=0.0)
+    images, labels = (torch.from_numpy(a).to(card) for a in
+                      chip_smoke.train_batch(
+                          np.random.RandomState(15),
+                          chip_smoke.RESNET_CHECK_IMAGES,
+                          YoloConfig(image_size=64)))
+    weights = chip_smoke.resnet_check_weights(images, labels)
+    cuda_pool.reset_launch_counts()
+    chip_smoke.check_train_step_against_cpu(
+        build, images, labels, card, weights,
+        bounds=chip_smoke.RESNET_GRAD_BOUNDS)
+    assert cuda_pool.MAX_POOL2_BWD_LAUNCHES == 0
+
+
+def test_resnet_dropout_draws_on_the_card(card):
+    """The detector's dropout generator lives on the card and advances
+    once a train step; two trainers from one seed take the same steps."""
+    from tensorflow_yolo2_torch.config import YoloConfig
+
+    images, labels = (torch.from_numpy(a).to(card) for a in
+                      chip_smoke.train_batch(np.random.RandomState(1), 4,
+                                             YoloConfig()))
+    runs = []
+    for _ in range(2):
+        trainer, state = chip_smoke.make_resnet_trainer(torch.bfloat16, card)
+        assert state.rng.device.type == "cuda"
+        states = [state.rng.get_state()]
+        losses = []
+        for _ in range(2):
+            losses.append(trainer.train_step(state, images, labels)[1][
+                "loss"].item())
+            states.append(state.rng.get_state())
+        assert not torch.equal(states[0], states[1])
+        assert not torch.equal(states[1], states[2])
+        runs.append(losses)
+        del trainer, state
+    assert runs[0] == runs[1]
+
+
+def test_resnet_fine_tune_freezes_the_trunk(card):
+    """``imagenet_train_resnet``'s optimizer on the 1000-class ResNet50 at
+    224², batch 8, 3 bf16 steps: the trunk bit-equal, its BatchNorm
+    statistics moved, the logits moved, slots for the logits alone."""
+    from tensorflow_yolo2_torch.entries.imagenet_train_resnet import (
+        fine_tune_config,
+    )
+    from tensorflow_yolo2_torch.models.resnet import ResNet50V1
+    from tensorflow_yolo2_torch.train.trainer import Trainer, softmax_task
+
+    trainer = Trainer(ResNet50V1(1000, global_pool=True), softmax_task(),
+                      fine_tune_config(1e-3), device=card)
+    state = trainer.create_state(torch.Generator().manual_seed(0))
+    start = {k: v.clone() for k, v in state.model.state_dict().items()}
+    images, labels = (torch.from_numpy(a).to(card) for a in
+                      chip_smoke.cls_batch(np.random.RandomState(2), 8))
+    for _ in range(3):
+        trainer.train_step(state, images, labels)
+    after = state.model.state_dict()
+    for k, p in state.model.named_parameters():
+        assert torch.equal(after[k], start[k]) != k.startswith("logits."), k
+        assert p.requires_grad == k.startswith("logits."), k
+    assert all(not torch.equal(after[k], start[k]) for k in after
+               if "running" in k)
+    assert sorted(state.opt_state.trace) == ["logits.bias", "logits.weight"]
+

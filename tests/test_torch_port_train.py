@@ -262,7 +262,7 @@ def test_adam_matches_optax(clip):
 
 @pytest.mark.parametrize("kw", [dict(name="sgd"), dict(weight_decay=1e-4),
                                 dict(moving_average_decay=0.999),
-                                dict(trainable_scopes=("detection",)),
+                                dict(name="adamw"),
                                 dict(grad_accum_steps=2)])
 def test_unported_optimizer_options_raise(kw):
     with pytest.raises(ValueError, match="ROADMAP"):
