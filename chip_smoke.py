@@ -123,7 +123,25 @@
    4 on a synthetic VOC tree), ``pascal_detect_resnet --nms`` on its
    snapshot (its boxes equal ``make_resnet_detect_fn``'s, B1 once),
    ``imagenet_train_resnet`` (an epoch on the synthetic ILSVRC tree).
-13. Times the v1, v1 ``--pallas-stem`` and v2p serving paths in bf16 and
+13. Drives the slim tier (``train_classifier``, ``eval_classifier``,
+   ``flowers_train``, ``models.registry``, ``train.optimizers``): on a
+   ``make_flowers`` tree at 224² the three CLIs with ``--device cuda``,
+   ``train_classifier`` on its defaults (darknet19, rmsprop, weight decay
+   4e-5) with EMA, ``--grad-accum-steps 2``, ``--save-interval-secs`` and
+   ``--activation-summaries`` (B5 5 times a micro-step), then
+   ``eval_classifier --use-ema`` on its snapshot and ``flowers_train``;
+   every registered net but the inception family at its default size,
+   batch 2: the float32 card forward (TF32 off) within 1e-4 and the bf16
+   forward within 5e-2 of the CPU's float32 forward (relative norm); each
+   of the nine optimizers, MultiSteps and the EMA, one update on the card
+   against the CPU's from the same state (1e-6); ``yolo1_pretrain`` at
+   224² with k=2 on two batches of 16 against one step on 32 (1e-5; B5 4
+   times a micro-step); a ``remat`` step of ``resnet_v1_152`` at batch 8
+   bit-equal to the plain one, with the peak memory of each; and the
+   train steps of darknet19 (224², batch 32, rmsprop, weight decay,
+   EMA), vgg_16 and resnet_v1_152 (224², batch 32) and yolo1 (448², batch
+   16; B5 4 times a step), bf16, images/s with the idle share.
+14. Times the v1, v1 ``--pallas-stem`` and v2p serving paths in bf16 and
    the v1 and v1 ``--pallas-stem`` paths in float32 with TF32 off
    (images/s at batch 32 and 256, with a profile), the v1 224² and v2p
    416² train steps (steps/s and images/s at batch 24 and 64, with a
@@ -141,7 +159,7 @@
    with a profile), and B1 and B3 on the ResNet grid at batch 256,
    threshold 0.2, as the entries ``decode_nms_resnet`` and
    ``decode_grid_resnet``.
-14. Ends with ``{"ok": true, "device": {...}}``.
+15. Ends with ``{"ok": true, "device": {...}}``.
 
     python3 chip_smoke.py --stem-ab [OTHER_STEM_CU ...]
 
@@ -326,6 +344,46 @@ FINE_TUNE_STEPS = 10
 # the synthetic VOC tree of the ResNet detector's CLIs: images, batch
 VOC_TREE_IMAGES = 8
 RESNET_CLI_BATCH = 4
+# the slim tier (train_classifier, eval_classifier, flowers_train, the
+# zoo, the optimizer family): the CLIs on a make_flowers tree at 224²
+# (3 classes, 8 images each), 4 iterations at batch 8 with accumulation
+# over 2; the zoo at each net's default size, batch 2
+SLIM_FLOWERS_PER_CLASS = 8
+SLIM_CLI_BATCH = 8
+SLIM_CLI_ITERS = 4
+ZOO_BATCH = 2
+# the zoo's float32 card forward (TF32 off) against the CPU's float32
+# forward from the same weights: both round every conv and dense sum in
+# float32, in other orders, ~1e-7 relative a layer; 1e-4 leaves room for
+# the deepest (resnet_v1_200, 200 layers) and rejects a wrong padding,
+# pool or flatten (relative errors of order 1)
+ZOO_F32_REL_TOL = 1e-4
+# the bf16 autocast forward against the same CPU float32 forward: the
+# serving paths' bound (GRID_REL_TOL)
+ZOO_BF16_REL_TOL = 5e-2
+# one update of each optimizer (EMA, MultiSteps) on the card against the
+# CPU's from the same float32 parameters, gradients and slots: the same
+# formulas, the card's in float32 (rsqrt within 2 ulp there), ~1e-7. The
+# CPU's update is taken in float64: its float32 norm of a 1M-value tensor
+# is 1e-5 off (measured), and the clip divides every gradient by it
+OPT_REL_TOL = 1e-6
+OPT_WARM_STEPS = 3
+# a k=2 step on two batches of 16 against one step on the batch of 32
+# (yolo1_pretrain at 224², float32, TF32 off; no BatchNorm, no dropout):
+# the parameters after, and the accumulated gradient against the mean of
+# the two batch-16 gradients, the same float32 values summed in another
+# order, ~1e-7. (Against the batch-32 gradient the card measured 4.8e-4
+# all, 7.2e-3 on conv4's bias: cuDNN computes 16 and 32 images
+# differently; printed, not held)
+ACCUM_REL_TOL = 1e-5
+ACCUM_SIZE = 224
+REMAT_NET, REMAT_BATCH = "resnet_v1_152", 8
+# timed train steps: (net, size, batch, classes, EMA), bf16, the CLI's
+# rmsprop with weight decay 4e-5 (darknet19 on flowers' 5 classes)
+SLIM_TIMES = (("darknet19", 224, 32, 5, True),
+              ("vgg_16", 224, 32, 1000, False),
+              ("resnet_v1_152", 224, 32, 1000, False),
+              ("yolo1", 448, 16, None, False))
 
 
 def check(ok: bool, what: str) -> None:
@@ -1186,6 +1244,7 @@ def time_train(trainer, state, make_batch, flops: float, label: str,
         peak = torch.cuda.max_memory_allocated() / 2**30
         out[b] = {"steps_per_s": 1 / dt, "images_per_s": b / dt,
                   "ms_per_step": dt * 1e3, "peak_gib": peak,
+                  "max_pool2_bwd_launches": n,
                   "bound_images_per_s": BF16_FLOPS_PER_S / flops}
         print(f"train step {label}, bf16, batch {b}: "
               f"{1 / dt:.2f} steps/s, {b / dt:.1f} images/s ({dt * 1e3:.2f} "
@@ -2423,6 +2482,451 @@ def run_resnet_clis(dev) -> dict:
     return out
 
 
+def random_weights_(model: torch.nn.Module,
+                    gen: torch.Generator) -> torch.nn.Module:
+    """Seeded random weights on the model's device, in place: He-normal
+    conv and dense kernels, biases N(0, 0.05), BatchNorm scales U(0.5,
+    1.5), biases and running means N(0, 0.1), running variances U(0.5, 2),
+    so that an eval forward exercises every term."""
+    from torch import nn
+
+    with torch.no_grad():
+        for m in model.modules():
+            if isinstance(m, (nn.Conv2d, nn.Linear)):
+                fan_in = m.weight[0].numel()
+                m.weight.normal_(0.0, (2.0 / fan_in) ** 0.5, generator=gen)
+                if m.bias is not None:
+                    m.bias.normal_(0.0, 0.05, generator=gen)
+            elif isinstance(m, nn.BatchNorm2d):
+                m.weight.uniform_(0.5, 1.5, generator=gen)
+                m.bias.normal_(0.0, 0.1, generator=gen)
+                m.running_mean.normal_(0.0, 0.1, generator=gen)
+                m.running_var.uniform_(0.5, 2.0, generator=gen)
+    return model
+
+
+def check_zoo(dev) -> dict:
+    """Every registered net but the inception family (not ported) at its
+    default size, batch 2, seeded random weights drawn on the card, in
+    eval mode: the float32 card forward (TF32 off) and the bf16 autocast
+    forward against the CPU's float32 forward of the same weights."""
+    from tensorflow_yolo2_torch.models import registry
+
+    out = {}
+    for name in registry.list_networks():
+        if name.startswith("inception"):
+            continue
+        size = registry.default_image_size(name)
+        with torch.device(dev):
+            model = registry.get_network(name)
+        random_weights_(model, torch.Generator(dev).manual_seed(len(name)))
+        model.eval()
+        x = torch.from_numpy(np.random.RandomState(size).uniform(
+            -1, 1, (ZOO_BATCH, size, size, 3)).astype(np.float32))
+        xd = x.to(dev)
+        with torch.no_grad():
+            f32 = model(xd).float().cpu()
+            with torch.autocast("cuda", dtype=torch.bfloat16):
+                bf16 = model(xd).float().cpu()
+            want = model.cpu()(x)
+        out[name] = {"size": size, "shape": list(want.shape),
+                     "f32_rel_err": rel_norm(f32, want),
+                     "bf16_rel_err": rel_norm(bf16, want)}
+        print(f"zoo {name} {size}², batch {ZOO_BATCH}, output "
+              f"{tuple(want.shape)}: float32 card vs CPU "
+              f"{out[name]['f32_rel_err']:.3e} (bound {ZOO_F32_REL_TOL}), "
+              f"bf16 {out[name]['bf16_rel_err']:.3e} (bound "
+              f"{ZOO_BF16_REL_TOL}), relative norm")
+        check(bool(torch.isfinite(want).all()) and want.norm() > 0,
+              f"zoo {name}: finite, non-zero CPU output")
+        check(out[name]["f32_rel_err"] <= ZOO_F32_REL_TOL,
+              f"zoo {name}: float32 card forward agrees with the CPU's")
+        check(out[name]["bf16_rel_err"] <= ZOO_BF16_REL_TOL,
+              f"zoo {name}: bf16 card forward agrees with the CPU's")
+        del model, xd
+        torch.cuda.empty_cache()
+    return out
+
+
+def _to(state, dev, dtype=None):
+    """A copy of an optimizer state on ``dev`` (in ``dtype``)."""
+    from tensorflow_yolo2_torch.train.optimizers import OptState
+
+    def move(d):
+        return {k: v.to(dev, dtype, copy=True) for k, v in d.items()}
+
+    return OptState(state.count, list(state.names),
+                    {s: move(t) for s, t in state.slots.items()},
+                    None if state.acc_grads is None else
+                    move(state.acc_grads), state.mini_step)
+
+
+def check_slim_optimizers(dev) -> dict:
+    """Each of the nine optimizers, ``MultiSteps`` (rmsprop, k=2) and
+    the EMA: from the same float32 parameters and slots, taken after 3
+    float32 updates on the CPU, one float32 update on the card against
+    the same update in float64 on the CPU (weight decay 4e-5, the clip at
+    100, rate 1; the parameters N(0, 1e-4), so that each update, the
+    difference of the parameters in float64, keeps its float32 digits):
+    the update and every slot within OPT_REL_TOL relative norm, tensor by
+    tensor. The reference is float64 (with the float32 bias corrections
+    of Adam's family, as a float32 step takes them) because the CPU's own
+    float32 norm of a 1M-value tensor, which the clip divides by, is
+    ~1e-5 off."""
+    from tensorflow_yolo2_torch.config import LRScheduleConfig, OptimizerConfig
+    from tensorflow_yolo2_torch.train import optimizers as opt
+
+    bias_correction = opt._bias_correction
+    rng = np.random.RandomState(12)
+    shapes = {"conv.weight": (256, 128, 3, 3), "conv.bias": (256,),
+              "bn.weight": (256,), "fc.weight": (1000, 1024),
+              "zero.bias": (64,)}
+    base = {k: torch.from_numpy(rng.normal(0, 1e-4, s).astype(np.float32))
+            for k, s in shapes.items()}
+    base["zero.bias"].zero_()
+    grads = [{k: torch.from_numpy(rng.normal(0, 1, s).astype(np.float32))
+              for k, s in shapes.items()} for _ in range(OPT_WARM_STEPS + 1)]
+    configs = {name: {"name": name} for name in opt.OPTIMIZERS}
+    configs["multisteps_rmsprop_k2"] = {"name": "rmsprop",
+                                        "grad_accum_steps": 2}
+    out = {}
+    for label, kw in configs.items():
+        o = opt.make_optimizer(OptimizerConfig(
+            **kw, weight_decay=4e-5, grad_clip_norm=100.0,
+            schedule=LRScheduleConfig(learning_rate=1.0)))
+        p = {k: v.clone() for k, v in base.items()}
+        state = o.init(p)
+        for g in grads[:OPT_WARM_STEPS]:
+            o.update_(g, state, p)
+        pd = {k: v.to(dev, copy=True) for k, v in p.items()}
+        sd = _to(state, dev)
+        p64 = {k: v.double() for k, v in p.items()}
+        s64 = _to(state, "cpu", torch.float64)
+        # float64 arithmetic with the float32 bias corrections that a
+        # float32 step takes (optax's; 1.3e-5 from the double ones at b2)
+        with mock.patch.object(
+                opt, "_bias_correction", lambda decay, count, _:
+                bias_correction(decay, count, torch.float32)):
+            o.update_({k: v.double() for k, v in grads[-1].items()}, s64,
+                      p64)
+        o.update_({k: v.to(dev) for k, v in grads[-1].items()}, sd, pd)
+        torch.cuda.synchronize()
+        errs = [rel_norm(pd[k].double().cpu() - p[k].double(),
+                         p64[k] - p[k].double()) for k in p]
+        errs += [rel_norm(sd.slots[s][k], t) for s, slot in
+                 s64.slots.items() for k, t in slot.items()]
+        check(s64.count == sd.count and s64.mini_step == sd.mini_step,
+              f"{label}: the card's counts are the CPU's")
+        out[label] = max(errs)
+    ema = opt.make_ema(0.999)
+    e_cpu = [v.double() for v in base.values()]
+    e_card = [v.to(dev) for v in base.values()]
+    params = [v + 1.0 for v in base.values()]
+    ema(e_cpu, [v.double() for v in params])
+    ema(e_card, [v.to(dev) for v in params])
+    out["ema"] = max(rel_norm(c, w) for c, w in zip(e_card, e_cpu))
+    print(f"optimizers, one float32 update on the card vs float64 on the "
+          f"CPU, after {OPT_WARM_STEPS} float32 ones on the CPU (worst "
+          f"tensor, relative norm; bound {OPT_REL_TOL}): " +
+          ", ".join(f"{k} {v:.2e}" for k, v in out.items()))
+    for label, err in out.items():
+        check(err <= OPT_REL_TOL, f"{label}: the card's update is the CPU's")
+    return out
+
+
+def check_accumulation(dev) -> dict:
+    """``yolo1_pretrain`` at ACCUM_SIZE² (1000 classes, fresh seeded
+    weights, float32, TF32 off), sgd at 0.1: k=2 on two batches of 16
+    against one step on the batch of 32. Held within ACCUM_REL_TOL
+    (relative norm of all the tensors, concatenated): the parameters
+    after the applied update against those after the batch-32 step, and
+    the mean gradient the inner update received against the mean of the
+    two batch-16 gradients taken apart; B5 4 times a micro-step. Printed,
+    not held: that mean gradient against the batch-32 gradient, and the
+    batch-16 forward against the same images' rows of the batch-32
+    forward (cuDNN computes the two batch sizes differently, so float32
+    results differ in the last bits, and a max-pool or leaky-ReLU
+    decision near a tie can flip)."""
+    from tensorflow_yolo2_torch.config import LRScheduleConfig, OptimizerConfig
+    from tensorflow_yolo2_torch.models import registry
+    from tensorflow_yolo2_torch.ops import cuda_pool
+    from tensorflow_yolo2_torch.train.trainer import Trainer, softmax_task
+
+    images, labels = (torch.from_numpy(a).to(dev) for a in cls_batch(
+        np.random.RandomState(13), 32, CLS_CLASSES, ACCUM_SIZE))
+    halves = [(images[:16], labels[:16]), (images[16:], labels[16:])]
+
+    def trainer_for(k: int):
+        return Trainer(registry.get_network(
+            "yolo1_pretrain", num_classes=CLS_CLASSES,
+            image_size=ACCUM_SIZE), softmax_task(), OptimizerConfig(
+                name="sgd", grad_accum_steps=k,
+                schedule=LRScheduleConfig(learning_rate=0.1)),
+            device=dev, compute_dtype=torch.float32)
+
+    def recording(store: dict, update_):
+        def update(grads, state, params, grad_norm=None):
+            store.update({k: grads[k].double().cpu() for k in state.names})
+            return update_(grads, state, params, grad_norm)
+        return update
+
+    def flat(tensors: dict, keys) -> torch.Tensor:
+        return torch.cat([tensors[k].detach().double().cpu().flatten()
+                          for k in keys])
+
+    one, two = trainer_for(1), trainer_for(2)
+    sd = fresh_state_dict(trainer_for(1).model, dev)
+    s1 = one.create_state(torch.Generator().manual_seed(0), sd)
+    s2 = two.create_state(torch.Generator().manual_seed(0), sd)
+    g32, acc = {}, {}
+    one.optimizer.update_ = recording(g32, one.optimizer.update_)
+    two.optimizer.inner.update_ = recording(acc, two.optimizer.inner.update_)
+    cuda_pool.reset_launch_counts()
+    for x, y in halves:
+        two.train_step(s2, x, y)
+    torch.cuda.synchronize()
+    launches = cuda_pool.MAX_POOL2_BWD_LAUNCHES
+    apart = [one.loss_and_grads(s1, x, y)[1] for x, y in halves]
+    with torch.no_grad():
+        fwd_rel = rel_norm(one._forward(images[:16]),
+                           one._forward(images)[:16])
+    one.train_step(s1, images, labels)
+    check((s2.opt_state.count, s2.opt_state.mini_step, s2.step) == (1, 0, 2),
+          "k=2: one update applied in two micro-steps")
+    keys = list(g32)
+    check(set(acc) == set(keys) == set(s1.params),
+          "both runs updated every parameter once")
+    mean = {k: (apart[0][k].double().cpu() + apart[1][k].double().cpu()) / 2
+            for k in keys}
+    out = {"param_rel_err": rel_norm(flat(s2.params, keys),
+                                     flat(s1.params, keys)),
+           "grad_vs_mean_rel_err": rel_norm(flat(acc, keys),
+                                            flat(mean, keys)),
+           "grad_vs_batch32_rel_err": rel_norm(flat(acc, keys),
+                                               flat(g32, keys)),
+           "forward_16_vs_32_rel_err": fwd_rel, "launches": launches}
+    worst = max(keys, key=lambda k: rel_norm(acc[k], g32[k]))
+    out["worst_tensor_vs_batch32"] = [worst, rel_norm(acc[worst], g32[worst])]
+    print(f"yolo1_pretrain {ACCUM_SIZE}², float32, sgd, k=2 on 2×16 vs one "
+          f"step on 32: parameters after {out['param_rel_err']:.3e}, the "
+          f"accumulated gradient vs the mean of the two batch-16 gradients "
+          f"{out['grad_vs_mean_rel_err']:.3e} (relative norm of all "
+          f"tensors; bound {ACCUM_REL_TOL}); max_pool2_bwd {launches} in 2 "
+          f"micro-steps. Not held: the accumulated gradient vs the batch-32 "
+          f"gradient {out['grad_vs_batch32_rel_err']:.3e} (worst {worst} "
+          f"{out['worst_tensor_vs_batch32'][1]:.3e}); the batch-16 forward "
+          f"vs its rows of the batch-32 forward {fwd_rel:.3e}")
+    check(launches == 8, "B5 ran 4 times a yolo1_pretrain micro-step")
+    check(out["param_rel_err"] <= ACCUM_REL_TOL,
+          "k=2 on two batches of 16 steps as one step on the batch of 32")
+    check(out["grad_vs_mean_rel_err"] <= ACCUM_REL_TOL,
+          "the accumulated gradient is the mean of the micro-steps'")
+    return out
+
+
+def check_remat(dev) -> dict:
+    """Two bf16 steps of ``REMAT_NET`` at 224², batch ``REMAT_BATCH``
+    (1000 classes, rmsprop, weight decay 4e-5, fresh seeded weights), with
+    and without ``remat``, cuDNN deterministic: parameters, running
+    statistics, optimizer slots and the generator bit-equal; the peak
+    memory of each."""
+    from tensorflow_yolo2_torch.config import LRScheduleConfig, OptimizerConfig
+    from tensorflow_yolo2_torch.models import registry
+    from tensorflow_yolo2_torch.train.trainer import Trainer, softmax_task
+
+    images, labels = (torch.from_numpy(a).to(dev) for a in cls_batch(
+        np.random.RandomState(14), REMAT_BATCH))
+    sd = fresh_state_dict(registry.get_network(REMAT_NET), dev)
+    runs = {}
+    torch.backends.cudnn.deterministic = True
+    try:
+        for remat in (False, True):
+            trainer = Trainer(registry.get_network(REMAT_NET),
+                              softmax_task(), OptimizerConfig(
+                                  name="rmsprop", weight_decay=4e-5,
+                                  schedule=LRScheduleConfig(
+                                      learning_rate=1e-3)),
+                              device=dev, remat=remat)
+            state = trainer.create_state(torch.Generator().manual_seed(0),
+                                         sd)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            for _ in range(2):
+                state, metrics = trainer.train_step(state, images, labels)
+            torch.cuda.synchronize()
+            runs[remat] = {
+                "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+                "model": {k: v.cpu() for k, v in
+                          state.model.state_dict().items()},
+                "slots": {f"{s}/{k}": v.cpu() for s, t in
+                          state.opt_state.slots.items()
+                          for k, v in t.items()},
+                "rng": state.rng.get_state(),
+                "loss": float(metrics["loss"])}
+            del trainer, state
+            torch.cuda.empty_cache()
+    finally:
+        torch.backends.cudnn.deterministic = False
+    plain, remat = runs[False], runs[True]
+    diff = max([(plain["model"][k].double() - remat["model"][k].double()
+                 ).abs().max().item() for k in plain["model"]
+                if plain["model"][k].is_floating_point()] +
+               [(plain["slots"][k] - remat["slots"][k]).abs().max().item()
+                for k in plain["slots"]])
+    same_rng = torch.equal(plain["rng"], remat["rng"])
+    print(f"remat {REMAT_NET} 224², batch {REMAT_BATCH}, two bf16 steps: "
+          f"largest difference from the plain step {diff} (parameters, "
+          f"running statistics, slots), generator equal {same_rng}, loss "
+          f"{plain['loss']:.6f} / {remat['loss']:.6f}; peak memory "
+          f"{plain['peak_gib']:.2f} GiB plain, {remat['peak_gib']:.2f} GiB "
+          f"remat")
+    check(diff == 0.0 and same_rng and plain["loss"] == remat["loss"],
+          "a remat step leaves parameters, statistics and generator where "
+          "the plain step does")
+    return {"max_abs_diff": diff, "peak_gib_plain": plain["peak_gib"],
+            "peak_gib_remat": remat["peak_gib"]}
+
+
+def slim_train_times(dev) -> dict:
+    """Train steps of SLIM_TIMES in bf16 with the CLI's rmsprop and
+    weight decay 4e-5 (EMA 0.999 where asked), fresh seeded weights drawn
+    on the card: ``time_train`` (images/s unprofiled, the idle share, B5
+    5 times a darknet19 step, 4 a yolo1 step, none on the zoo's stock
+    pools)."""
+    from tensorflow_yolo2_torch.config import (
+        LRScheduleConfig,
+        OptimizerConfig,
+        YoloConfig,
+    )
+    from tensorflow_yolo2_torch.models import registry
+    from tensorflow_yolo2_torch.train.trainer import (
+        Trainer,
+        softmax_task,
+        yolo_task,
+    )
+    from tensorflow_yolo2_torch.utils.profiling import module_flops_per_image
+
+    out = {}
+    for name, size, batch, classes, ema in SLIM_TIMES:
+        rng = np.random.RandomState(15)
+        if classes is None:  # the YOLOv1 detector and its loss
+            yolo = YoloConfig(image_size=size)
+            model = registry.get_network(name, image_size=size)
+            task = yolo_task(yolo)
+            make_batch = functools.partial(train_batch, rng, yolo=yolo)
+        else:
+            model = registry.get_network(name, num_classes=classes,
+                                         image_size=size)
+            task = softmax_task()
+            make_batch = functools.partial(cls_batch, rng,
+                                           num_classes=classes, size=size)
+        pools = {"darknet19": 5, "yolo1": 4}.get(name, 0)
+        flops = 3 * module_flops_per_image(model, size, dev)
+        trainer = Trainer(model, task, OptimizerConfig(
+            name="rmsprop", weight_decay=4e-5,
+            moving_average_decay=0.999 if ema else None,
+            schedule=LRScheduleConfig(kind="exponential",
+                                      learning_rate=1e-4)),
+            device=dev)
+        state = trainer.create_state(torch.Generator().manual_seed(0),
+                                     fresh_state_dict(model, dev))
+        out[f"{name}_{size}"] = time_train(
+            trainer, state, lambda b: make_batch(b), flops,
+            f"{name} {size}²{' EMA' if ema else ''}", (batch,), pools)
+        del trainer, state, model
+        torch.cuda.empty_cache()
+    return out
+
+
+def run_slim_clis(dev) -> dict:
+    """The slim tier's CLIs with ``--device cuda`` on a ``make_flowers``
+    tree at 224² under a temporary run root: ``train_classifier`` on its
+    defaults (darknet19, rmsprop, weight decay 4e-5) with
+    ``--moving-average-decay 0.999 --grad-accum-steps 2
+    --save-interval-secs 0.001 --activation-summaries`` (B5 5 times a
+    micro-step, a snapshot every iteration with the EMA and the
+    accumulation state), ``eval_classifier --use-ema`` on its snapshot
+    (no fallback warning), then ``flowers_train`` resuming the run dir
+    (B5 5 times a step). Each must exit 0."""
+    import tempfile
+
+    from tensorflow_yolo2_torch.entries import (
+        eval_classifier,
+        flowers_train,
+        train_classifier,
+    )
+    from tensorflow_yolo2_torch.ops import cuda_pool
+    from tensorflow_yolo2_torch.train.checkpoint import (
+        CheckpointManager,
+        read_snapshot,
+    )
+    from tensorflow_yolo2_torch.utils import cuda_build
+    from tests import synthetic
+
+    out = {}
+    os.makedirs(cuda_build.BUILD_DIR, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=cuda_build.BUILD_DIR) as root, \
+            mock.patch.dict(os.environ, {"TFY2_ROOT": root}):
+        synthetic.make_flowers(os.path.join(root, "data", "TF_flowers"),
+                               per_class=SLIM_FLOWERS_PER_CLASS)
+        common = ["--batch-size", str(SLIM_CLI_BATCH), "--num-workers", "2",
+                  "--device", str(dev)]
+        cuda_pool.reset_launch_counts()
+        text = run_cli(train_classifier.main, [
+            "--model-name", "darknet19", "--iters", str(SLIM_CLI_ITERS),
+            "--moving-average-decay", "0.999", "--grad-accum-steps", "2",
+            "--save-interval-secs", "0.001", "--activation-summaries",
+            "--log-every", "2", *common], "train_classifier")
+        torch.cuda.synchronize()
+        out["train_launches"] = cuda_pool.MAX_POOL2_BWD_LAUNCHES
+        mgr = CheckpointManager("darknet19", "tf_flowers")
+        snap = read_snapshot(mgr.latest_path())
+        out["snapshots"] = mgr.all_steps()
+        print(f"train_classifier: snapshots at {out['snapshots']}; "
+              f"optimizer count {snap['optimizer']['count']}, mini_step "
+              f"{snap['optimizer']['mini_step']}; B5 launched "
+              f"{out['train_launches']} times in {SLIM_CLI_ITERS} "
+              f"micro-steps")
+        check(out["train_launches"] == 5 * SLIM_CLI_ITERS,
+              "B5 ran 5 times a train_classifier micro-step")
+        check(out["snapshots"] == list(range(1, SLIM_CLI_ITERS + 1)),
+              "--save-interval-secs saved every iteration")
+        check(snap["optimizer"]["count"] == SLIM_CLI_ITERS // 2 and
+              snap["optimizer"]["mini_step"] == 0 and "ema" in snap,
+              "the snapshot holds the EMA and the accumulation state")
+        check("sparsity/backbone" in text, "activation summaries logged")
+        text = run_cli(eval_classifier.main, [
+            "--use-ema", "--batch-size", "4", "--max-batches", "2",
+            "--device", str(dev)], "eval_classifier --use-ema")
+        check("WARNING" not in text and
+              f"eval at step {SLIM_CLI_ITERS}:" in text,
+              "eval_classifier scored the snapshot's EMA")
+        out["eval"] = text.strip().splitlines()[-1]
+        cuda_pool.reset_launch_counts()
+        run_cli(flowers_train.main, ["--iters", "2", "--eval-every", "1",
+                                     "--log-every", "1", *common],
+                "flowers_train")
+        torch.cuda.synchronize()
+        out["flowers_launches"] = cuda_pool.MAX_POOL2_BWD_LAUNCHES
+        check(out["flowers_launches"] == 10,
+              "B5 ran 5 times a flowers_train step")
+    return out
+
+
+def check_slim(dev) -> dict:
+    """The slim tier on the card (section 13), each part timed."""
+    out = {}
+    for name, part in (("clis", run_slim_clis), ("zoo", check_zoo),
+                       ("optimizers", check_slim_optimizers),
+                       ("accumulation", check_accumulation),
+                       ("remat", check_remat),
+                       ("times", slim_train_times)):
+        t0 = time.perf_counter()
+        out[name] = part(dev)
+        print(f"slim {name}: {time.perf_counter() - t0:.1f} s", flush=True)
+    return out
+
+
 def card_grid(yolo, state, images, dev, pallas_stem: bool = False,
               dtype: torch.dtype = torch.bfloat16, **head) -> torch.Tensor:
     """The ``dtype`` detector's float32 grid of a uint8 batch, on the
@@ -3152,8 +3656,13 @@ def main(argv: list[str] | None = None) -> int:
     fine_tune = check_fine_tune(dev)
     resnet_clis = run_resnet_clis(dev)
 
-    # 13. times --------------------------------------------------------------
+    # 13. the slim tier: train_classifier / eval_classifier / flowers_train,
+    # the zoo, the optimizer family, accumulation, remat, its train steps
     mark("section 13")
+    slim = check_slim(dev)
+
+    # 14. times --------------------------------------------------------------
+    mark("section 14")
     print(f"times on {card}:")
     v1_flops = conv_flops_per_image(448, yolo.cell_channels)
     tf32 = (f"TF32: cudnn.allow_tf32={torch.backends.cudnn.allow_tf32}, "
@@ -3194,6 +3703,7 @@ def main(argv: list[str] | None = None) -> int:
         "train_resnet50_224": resnet_train,
         "fine_tune_resnet50_224": fine_tune,
         "resnet_clis": resnet_clis,
+        "slim": slim,
         "tf32": {"cudnn": torch.backends.cudnn.allow_tf32,
                  "matmul": torch.backends.cuda.matmul.allow_tf32},
     }
@@ -3317,7 +3827,14 @@ def main(argv: list[str] | None = None) -> int:
         "max_abs_err": errs["max_pool2_bwd"],
         "launches_v2p_train": v2p_pool_launches,
         "launches_classifier_train": cls_train["launches"],
-        "launches_classifier_clis": cls_clis["train_launches"], **total,
+        "launches_classifier_clis": cls_clis["train_launches"],
+        "launches_train_classifier_cli": slim["clis"]["train_launches"],
+        "launches_flowers_train_cli": slim["clis"]["flowers_launches"],
+        "launches_yolo1_pretrain_accum": slim["accumulation"]["launches"],
+        "launches_timed_steps": {k: v[b]["max_pool2_bwd_launches"]
+                                 for k, v in slim["times"].items()
+                                 for b in v},
+        **total,
         "bound_by": "bytes" if all(s["bound_by"] == "bytes" for s in sites)
         else "operations", "sites": sites,
         "classifier_batch_48": {**cls_total, "sites": cls_sites}})

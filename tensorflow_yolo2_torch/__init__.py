@@ -14,11 +14,13 @@ nothing of JAX.
                  per-slot label grids; ``ilsvrc``: ILSVRC CLS-LOC;
                  ``synsets``: synset maps; ``augment``: image reads and
                  the classifier's augmentation chain; ``prefetch``:
-                 threads, worker processes, pinned copies to the card.
+                 threads, worker processes, pinned copies to the card;
+                 ``flowers``: TF_flowers; ``memory``: in-memory data.
 - ``models``   — Darknet19 trunk (pool or stride downsample), the v1 head,
                  the YOLOv2 passthrough head, the ImageNet classifier,
                  BatchNorm with flax's running statistics, flax's
-                 initializers, BN folding.
+                 initializers, BN folding; ResNet-50 v1; the registry,
+                 the slim zoo, ResNet v2 and YOLOv1.
 - ``ops``      — IoU, the v1 and anchor grid decodes, fixed-shape NMS, and
                  the hand-written CUDA kernels (sources in ``csrc/``):
                  decode / decode+NMS (``ops.cuda_decode``), the 2×2
@@ -27,8 +29,9 @@ nothing of JAX.
 - ``losses``   — ``yolo``: the YOLOv1 grid loss; ``yolo_v2``: the YOLOv2
                  anchor loss.
 - ``eval``     — the VOC mAP evaluator.
-- ``train``    — schedules, Adam and momentum, the train step (YOLO and
-                 softmax tasks), snapshots, metrics.
+- ``train``    — schedules, the optimizer family, gradient
+                 accumulation, EMA, the train step (YOLO and softmax
+                 tasks; remat, activation summaries), snapshots, metrics.
 - ``convert``  — flax parameter trees (as numpy) → torch state dicts, and
                  the ``.npz`` format that carries them between machines.
 - ``entries``  — ``pascal_detect_darknet``: the serving entry point (v1,
@@ -37,7 +40,9 @@ nothing of JAX.
                  ``pascal_eval_map``: VOC mAP of a snapshot;
                  ``imagenet_train_darknet``, ``imagenet_test_darknet``,
                  ``imagenet_predict_darknet``: the classifier's
-                 pretraining, accuracy (bf16, int8) and top-5.
+                 pretraining, accuracy (bf16, int8) and top-5; the
+                 ResNet-50 entries; ``train_classifier``,
+                 ``eval_classifier``, ``flowers_train``: the slim tier.
 - ``utils``    — the kernels' build, the device default, the native host
                  layer, timers, the profiler trace and the detection
                  drawing.

@@ -30,7 +30,7 @@ def root_dir() -> str:
 @dataclass(frozen=True)
 class Paths:
     """Run-directory layout, the JAX package's: ``data/VOCdevkit``,
-    ``data/ILSVRC``, ``cache/``, ``weights/``, ``ckpts/<net>/<imdb>/``,
+    ``data/ILSVRC``, ``data/TF_flowers``, ``cache/``, ``weights/``, ``ckpts/<net>/<imdb>/``,
     ``tensorboard/<net>/<imdb>/``."""
 
     root: str = field(default_factory=root_dir)
@@ -42,6 +42,10 @@ class Paths:
     @property
     def ilsvrc(self) -> str:
         return os.path.join(self.root, "data", "ILSVRC")
+
+    @property
+    def flowers(self) -> str:
+        return os.path.join(self.root, "data", "TF_flowers")
 
     @property
     def cache(self) -> str:
@@ -209,8 +213,10 @@ class LRScheduleConfig:
 @dataclass(frozen=True)
 class OptimizerConfig:
     """Optimizer family and hyperparameters, with the JAX package's fields
-    and defaults. The port trains with ``adam`` and optional global-norm
-    clipping; ``train.optimizers.make_optimizer`` rejects the rest."""
+    and defaults: ``name`` is one of sgd, momentum, adam, adamw, lamb,
+    rmsprop, adagrad, ftrl and adadelta, each with global-norm clipping,
+    weight decay, EMA (``moving_average_decay``), ``trainable_scopes``
+    and gradient accumulation (``train.optimizers.make_optimizer``)."""
 
     name: str = "adam"
     momentum: float = 0.9

@@ -11,15 +11,20 @@ and renaming the leaf:
     batch_stats <path>/bn/mean  → <path>.bn.running_mean
     batch_stats <path>/bn/var   → <path>.bn.running_var
 
-A bare ``nn.Conv`` or ``nn.Dense`` of ResNet50 (``conv1`` to ``conv3``,
-``shortcut_conv``, ``logits``, ``yolo_fc1``, ``yolo_fc2``) keeps its own
-name:
+A bare ``nn.Conv`` or ``nn.Dense`` keeps its own name: ResNet50's
+(``conv1`` to ``conv3``, ``shortcut_conv``, ``logits``, ``yolo_fc1``,
+``yolo_fc2``), the zoo's and ResNet v2's (``conv1`` to ``conv5``, VGG's
+``conv<stage>_<i>``, the conv heads' ``fc6`` to ``fc8``, the dense
+``fc3``, ``fc4``, ``logits``; v2's ``shortcut_conv`` and ``conv3`` with
+their biases) and YOLOv1's (``conv1`` to ``conv24``, ``fc21``, ``fc25``,
+``fc26``):
 
     <path>/<layer>/kernel (HWIO)   → <path>.<layer>.weight (OIHW)
     <path>/<layer>/kernel (in, out) → <path>.<layer>.weight (out, in)
     <path>/<layer>/bias             → <path>.<layer>.bias
 
-Folded trees (no ``bn`` children) convert the same way and load into a
+A nested BatchNorm (``conv1_bn``, ``preact_bn``, ``bn1``, ``postnorm``)
+is a ``bn`` child as above. Folded trees (no ``bn`` children) convert the same way and load into a
 model built with ``fold_bn=True``. ``save_npz`` / ``load_npz`` carry such
 a pair between machines as one ``.npz`` with ``/``-joined keys.
 """
@@ -63,9 +68,13 @@ def unflatten(flat: Mapping[str, Any]) -> dict[str, Any]:
     return tree
 
 
+_BARE_LAYERS = (
+    "shortcut_conv", "logits", "yolo_fc1", "yolo_fc2",
+    *(f"conv{i}" for i in range(1, 25)),
+    *(f"conv{s}_{i}" for s in range(1, 6) for i in range(1, 5)),
+    *(f"fc{i}" for i in (3, 4, 6, 7, 8, 21, 25, 26)))
 _BARE_LEAVES = {(layer, leaf): f"{layer}.{name}"
-                for layer in ("conv1", "conv2", "conv3", "shortcut_conv",
-                              "logits", "yolo_fc1", "yolo_fc2")
+                for layer in _BARE_LAYERS
                 for leaf, name in (("kernel", "weight"), ("bias", "bias"))}
 
 

@@ -7,6 +7,7 @@ from __future__ import annotations
 
 import argparse
 import os
+import time
 from typing import Any, Callable, Mapping, Optional
 
 import torch
@@ -86,7 +87,8 @@ def bootstrap_state(trainer: Trainer, mgr: CheckpointManager,
                     warm_start_dir: Optional[str] = None,
                     warm_start_exclude: tuple[str, ...] = (),
                     warm_start_tree: Optional[tuple[Any, Any]] = None,
-                    state_dict: Optional[Mapping[str, torch.Tensor]] = None
+                    state_dict: Optional[Mapping[str, torch.Tensor]] = None,
+                    info: Optional[dict] = None
                     ) -> tuple[TrainState, int]:
     """Resume or initialize:
 
@@ -99,17 +101,34 @@ def bootstrap_state(trainer: Trainer, mgr: CheckpointManager,
        of flax trees or state dicts;
     3. otherwise fresh weights from ``generator`` (or ``state_dict``).
 
+    With EMA the EMA comes from the snapshot where it holds one (by name
+    and shape in the swap), and restarts from the restored or
+    warm-started parameters otherwise, never from the fresh ones.
+    ``info`` (if given) receives ``ema_restored``: how many EMA tensors
+    came from the snapshot, −1 for an exact restore with EMA, 0 for none.
+
     Returns (state, step).
     """
+    if info is None:
+        info = {}
+    info["ema_restored"] = 0
     state = trainer.create_state(generator, state_dict)
     last = mgr.latest_step()
     if last is not None:
         try:
             state, step = mgr.restore(state)
+            if state.ema_params is not None:
+                info["ema_restored"] = -1
         except ValueError:
             raw = mgr.restore_raw()
             merged, _ = merge_pytrees(state.model.state_dict(), raw["model"])
             load_into(state.model, merged)
+            trainer.restart_ema(state)
+            if state.ema_params is not None and raw.get("ema") is not None:
+                ema, info["ema_restored"] = merge_pytrees(state.ema_params,
+                                                          raw["ema"])
+                state.ema_params = {k: v.to(state.ema_params[k].device)
+                                    for k, v in ema.items()}
             state = trainer.resume_optimizer(state)
             state.step = step = last
             print("Optimizer state in snapshot does not match — restored "
@@ -121,6 +140,7 @@ def bootstrap_state(trainer: Trainer, mgr: CheckpointManager,
         params, n = warm_start_params(params, warm_start_dir,
                                       warm_start_exclude)
         load_into(state.model, params)
+        trainer.restart_ema(state)
         print(f"Warm-started {n} tensors from {warm_start_dir}")
     elif warm_start_tree is not None:
         tree = _as_state_dict(*warm_start_tree)
@@ -130,6 +150,7 @@ def bootstrap_state(trainer: Trainer, mgr: CheckpointManager,
         merged_stats, m = merge_pytrees(state.batch_stats, tree,
                                         warm_start_exclude)
         load_into(state.model, {**merged, **merged_stats})
+        trainer.restart_ema(state)
         print(f"Warm-started {n} param + {m} batch-stat tensors from "
               "imported checkpoint")
     return state, 0
@@ -144,7 +165,8 @@ def run_train_loop(trainer: Trainer, state: TrainState,
                    eval_fn: Optional[Callable[[TrainState, int], None]] = None,
                    eval_every: int = 0,
                    trace_dir: Optional[str] = None,
-                   save_step_divisor: int = 1) -> TrainState:
+                   save_step_divisor: int = 1,
+                   save_interval_secs: float = 0) -> TrainState:
     """Prefetched host batches → device copies kept two ahead → the train
     step. Right after a step is queued, its scalar metrics (stacked into
     one tensor) and, on logging steps, its histograms start their copy to
@@ -158,10 +180,13 @@ def run_train_loop(trainer: Trainer, state: TrainState,
     (a validation batch, say). Snapshots are saved every ``save_every``
     iterations, as step ``i // save_step_divisor`` (an epoch-interval
     manager names snapshots by epoch: the divisor is the iterations of an
-    epoch), and after the last iteration, unless that one was saved; a
-    tail whose step already names a snapshot of this run (a mid-epoch end
-    after an epoch's snapshot) is not saved over it."""
+    epoch), also whenever ``save_interval_secs`` (> 0) have passed on the
+    wall clock since the last save or the start, and after the last
+    iteration, unless that one was saved; a tail whose step already names
+    a snapshot of this run (a mid-epoch end after an epoch's snapshot) is
+    not saved over it."""
     timer = Timer()
+    last_save = time.monotonic()
     on_card = trainer.device.type == "cuda"
     pending: list[tuple[int, list[str], dict[str, torch.Tensor],
                         Optional[torch.cuda.Event]]] = []
@@ -209,11 +234,14 @@ def run_train_loop(trainer: Trainer, state: TrainState,
             flush(1)
             if eval_fn is not None and eval_every and i % eval_every == 0:
                 eval_fn(state, i)
-            if save_every and i % save_every == 0:
+            due_timed = (save_interval_secs > 0 and time.monotonic() -
+                         last_save >= save_interval_secs)
+            if (save_every and i % save_every == 0) or due_timed:
                 step = i // save_step_divisor
                 mgr.save(step, state)
                 saved_steps.add(step)
                 last_saved_iter = i
+                last_save = time.monotonic()
                 print(f"Saved snapshot at iter {i} ({mgr.interval} {step})")
         flush(0)
     final = start_iter + num_iters

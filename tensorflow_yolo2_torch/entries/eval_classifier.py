@@ -1,0 +1,116 @@
+"""Classifier evaluation: streaming top-1 accuracy and recall@5 (port of
+tensorflow_yolo2_tpu/entries/eval_classifier.py).
+
+Any registered model on any dataset's evaluation split (``get_val``
+where the dataset has one), from the newest snapshot of
+``ckpts/<model>/<dataset>`` under the iter names, else under the epoch
+names (the ImageNet entries'), else fresh weights with a warning; in
+eval mode (BatchNorm on its running statistics). ``--use-ema`` scores
+the snapshot's EMA parameters, and falls back to the raw ones, with the
+JAX package's warning, when the restore carried no EMA tensors.
+``--max-batches`` bounds the pass (default: one pass over the split);
+as in the JAX entry, which shapes its state from it, the split's first
+batch is drawn before the pass, so the pass scores the batches after it.
+``--labels-offset`` strips a background slot as the trainer does.
+``--tf-checkpoint`` is not ported yet (A7). Runs on ``cuda`` unless
+``--device`` names another device.
+
+    python -m tensorflow_yolo2_torch.entries.eval_classifier \\
+        --model-name vgg_16 --dataset-name flowers --use-ema
+"""
+
+from __future__ import annotations
+
+import torch
+
+from tensorflow_yolo2_torch.config import OptimizerConfig, Paths
+from tensorflow_yolo2_torch.entries import common
+from tensorflow_yolo2_torch.entries.datasets import get_dataset
+from tensorflow_yolo2_torch.entries.train_classifier import (
+    build_model,
+    offset_labels,
+    refuse_unported,
+)
+from tensorflow_yolo2_torch.train.checkpoint import CheckpointManager
+from tensorflow_yolo2_torch.train.trainer import Trainer, softmax_task
+
+
+def main(argv: list[str] | None = None) -> int:
+    p = common.base_parser(__doc__)
+    p.add_argument("--model-name", default="darknet19")
+    p.add_argument("--dataset-name", default="flowers")
+    p.add_argument("--dataset-split-name", default="validation")
+    p.add_argument("--max-batches", type=int, default=None)
+    p.add_argument("--image-size", type=int, default=None,
+                   help="input resolution for datasets that resize")
+    p.add_argument("--preprocessing-name", default=None,
+                   help="factory preprocessing (not ported yet)")
+    p.add_argument("--labels-offset", type=int, default=0,
+                   help="subtract this offset from dataset labels and "
+                        "shrink the logits layer to num_classes-offset")
+    p.add_argument("--use-ema", action="store_true",
+                   help="evaluate the EMA weights from the snapshot")
+    args = p.parse_args(argv)
+    refuse_unported(p, args)
+
+    batch_size = args.batch_size or 64
+    dtype = (torch.bfloat16 if args.compute_dtype == "bfloat16"
+             else torch.float32)
+    size_kw = {"image_size": args.image_size} if args.image_size else {}
+    imdb = get_dataset(args.dataset_name, args.dataset_split_name,
+                       batch_size=batch_size, data_path=args.data_path,
+                       **size_kw)
+    if not 0 <= args.labels_offset < imdb.num_class:
+        p.error(f"--labels-offset {args.labels_offset} out of range for "
+                f"{imdb.num_class} classes")
+    model = build_model(p, args, imdb.num_class - args.labels_offset,
+                        imdb.image_size)
+    # --use-ema: an EMA slot in the restore target, so that the
+    # snapshot's EMA tensors are restored (the decay is never used)
+    opt_cfg = OptimizerConfig(
+        moving_average_decay=0.999 if args.use_ema else None)
+    trainer = Trainer(model, softmax_task(), opt_cfg, device=args.device,
+                      compute_dtype=dtype)
+    mgr = CheckpointManager(args.model_name, imdb.name, paths=Paths())
+    if mgr.latest_step() is None:
+        epoch_mgr = CheckpointManager(args.model_name, imdb.name,
+                                      save_by_epoch=True, paths=Paths())
+        if epoch_mgr.latest_step() is not None:
+            mgr = epoch_mgr
+    get_batch = offset_labels(getattr(imdb, "get_val", imdb.get),
+                              args.labels_offset)
+    get_batch()  # the JAX entry's sample batch: the pass starts after it
+    info: dict = {}
+    state, step = common.bootstrap_state(
+        trainer, mgr, torch.Generator().manual_seed(0), info=info)
+    if step == 0 and mgr.latest_step() is None:
+        print("WARNING: no snapshot found under "
+              f"{mgr.dir} — evaluating freshly-initialized weights")
+    use_ema = args.use_ema and state.ema_params is not None
+    if use_ema and info.get("ema_restored") == 0:
+        # the EMA slot still holds the restored raw parameters' copy:
+        # score the raw parameters, as the reference does
+        print("WARNING: restore carried no EMA tensors — "
+              "falling back to the raw parameters")
+        use_ema = False
+
+    val_list = getattr(imdb, "val_list", None)
+    split_batches = (max(1, len(val_list) // batch_size) if val_list
+                     else imdb.total_batch)
+    n_batches = args.max_batches or split_batches
+    c1 = c5 = total = 0
+    for _ in range(n_batches):
+        images, labels = get_batch()
+        logits = trainer.eval_outputs(state, images, ema=use_ema)
+        labels = torch.as_tensor(labels).to(trainer.device).long()
+        top5 = torch.topk(logits, min(5, logits.shape[-1]), dim=-1).indices
+        c1 += int((torch.argmax(logits, -1) == labels).sum())
+        c5 += int((top5 == labels[:, None]).any(-1).sum())
+        total += batch_size
+    print(f"eval at step {step}: accuracy {c1 / total:.4f}, "
+          f"recall@5 {c5 / total:.4f} over {total} images")
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

@@ -11,6 +11,7 @@ flax's running-statistic update (``BatchNorm``).
 
 from __future__ import annotations
 
+import contextlib
 import functools
 
 import torch
@@ -22,6 +23,22 @@ from tensorflow_yolo2_torch.ops import cuda_pool
 LEAKY_ALPHA = 0.1
 BN_EPSILON = 1e-3
 BN_MOMENTUM = 0.99
+
+_FROZEN_STATS = 0  # > 0: BatchNorm in training mode leaves its statistics
+
+
+@contextlib.contextmanager
+def frozen_running_stats():
+    """Within it, ``BatchNorm`` in training mode normalises with the batch
+    statistics as always but leaves its running statistics as they are:
+    the recompute of a rematerialized forward must not update them a
+    second time."""
+    global _FROZEN_STATS
+    _FROZEN_STATS += 1
+    try:
+        yield
+    finally:
+        _FROZEN_STATS -= 1
 
 
 @functools.cache
@@ -138,6 +155,8 @@ class BatchNorm(nn.BatchNorm2d):
         var = torch.zeros_like(self.running_var)
         y = F.batch_norm(x, mean, var, self.weight, self.bias, True, 1.0,
                          self.eps)
+        if _FROZEN_STATS:
+            return y
         n = x.numel() // x.shape[1]
         m = self.flax_momentum
         with torch.no_grad():
@@ -148,36 +167,53 @@ class BatchNorm(nn.BatchNorm2d):
         return y
 
 
+class SameConv2d(nn.Conv2d):
+    """A k×k conv with flax's ``padding="SAME"``: XLA's padding of each
+    dimension for its size and the stride (``_same_pads``), zeros, then
+    the unpadded conv. At stride 1 with an odd kernel that is the
+    symmetric ``k // 2``; at stride 2 on an even map the total k − 2 goes
+    low ⌊·/2⌋ and high the rest (low 2, high 3 for a 7×7; low 0, high 1
+    for a 3×3), where torch's symmetric ``padding`` would shift the
+    sampling grid. Parameters are ``nn.Conv2d``'s."""
+
+    def __init__(self, in_channels: int, features: int, kernel_size: int,
+                 stride: int = 1, bias: bool = True):
+        symmetric = stride == 1 and kernel_size % 2 == 1
+        super().__init__(in_channels, features, kernel_size, stride=stride,
+                         padding=kernel_size // 2 if symmetric else 0,
+                         bias=bias)
+        self.symmetric = symmetric
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if not self.symmetric:
+            k, s = self.kernel_size[0], self.stride[0]
+            (top, bottom), (left, right) = (_same_pads(n, k, s)
+                                            for n in x.shape[-2:])
+            if top or bottom or left or right:
+                x = F.pad(x, (left, right, top, bottom))
+        return super().forward(x)
+
+
 class ConvBN(nn.Module):
     """k×k SAME conv (with bias) + BatchNorm + leaky-ReLU.
 
     ``use_bn=False`` is a plain conv+bias(+leaky) — the shape BN folding
     produces for inference; ``activate=False`` drops the leaky.
 
-    ``stride=2`` pads as XLA's SAME does on an even input: the total
-    padding k−2 goes low ⌊·/2⌋, high the rest (low 0, high 1 for a 3×3),
-    where torch's symmetric ``padding`` would shift the sampling grid.
+    The conv is a ``SameConv2d``: at ``stride=2`` it pads as XLA's SAME
+    does (low 0, high 1 for a 3×3 on an even input).
     """
 
     def __init__(self, in_channels: int, features: int, kernel_size: int = 3,
                  use_bn: bool = True, activate: bool = True,
                  stride: int = 1, bn_momentum: float = BN_MOMENTUM):
         super().__init__()
-        if stride == 1:
-            self.pad, padding = None, kernel_size // 2
-        else:
-            total = max(kernel_size - stride, 0)
-            low = total // 2
-            self.pad, padding = (low, total - low, low, total - low), 0
-        self.conv = nn.Conv2d(in_channels, features, kernel_size,
-                              stride=stride, padding=padding, bias=True)
+        self.conv = SameConv2d(in_channels, features, kernel_size, stride)
         self.bn = (BatchNorm(features, momentum=bn_momentum)
                    if use_bn else None)
         self.activate = activate
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        if self.pad is not None:
-            x = F.pad(x, self.pad)
         x = self.conv(x)
         if self.bn is not None:
             x = self.bn(x)

@@ -5,9 +5,12 @@ The JAX package's layout and naming: ``ckpts/<net>/<imdb>/train_iter_N/``
 (``train_epoch_N`` for epoch intervals), the newest by step, at most
 ``keep`` kept. A snapshot dir holds one torch file, ``state.pt``: the
 model's state dict, the optimizer's state (its count and its slots: Adam's
-``mu`` and ``nu``, momentum's ``trace``, of the trained parameters), the
-step, the dropout generator's state where the run has one, and the
-``YoloConfig`` fields of the run. Orbax snapshots of the JAX package need
+``mu`` and ``nu``, momentum's ``trace``, ..., of the trained parameters;
+under gradient accumulation also ``mini_step`` and ``acc_grads``, so that
+a resume in the middle of an accumulation is exact), the step, the
+dropout generator's state where the run has one, the parameters' EMA
+(``ema``) where the run keeps one, and the ``YoloConfig`` fields of the
+run. Orbax snapshots of the JAX package need
 JAX to read and are not read here.
 
 Restore modes: exact resume (``restore``; ``ValueError`` when the
@@ -68,11 +71,13 @@ def load_into(model: torch.nn.Module,
 
 
 def optimizer_slots(opt_state: Any) -> dict[str, dict[str, torch.Tensor]]:
-    """The per-parameter slots of an optimizer state by field name
-    (Adam's ``mu`` and ``nu``, momentum's ``trace``): everything but the
-    step count."""
-    return {f.name: getattr(opt_state, f.name)
-            for f in dataclasses.fields(opt_state) if f.name != "count"}
+    """The per-parameter tensors of an optimizer state by name (Adam's
+    ``mu`` and ``nu``, momentum's ``trace``, ..., and ``acc_grads`` under
+    gradient accumulation): everything but the counts."""
+    slots = dict(opt_state.slots)
+    if opt_state.acc_grads is not None:
+        slots["acc_grads"] = opt_state.acc_grads
+    return slots
 
 
 def read_snapshot(path: str) -> dict[str, Any]:
@@ -136,18 +141,23 @@ class CheckpointManager:
                 shutil.rmtree(stale)
         os.makedirs(tmp)
         opt = state.opt_state
-        torch.save({
+        optimizer = {"count": opt.count,
+                     **{name: {k: v.cpu() for k, v in slot.items()}
+                        for name, slot in optimizer_slots(opt).items()}}
+        if opt.acc_grads is not None:
+            optimizer["mini_step"] = opt.mini_step
+        raw = {
             "step": int(state.step),
             "model": {k: v.detach().cpu() for k, v in
                       state.model.state_dict().items()},
-            "optimizer": {
-                "count": opt.count,
-                **{name: {k: v.cpu() for k, v in slot.items()}
-                   for name, slot in optimizer_slots(opt).items()}},
+            "optimizer": optimizer,
             "rng": state.rng.get_state(),
             "yolo": (dataclasses.asdict(self.yolo)
                      if self.yolo is not None else None),
-        }, os.path.join(tmp, SNAPSHOT_FILE))
+        }
+        if state.ema_params is not None:
+            raw["ema"] = {k: v.cpu() for k, v in state.ema_params.items()}
+        torch.save(raw, os.path.join(tmp, SNAPSHOT_FILE))
         os.replace(tmp, path)
         self._gc()
         return path
@@ -155,15 +165,22 @@ class CheckpointManager:
     def restore(self, target: TrainState,
                 step: int | None = None) -> tuple[TrainState, int]:
         """Exact resume into ``target`` (in place): returns (state, step).
-        Raises ``ValueError`` when the snapshot's model or optimizer state
-        differs from the target's in names or shapes."""
+        Raises ``ValueError`` when the snapshot's model, optimizer state
+        or EMA differs from the target's in names or shapes, or holds an
+        EMA where the target has none or the other way round."""
         path, step = self._path(step)
         raw = read_snapshot(path)
         own = target.model.state_dict()
         opt, saved = target.opt_state, raw.get("optimizer") or {}
+        slots = optimizer_slots(opt)
+        if set(saved) - {"count", "mini_step"} != set(slots) or \
+                (target.ema_params is None) != (raw.get("ema") is None):
+            raise ValueError(f"snapshot {path} does not match the train "
+                             "state")
         pairs = [(own, raw["model"])] + [
-            (slot, saved.get(name, {}))
-            for name, slot in optimizer_slots(opt).items()]
+            (slot, saved[name]) for name, slot in slots.items()]
+        if target.ema_params is not None:
+            pairs.append((target.ema_params, raw["ema"]))
         for mine, theirs in pairs:
             if mine.keys() != theirs.keys() or any(
                     mine[k].shape != theirs[k].shape for k in mine):
@@ -174,6 +191,7 @@ class CheckpointManager:
                 for k, v in theirs.items():
                     mine[k].copy_(v)
         opt.count = int(saved["count"])
+        opt.mini_step = int(saved.get("mini_step", 0))
         target.step = int(raw["step"])
         if raw.get("rng") is not None:  # none in an older snapshot
             target.rng.set_state(raw["rng"])

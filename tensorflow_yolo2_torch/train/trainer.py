@@ -31,27 +31,56 @@ Every model's ``forward`` takes ``generator``: a train step passes
 ``TrainState.rng``, a generator on the trainer's device seeded from the
 caller's, and an eval step passes none. Only a model with dropout
 (``models.resnet.ResNet50Detector``) draws from it, once a step, as the
-JAX step splits ``state.rng``; the others ignore it. EMA and gradient
-accumulation are not ported yet.
+JAX step splits ``state.rng``; the others ignore it.
+
+The optimizer is any of ``train.optimizers``'s family, with weight
+decay, and with ``grad_accum_steps`` > 1 a ``MultiSteps`` that applies
+the update on every k-th step (``TrainState.step`` counts every
+micro-step, the optimizer's count only applied updates). With
+``moving_average_decay`` the state keeps ``ema_params``, distinct copies
+of the parameters that advance after each applied update, and
+``eval_step`` evaluates them (``eval_with_ema``) with the live BatchNorm
+statistics, through ``torch.func.functional_call``.
+
+``remat=True`` rematerializes the forward in the backward pass
+(``torch.utils.checkpoint``, non-reentrant), as the JAX step's
+``jax.checkpoint`` of the whole apply. Its recompute restores what a
+pure JAX function never changes: it leaves the BatchNorm running
+statistics alone (``layers.frozen_running_stats``), so they move once a
+step, and it starts ``TrainState.rng`` from where the forward started
+it and hands it back where the forward left it, so that it draws the
+same dropout mask. A remat step leaves parameters, statistics and
+generator where the plain step does.
+
+``activation_summaries=True`` adds, for every direct child module of the
+model (flax's depth-1 modules, under its names), ``sparsity/<name>``,
+the share of the child's float32 output that is ≤ 0, and
+``hist/act_<name>``, the flattened output sampled at a stride to at most
+4096 values; a 4-D output is flattened in NHWC order, as the JAX
+package's. Outputs that are not tensors are skipped. As in the JAX step,
+such a step does not rematerialize.
 """
 
 from __future__ import annotations
 
+import contextlib
 import inspect
 from dataclasses import dataclass
 from typing import Any, Callable, Mapping
 
 import torch
 import torch.nn.functional as F
+import torch.utils.checkpoint
 from torch import nn
 
 from tensorflow_yolo2_torch.config import OptimizerConfig, YoloConfig
 from tensorflow_yolo2_torch.losses.yolo import yolo_loss
 from tensorflow_yolo2_torch.models.darknet import init_params_
+from tensorflow_yolo2_torch.models.layers import frozen_running_stats
 from tensorflow_yolo2_torch.train.optimizers import (
-    AdamState,
-    MomentumState,
+    OptState,
     global_norm,
+    make_ema,
     make_optimizer,
     trainable_names,
 )
@@ -67,12 +96,14 @@ Metrics = dict[str, torch.Tensor]
 class TrainState:
     """What a step updates: the model (parameters and BatchNorm running
     statistics, on the trainer's device), the optimizer's state, the step
-    count, and the dropout generator on that device."""
+    count, the dropout generator on that device, and the parameters' EMA
+    (by name; None without ``moving_average_decay``)."""
 
     step: int
     model: nn.Module
-    opt_state: AdamState | MomentumState
+    opt_state: OptState
     rng: torch.Generator
+    ema_params: dict[str, torch.Tensor] | None = None
 
     @property
     def params(self) -> dict[str, torch.nn.Parameter]:
@@ -158,6 +189,22 @@ def _takes_step(task: Callable) -> bool:
         return False
 
 
+ACT_SAMPLE = 4096  # at most this many values of each activation histogram
+
+
+def _activation_metrics(name: str, out: torch.Tensor) -> Metrics:
+    """``sparsity/<name>`` and ``hist/act_<name>`` of one child's output
+    (NCHW maps read in NHWC order)."""
+    act = out.detach().float()
+    if act.dim() == 4:
+        act = act.permute(0, 2, 3, 1)
+    flat = act.reshape(-1)
+    n = min(ACT_SAMPLE, flat.shape[0])
+    stride = max(1, flat.shape[0] // n)
+    return {f"sparsity/{name}": torch.mean((act <= 0.0).float()),
+            f"hist/act_{name}": flat[::stride][:n]}
+
+
 class Trainer:
     """The train and eval steps of (model, task, optimizer) on one device.
 
@@ -165,13 +212,17 @@ class Trainer:
     ``torch.float32``; ``device`` defaults to ``cuda``. A task whose
     signature has ``step`` (``losses.yolo_v2.yolo_v2_task``, whose
     burn-in it drives) gets the step count before the update in a train
-    step and None in an eval step, as in the JAX package.
+    step and None in an eval step, as in the JAX package. ``remat``,
+    ``activation_summaries`` and ``eval_with_ema`` are the JAX
+    trainer's options (module docstring).
     """
 
     def __init__(self, model: nn.Module, task: Callable,
                  opt_cfg: OptimizerConfig = OptimizerConfig(),
                  device: str | torch.device | None = None,
-                 compute_dtype: torch.dtype = torch.bfloat16):
+                 compute_dtype: torch.dtype = torch.bfloat16,
+                 remat: bool = False, activation_summaries: bool = False,
+                 eval_with_ema: bool = True):
         if compute_dtype not in (torch.bfloat16, torch.float32):
             raise ValueError(f"compute_dtype must be bfloat16 or float32, "
                              f"got {compute_dtype}")
@@ -180,8 +231,13 @@ class Trainer:
         self._task_takes_step = _takes_step(task)
         self.opt_cfg = opt_cfg
         self.optimizer = make_optimizer(opt_cfg)
+        self._ema = (make_ema(opt_cfg.moving_average_decay)
+                     if opt_cfg.moving_average_decay else None)
         self.device = resolve_device(device)
         self.compute_dtype = compute_dtype
+        self.remat = remat
+        self.activation_summaries = activation_summaries
+        self.eval_with_ema = eval_with_ema
 
     # -- state --------------------------------------------------------------
 
@@ -193,7 +249,8 @@ class Trainer:
         on the device, with a fresh optimizer state; the parameters
         outside ``trainable_scopes`` frozen (a ``ValueError`` when the
         scopes take none); the dropout generator on the device, seeded
-        from ``generator`` after the weights."""
+        from ``generator`` after the weights; with EMA, its copies of
+        the parameters."""
         self.model.to("cpu")
         if state_dict is None:
             init_params_(self.model, generator)
@@ -210,7 +267,16 @@ class Trainer:
             p.requires_grad_(name in trained)
         seed = int(torch.randint(2**62, (), generator=generator))
         rng = torch.Generator(self.device).manual_seed(seed)
-        return TrainState(0, self.model, self.optimizer.init(params), rng)
+        state = TrainState(0, self.model, self.optimizer.init(params), rng)
+        return self.restart_ema(state)
+
+    def restart_ema(self, state: TrainState) -> TrainState:
+        """The EMA restarted from the state's parameters (distinct
+        tensors); None without EMA."""
+        state.ema_params = (
+            {k: p.detach().clone() for k, p in state.params.items()}
+            if self._ema else None)
+        return state
 
     def resume_optimizer(self, state: TrainState) -> TrainState:
         """The optimizer swap of a resume: a fresh optimizer state for the
@@ -221,12 +287,45 @@ class Trainer:
     # -- steps ----------------------------------------------------------------
 
     def _forward(self, images: torch.Tensor,
-                 generator: torch.Generator | None = None) -> torch.Tensor:
+                 generator: torch.Generator | None = None,
+                 params: Mapping[str, torch.Tensor] | None = None,
+                 remat: bool = False) -> torch.Tensor:
         images = device_normalize(torch.as_tensor(images).to(self.device))
         with torch.autocast(self.device.type, dtype=torch.bfloat16,
                             enabled=self.compute_dtype == torch.bfloat16):
-            outputs = self.model(images, generator=generator)
+            if params is not None:
+                outputs = torch.func.functional_call(
+                    self.model, dict(params), (images,),
+                    {"generator": generator})
+            elif remat:
+                outputs = self._remat_forward(images, generator)
+            else:
+                outputs = self.model(images, generator=generator)
         return outputs.float()
+
+    def _remat_forward(self, images: torch.Tensor,
+                       generator: torch.Generator | None) -> torch.Tensor:
+        """The model's forward under ``torch.utils.checkpoint``; its
+        recompute leaves the running statistics and the generator as the
+        forward left them and draws what the forward drew."""
+        start = generator.get_state() if generator is not None else None
+
+        @contextlib.contextmanager
+        def recompute():
+            after = generator.get_state() if generator is not None else None
+            if generator is not None:
+                generator.set_state(start)
+            try:
+                with frozen_running_stats():
+                    yield
+            finally:
+                if generator is not None:
+                    generator.set_state(after)
+
+        return torch.utils.checkpoint.checkpoint(
+            lambda x: self.model(x, generator=generator), images,
+            use_reentrant=False,
+            context_fn=lambda: (contextlib.nullcontext(), recompute()))
 
     def _labels(self, labels: Any) -> torch.Tensor:
         """Labels on the device: float ones (label grids) in float32,
@@ -244,33 +343,71 @@ class Trainer:
         params = {k: p for k, p in state.params.items() if p.requires_grad}
         labels = self._labels(labels)
         kw = {"step": state.step} if self._task_takes_step else {}
-        loss, metrics = self.task(self._forward(images, state.rng), labels,
-                                  **kw)
+        acts: Metrics = {}
+        hooks = []
+        if self.activation_summaries:
+            def capture(name):
+                def hook(module, args, out):
+                    if isinstance(out, torch.Tensor) and \
+                            f"sparsity/{name}" not in acts:
+                        acts.update(_activation_metrics(name, out))
+                return hook
+
+            hooks = [child.register_forward_hook(capture(name))
+                     for name, child in state.model.named_children()]
+        try:
+            outputs = self._forward(
+                images, state.rng,
+                remat=self.remat and not self.activation_summaries)
+        finally:
+            for h in hooks:
+                h.remove()
+        loss, metrics = self.task(outputs, labels, **kw)
         grads = torch.autograd.grad(loss, list(params.values()))
-        return ({k: v.detach() for k, v in metrics.items()},
-                dict(zip(params, grads)))
+        metrics = {k: v.detach() for k, v in metrics.items()}
+        metrics.update(acts)
+        return metrics, dict(zip(params, grads))
 
     def train_step(self, state: TrainState, images: Any, labels: Any
                    ) -> tuple[TrainState, Metrics]:
-        """One optimizer step on a batch (NHWC images, float or uint8,
-        and label grids or class indices; numpy or tensors). Updates
-        ``state`` in place and returns it with the step's metrics,
-        ``grad_norm`` (the global norm of the trained parameters'
-        gradients before clipping) among them; the metrics stay on the
-        device."""
+        """One step on a batch (NHWC images, float or uint8, and label
+        grids or class indices; numpy or tensors): an optimizer update,
+        or under gradient accumulation a micro-step that applies one on
+        every k-th call. Updates ``state`` in place and returns it with
+        the step's metrics, ``grad_norm`` (the global norm of the
+        trained parameters' gradients of this batch, before clipping)
+        among them; the metrics stay on the device. The EMA advances
+        only where an update was applied."""
         metrics, grads = self.loss_and_grads(state, images, labels)
         norm = global_norm(grads.values())
         metrics["grad_norm"] = norm
         self.optimizer.update_(grads, state.opt_state, state.params, norm)
+        if self._ema is not None and state.opt_state.mini_step == 0:
+            params = state.params
+            self._ema([state.ema_params[k] for k in params],
+                      [p.detach() for p in params.values()])
         state.step += 1
         return state, metrics
 
     @torch.no_grad()
     def eval_step(self, state: TrainState, images: Any,
                   labels: Any) -> Metrics:
-        """The task's metrics in eval mode (running statistics); a task
-        that takes ``step`` gets None (no burn-in at evaluation)."""
+        """The task's metrics in eval mode (running statistics), from the
+        EMA parameters when the trainer tracks them and
+        ``eval_with_ema``; a task that takes ``step`` gets None (no
+        burn-in at evaluation)."""
         state.model.eval()
         labels = self._labels(labels)
         kw = {"step": None} if self._task_takes_step else {}
-        return self.task(self._forward(images), labels, **kw)[1]
+        ema = self._ema is not None and self.eval_with_ema
+        params = state.ema_params if ema else None
+        return self.task(self._forward(images, params=params), labels,
+                         **kw)[1]
+
+    @torch.no_grad()
+    def eval_outputs(self, state: TrainState, images: Any,
+                     ema: bool = False) -> torch.Tensor:
+        """The model's float32 outputs in eval mode, from the EMA
+        parameters with ``ema`` (the state must hold them)."""
+        state.model.eval()
+        return self._forward(images, params=state.ema_params if ema else None)

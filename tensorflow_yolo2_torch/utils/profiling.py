@@ -123,3 +123,30 @@ def resnet50_flops_per_image(image_size: int, num_classes: int | None = None,
     if grid_outputs is not None:
         flops += 2.0 * (hw * hw * cin * 4096 + 4096 * grid_outputs)
     return flops
+
+
+def module_flops_per_image(model: torch.nn.Module, image_size: int,
+                           device: str | torch.device = "cpu") -> float:
+    """Forward conv and dense FLOPs (2 × MACs) of ``model`` on one NHWC
+    ``image_size``² image, counted from the shapes that one forward in
+    eval mode gives each ``nn.Conv2d`` and ``nn.Linear`` (any registered
+    net, the zoo's too); the model is left in eval mode on ``device``."""
+    flops = [0.0]
+
+    def count(module, args, out):
+        if isinstance(module, torch.nn.Conv2d):
+            k = module.weight[0].numel()  # in/groups · kh · kw
+            flops[0] += 2.0 * out.numel() * k
+        else:
+            flops[0] += 2.0 * out.numel() * module.in_features
+
+    hooks = [m.register_forward_hook(count) for m in model.modules()
+             if isinstance(m, (torch.nn.Conv2d, torch.nn.Linear))]
+    try:
+        with torch.no_grad():
+            model.eval().to(device)(torch.zeros(1, image_size, image_size, 3,
+                                                device=device))
+    finally:
+        for h in hooks:
+            h.remove()
+    return flops[0]

@@ -27,7 +27,11 @@ same APs as the plain decode of the same grids (exactly: the kernel's
 kept sets, scores and classes are the plain version's). The int8 chain
 (``ops.quant``, im2col + ``torch._int_mm``): each conv's int32 sums equal
 the CPU's exact float64 conv of the same int8 input, the grid within
-chip_smoke.INT8_GRID_REL_TOL of the CPU's; no float conv runs.
+chip_smoke.INT8_GRID_REL_TOL of the CPU's; no float conv runs. The slim
+tier (``-k slim``): its three CLIs on the card, each optimizer's update
+within 1e-6 of the CPU's, k=2 accumulation equal to the doubled batch
+within 1e-5 with B5 4 times a yolo1 step, a remat step bit-equal to the
+plain one.
 """
 
 import ctypes
@@ -1078,3 +1082,59 @@ def test_resnet_fine_tune_freezes_the_trunk(card):
                if "running" in k)
     assert sorted(state.opt_state.trace) == ["logits.bias", "logits.weight"]
 
+
+
+# -- the slim tier: the CLIs, the optimizers, remat, B5 on yolo1 ------------
+
+
+def test_slim_clis_on_the_card(card):
+    """``train_classifier`` (darknet19, rmsprop, weight decay, EMA,
+    k=2, ``--save-interval-secs``, summaries; B5 5 times a micro-step),
+    ``eval_classifier --use-ema`` and ``flowers_train`` on a flowers
+    tree at 224² (``chip_smoke.run_slim_clis``)."""
+    out = chip_smoke.run_slim_clis(card)
+    assert out["train_launches"] == 5 * chip_smoke.SLIM_CLI_ITERS
+    assert out["flowers_launches"] == 10
+
+
+def test_slim_optimizers_on_the_card(card):
+    """Each of the nine optimizers, MultiSteps and the EMA: one float32
+    update on the card within 1e-6 of the CPU's from the same state."""
+    out = chip_smoke.check_slim_optimizers(card)
+    assert set(out) >= {"sgd", "rmsprop", "adagrad", "ftrl", "adadelta",
+                        "adam", "adamw", "lamb", "momentum", "ema",
+                        "multisteps_rmsprop_k2"}
+    assert max(out.values()) <= chip_smoke.OPT_REL_TOL
+
+
+def test_slim_accumulation_and_yolo1_pool_launches(card):
+    """``yolo1_pretrain`` at 224², k=2 on two batches of 16 = one step on
+    32 (1e-5), B5 4 times a micro-step; then a ``yolo1`` step at 448²
+    with its loss: B5 4 times a step, a finite loss."""
+    from tensorflow_yolo2_torch.config import OptimizerConfig, YoloConfig
+    from tensorflow_yolo2_torch.models.registry import get_network
+    from tensorflow_yolo2_torch.train.trainer import Trainer, yolo_task
+
+    assert chip_smoke.check_accumulation(card)["launches"] == 8
+    yolo = YoloConfig(image_size=448)
+    trainer = Trainer(get_network("yolo1"), yolo_task(yolo),
+                      OptimizerConfig(name="rmsprop", weight_decay=4e-5),
+                      device=card)
+    state = trainer.create_state(torch.Generator().manual_seed(0),
+                                 chip_smoke.fresh_state_dict(
+                                     get_network("yolo1"), card))
+    images, labels = (torch.from_numpy(a).to(card) for a in
+                      chip_smoke.train_batch(np.random.RandomState(3), 4,
+                                             yolo))
+    cuda_pool.reset_launch_counts()
+    state, metrics = trainer.train_step(state, images, labels)
+    torch.cuda.synchronize()
+    assert cuda_pool.MAX_POOL2_BWD_LAUNCHES == 4
+    assert math.isfinite(metrics["loss"].item())
+
+
+def test_slim_remat_is_bit_equal_on_the_card(card):
+    """A remat step of resnet_v1_152 at batch 8 leaves parameters,
+    running statistics, slots and generator where the plain step does
+    (``chip_smoke.check_remat``, cuDNN deterministic)."""
+    assert chip_smoke.check_remat(card)["max_abs_diff"] == 0.0

@@ -265,8 +265,13 @@ def test_adam_matches_optax(clip):
                                 dict(name="adamw"),
                                 dict(grad_accum_steps=2)])
 def test_unported_optimizer_options_raise(kw):
-    with pytest.raises(ValueError, match="ROADMAP"):
-        pt_opt.make_optimizer(OptimizerConfig(**kw))
+    """These options are ported now (held to optax in
+    ``tests/test_torch_port_slim_optim.py``) and build; what stays
+    refused, naming its queue item, is the per-scope optimizer groups."""
+    opt = pt_opt.make_optimizer(OptimizerConfig(**kw))
+    assert opt.cfg == OptimizerConfig(**kw)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        pt_opt.make_grouped_optimizer([((), OptimizerConfig(**kw))], {})
 
 
 # -- (d) whole train steps ----------------------------------------------------
