@@ -130,17 +130,29 @@
    4e-5) with EMA, ``--grad-accum-steps 2``, ``--save-interval-secs`` and
    ``--activation-summaries`` (B5 5 times a micro-step), then
    ``eval_classifier --use-ema`` on its snapshot and ``flowers_train``;
-   every registered net but the inception family at its default size,
-   batch 2: the float32 card forward (TF32 off) within 1e-4 and the bf16
-   forward within 5e-2 of the CPU's float32 forward (relative norm); each
+   the data tier's CLIs under a temporary run root: a ``file://`` mirror
+   of a seeded CIFAR-10 python archive and MNIST's gzipped IDX files,
+   ``download_and_convert`` of cifar10 (from the URL), mnist and a
+   flowers tree, ``train_classifier`` with ``--preprocessing-name`` on
+   the prepared cifar10 shards (cifarnet), on mnist (lenet), on the
+   prepared flowers shards (darknet19, B5 5 times a step) and
+   ``inception_v3 --aux-loss`` on the flowers tree at 299², then
+   ``eval_classifier --preprocessing-name inception`` on its snapshot;
+   every registered net at its default size (the inception nets with
+   their auxiliary heads where they have them), batch 2: the float32
+   card forward (TF32 off) within 1e-4 and the bf16 forward within 5e-2
+   of the CPU's float32 forward (relative norm); the identity fold of
+   inception_v3 at 299² (folded logits within 1e-5 of the unfolded); each
    of the nine optimizers, MultiSteps and the EMA, one update on the card
    against the CPU's from the same state (1e-6); ``yolo1_pretrain`` at
    224² with k=2 on two batches of 16 against one step on 32 (1e-5; B5 4
    times a micro-step); a ``remat`` step of ``resnet_v1_152`` at batch 8
    bit-equal to the plain one, with the peak memory of each; and the
    train steps of darknet19 (224², batch 32, rmsprop, weight decay,
-   EMA), vgg_16 and resnet_v1_152 (224², batch 32) and yolo1 (448², batch
-   16; B5 4 times a step), bf16, images/s with the idle share.
+   EMA), vgg_16 and resnet_v1_152 (224², batch 32), yolo1 (448², batch
+   16; B5 4 times a step), inception_v3 with its auxiliary loss and
+   inception_resnet_v2 (299², batch 32), bf16, images/s with the idle
+   share.
 14. Times the v1, v1 ``--pallas-stem`` and v2p serving paths in bf16 and
    the v1 and v1 ``--pallas-stem`` paths in float32 with TF32 off
    (images/s at batch 32 and 256, with a profile), the v1 224² and v2p
@@ -383,7 +395,23 @@ REMAT_NET, REMAT_BATCH = "resnet_v1_152", 8
 SLIM_TIMES = (("darknet19", 224, 32, 5, True),
               ("vgg_16", 224, 32, 1000, False),
               ("resnet_v1_152", 224, 32, 1000, False),
-              ("yolo1", 448, 16, None, False))
+              ("yolo1", 448, 16, None, False),
+              ("inception_v3", 299, 32, 1000, False),
+              ("inception_resnet_v2", 299, 32, 1000, False))
+# the nets with auxiliary heads: the zoo's forwards and the timed steps
+# build them with the heads (the timed inception_v3 step trains them)
+AUX_NETS = ("inception_v1", "inception_v3", "inception_v4")
+# the identity fold (models.fold.fold_params_identity) of inception_v3 at
+# 299², float32 (TF32 off): the folded logits against the unfolded ones,
+# relative norm; the CPU test's bound (float32 convs of rescaled kernels)
+FOLD_BATCH = 8
+FOLD_REL_TOL = 1e-5
+# the data tier's CLIs: a seeded CIFAR-10 python archive behind a file://
+# URL (images a batch file) and MNIST's four gzipped IDX files (train,
+# test images) in a mirror under the run root
+DATA_CIFAR_PER_BATCH = 16
+DATA_MNIST = (64, 32)
+DATA_INCEPTION_SIZE = 299  # inception_v3's default size
 
 
 def check(ok: bool, what: str) -> None:
@@ -2029,6 +2057,15 @@ def write_ilsvrc_tree(root: str, rng: np.random.RandomState) -> str:
     return root
 
 
+@functools.cache
+def card_line() -> str:
+    """The card's name and power limit, as nvidia-smi gives them."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[0]
+
+
 def run_cli(main, argv: list[str], what: str) -> str:
     """An entry point's ``main(argv)`` in this process: it must return 0.
     Prints and returns what it printed."""
@@ -2498,46 +2535,63 @@ def random_weights_(model: torch.nn.Module,
                 if m.bias is not None:
                     m.bias.normal_(0.0, 0.05, generator=gen)
             elif isinstance(m, nn.BatchNorm2d):
-                m.weight.uniform_(0.5, 1.5, generator=gen)
+                if m.weight is not None:  # the inception nets' have none
+                    m.weight.uniform_(0.5, 1.5, generator=gen)
                 m.bias.normal_(0.0, 0.1, generator=gen)
                 m.running_mean.normal_(0.0, 0.1, generator=gen)
                 m.running_var.uniform_(0.5, 2.0, generator=gen)
     return model
 
 
+def outputs(y) -> list[torch.Tensor]:
+    """A net's outputs, the logits (and the auxiliary logits), as float32
+    tensors on the host."""
+    return [t.float().cpu() for t in (y if isinstance(y, tuple) else (y,))]
+
+
 def check_zoo(dev) -> dict:
-    """Every registered net but the inception family (not ported) at its
-    default size, batch 2, seeded random weights drawn on the card, in
-    eval mode: the float32 card forward (TF32 off) and the bf16 autocast
-    forward against the CPU's float32 forward of the same weights."""
+    """Every registered net at its default size (the inception nets with
+    their auxiliary heads where they have them), batch 2, seeded random
+    weights drawn on the card, in eval mode: the float32 card forward
+    (TF32 off) and the bf16 autocast forward against the CPU's float32
+    forward of the same weights, every output (the worst is held)."""
     from tensorflow_yolo2_torch.models import registry
 
     out = {}
     for name in registry.list_networks():
-        if name.startswith("inception"):
-            continue
         size = registry.default_image_size(name)
+        kw = {"aux_logits": True} if name in AUX_NETS else {}
         with torch.device(dev):
-            model = registry.get_network(name)
+            model = registry.get_network(name, **kw)
         random_weights_(model, torch.Generator(dev).manual_seed(len(name)))
         model.eval()
         x = torch.from_numpy(np.random.RandomState(size).uniform(
             -1, 1, (ZOO_BATCH, size, size, 3)).astype(np.float32))
         xd = x.to(dev)
         with torch.no_grad():
-            f32 = model(xd).float().cpu()
+            f32 = outputs(model(xd))
             with torch.autocast("cuda", dtype=torch.bfloat16):
-                bf16 = model(xd).float().cpu()
-            want = model.cpu()(x)
+                bf16 = outputs(model(xd))
+            wants = outputs(model.cpu()(x))
+        want = wants[0]
+        f32_errs = [rel_norm(g, w) for g, w in zip(f32, wants)]
+        bf16_errs = [rel_norm(g, w) for g, w in zip(bf16, wants)]
         out[name] = {"size": size, "shape": list(want.shape),
-                     "f32_rel_err": rel_norm(f32, want),
-                     "bf16_rel_err": rel_norm(bf16, want)}
+                     "f32_rel_err": max(f32_errs),
+                     "bf16_rel_err": max(bf16_errs)}
+        aux = ""
+        if len(wants) > 1:
+            out[name].update(aux_f32_rel_err=f32_errs[1],
+                             aux_bf16_rel_err=bf16_errs[1])
+            aux = (f"; the auxiliary logits float32 {f32_errs[1]:.3e}, "
+                   f"bf16 {bf16_errs[1]:.3e}")
         print(f"zoo {name} {size}², batch {ZOO_BATCH}, output "
               f"{tuple(want.shape)}: float32 card vs CPU "
-              f"{out[name]['f32_rel_err']:.3e} (bound {ZOO_F32_REL_TOL}), "
-              f"bf16 {out[name]['bf16_rel_err']:.3e} (bound "
-              f"{ZOO_BF16_REL_TOL}), relative norm")
-        check(bool(torch.isfinite(want).all()) and want.norm() > 0,
+              f"{f32_errs[0]:.3e} (bound {ZOO_F32_REL_TOL}), "
+              f"bf16 {bf16_errs[0]:.3e} (bound "
+              f"{ZOO_BF16_REL_TOL}), relative norm{aux}")
+        check(all(bool(torch.isfinite(w).all()) and w.norm() > 0
+                  for w in wants),
               f"zoo {name}: finite, non-zero CPU output")
         check(out[name]["f32_rel_err"] <= ZOO_F32_REL_TOL,
               f"zoo {name}: float32 card forward agrees with the CPU's")
@@ -2546,6 +2600,41 @@ def check_zoo(dev) -> dict:
         del model, xd
         torch.cuda.empty_cache()
     return out
+
+
+def check_inception_fold(dev) -> dict:
+    """``inception_v3`` at 299² with its auxiliary head (1000 classes,
+    seeded random weights drawn on the card, the statistics off the
+    identity), eval mode, float32 (TF32 off), batch FOLD_BATCH: the logits
+    and auxiliary logits of ``fold_params_identity``'s state dict against
+    the unfolded ones, within FOLD_REL_TOL."""
+    from tensorflow_yolo2_torch.models import registry
+    from tensorflow_yolo2_torch.models.fold import fold_params_identity
+
+    with torch.device(dev):
+        model = registry.get_network("inception_v3", aux_logits=True)
+    random_weights_(model, torch.Generator(dev).manual_seed(16))
+    model.eval()
+    x = torch.from_numpy(np.random.RandomState(16).uniform(
+        -1, 1, (FOLD_BATCH, 299, 299, 3)).astype(np.float32)).to(dev)
+    with torch.no_grad():
+        want = outputs(model(x))
+        before = {k: v.clone() for k, v in model.state_dict().items()}
+        folded = fold_params_identity(before)
+        model.load_state_dict(folded)
+        got = outputs(model(x))
+    changed = sum(not torch.equal(folded[k], before[k]) for k in before)
+    errs = [rel_norm(g, w) for g, w in zip(got, want)]
+    print(f"identity fold, inception_v3 299², aux head, float32, batch "
+          f"{FOLD_BATCH}: {changed} of {len(before)} tensors folded; logits "
+          f"{errs[0]:.3e}, auxiliary logits {errs[1]:.3e} from the unfolded "
+          f"ones (relative norm; bound {FOLD_REL_TOL})")
+    check(changed > 0 and all(torch.isfinite(g).all() for g in got),
+          "the fold changed the state dict, finite logits")
+    check(max(errs) <= FOLD_REL_TOL,
+          "the folded inception_v3 gives the unfolded logits")
+    return {"tensors_folded": changed, "logits_rel_err": errs[0],
+            "aux_logits_rel_err": errs[1]}
 
 
 def _to(state, dev, dtype=None):
@@ -2789,10 +2878,12 @@ def check_remat(dev) -> dict:
 
 def slim_train_times(dev) -> dict:
     """Train steps of SLIM_TIMES in bf16 with the CLI's rmsprop and
-    weight decay 4e-5 (EMA 0.999 where asked), fresh seeded weights drawn
-    on the card: ``time_train`` (images/s unprofiled, the idle share, B5
-    5 times a darknet19 step, 4 a yolo1 step, none on the zoo's stock
-    pools)."""
+    weight decay 4e-5 (EMA 0.999 where asked; inception_v3 with its
+    auxiliary head and loss), fresh seeded weights drawn on the card:
+    ``time_train`` (images/s unprofiled, the idle share, B5 5 times a
+    darknet19 step, 4 a yolo1 step, none on the zoo's and the inception
+    nets' stock pools), each labelled with the card's name and power
+    limit."""
     from tensorflow_yolo2_torch.config import (
         LRScheduleConfig,
         OptimizerConfig,
@@ -2815,8 +2906,9 @@ def slim_train_times(dev) -> dict:
             task = yolo_task(yolo)
             make_batch = functools.partial(train_batch, rng, yolo=yolo)
         else:
+            kw = {"aux_logits": True} if name in AUX_NETS else {}
             model = registry.get_network(name, num_classes=classes,
-                                         image_size=size)
+                                         image_size=size, **kw)
             task = softmax_task()
             make_batch = functools.partial(cls_batch, rng,
                                            num_classes=classes, size=size)
@@ -2830,9 +2922,11 @@ def slim_train_times(dev) -> dict:
             device=dev)
         state = trainer.create_state(torch.Generator().manual_seed(0),
                                      fresh_state_dict(model, dev))
+        aux = " aux" if name in AUX_NETS else ""
         out[f"{name}_{size}"] = time_train(
             trainer, state, lambda b: make_batch(b), flops,
-            f"{name} {size}²{' EMA' if ema else ''}", (batch,), pools)
+            f"{name} {size}²{' EMA' if ema else ''}{aux} on {card_line()}",
+            (batch,), pools)
         del trainer, state, model
         torch.cuda.empty_cache()
     return out
@@ -2913,10 +3007,120 @@ def run_slim_clis(dev) -> dict:
     return out
 
 
+def write_data_mirror(root: str) -> dict:
+    """A local mirror of seeded raw datasets under ``root``: a CIFAR-10
+    python archive (``cifar-10-python.tar.gz``, its ``file://`` URL) and
+    MNIST's four gzipped IDX files; nothing is downloaded."""
+    import tarfile
+
+    from tests import synthetic
+
+    cifar = synthetic.make_cifar10(
+        os.path.join(root, "mirror", "cifar-10-batches-py"),
+        per_batch=DATA_CIFAR_PER_BATCH)
+    tarball = os.path.join(root, "mirror", "cifar-10-python.tar.gz")
+    with tarfile.open(tarball, "w:gz") as tar:
+        tar.add(cifar, "cifar-10-batches-py")
+    mnist = synthetic.make_mnist(os.path.join(root, "mirror", "mnist"),
+                                 *DATA_MNIST, gz=True)
+    return {"cifar10_url": "file://" + tarball, "mnist": mnist}
+
+
+def run_data_tier_clis(dev) -> dict:
+    """The slim data tier and the inception family through the CLIs with
+    ``--device cuda``, under a temporary run root: ``download_and_convert``
+    of cifar10 from a ``file://`` URL (``write_data_mirror``), of mnist and
+    of a flowers tree (``make_flowers``, 224²) from ``--source-dir``; then
+    ``train_classifier`` on the prepared cifar10 shards (cifarnet, its
+    preprocessing), on mnist (lenet, its preprocessing), on the prepared
+    flowers shards (darknet19, its preprocessing; B5 5 times a step), and
+    ``--model-name inception_v3 --aux-loss --preprocessing-name
+    inception`` on the flowers tree at 299² (``aux_loss`` in its log);
+    ``eval_classifier --preprocessing-name inception`` on that snapshot.
+    Each must exit 0."""
+    import tempfile
+
+    from tensorflow_yolo2_torch.entries import (
+        download_and_convert,
+        eval_classifier,
+        train_classifier,
+    )
+    from tensorflow_yolo2_torch.ops import cuda_pool
+    from tensorflow_yolo2_torch.utils import cuda_build
+    from tests import synthetic
+
+    out = {}
+    os.makedirs(cuda_build.BUILD_DIR, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=cuda_build.BUILD_DIR) as root, \
+            mock.patch.dict(os.environ, {"TFY2_ROOT": root}):
+        mirror = write_data_mirror(root)
+        flowers = synthetic.make_flowers(
+            os.path.join(root, "data", "TF_flowers"),
+            per_class=SLIM_FLOWERS_PER_CLASS)
+        data = os.path.join(root, "data")
+        for name, source in (("cifar10", ["--download-url",
+                                          mirror["cifar10_url"]]),
+                             ("mnist", ["--source-dir", mirror["mnist"]]),
+                             ("flowers", ["--source-dir", flowers])):
+            text = run_cli(download_and_convert.main, [
+                "--dataset-name", name, "--dataset-dir",
+                os.path.join(data, f"{name}_prepared"), *source],
+                f"download_and_convert {name}")
+            check(f"{name}/train:" in text, f"{name} converted")
+        common = ["--batch-size", str(SLIM_CLI_BATCH), "--num-workers", "2",
+                  "--iters", str(SLIM_CLI_ITERS), "--log-every", "1",
+                  "--device", str(dev)]
+        runs = (
+            ("cifarnet", ["--dataset-name", "prepared", "--data-path",
+                          os.path.join(data, "cifar10_prepared", "train"),
+                          "--preprocessing-name", "cifarnet"]),
+            ("lenet", ["--dataset-name", "mnist", "--data-path",
+                       mirror["mnist"], "--preprocessing-name", "lenet"]),
+            ("darknet19", ["--dataset-name", "prepared", "--data-path",
+                           os.path.join(data, "flowers_prepared", "train"),
+                           "--preprocessing-name", "darknet19"]),
+            ("inception_v3", ["--aux-loss", "--image-size",
+                              str(DATA_INCEPTION_SIZE),
+                              "--preprocessing-name", "inception"]))
+        logs = {}
+        for model, argv in runs:
+            cuda_pool.reset_launch_counts()
+            logs[model] = run_cli(train_classifier.main,
+                                  ["--model-name", model, *argv, *common],
+                                  f"train_classifier {model}")
+            torch.cuda.synchronize()
+            out[f"{model}_launches"] = cuda_pool.MAX_POOL2_BWD_LAUNCHES
+            check(f"iter {SLIM_CLI_ITERS}: loss" in logs[model],
+                  f"train_classifier {model} logged its last step")
+        print(f"data tier CLIs: B5 launched {out['darknet19_launches']} "
+              f"times in {SLIM_CLI_ITERS} darknet19 steps on the prepared "
+              f"flowers shards; {out['cifarnet_launches']}, "
+              f"{out['lenet_launches']}, {out['inception_v3_launches']} in "
+              f"the cifarnet, lenet and inception_v3 runs (their pools are "
+              f"stock)")
+        check(out["darknet19_launches"] == 5 * SLIM_CLI_ITERS,
+              "B5 ran 5 times a darknet19 step on prepared shards")
+        check("aux_loss" in logs["inception_v3"],
+              "inception_v3 --aux-loss logged aux_loss")
+        text = run_cli(eval_classifier.main, [
+            "--model-name", "inception_v3", "--preprocessing-name",
+            "inception", "--image-size", str(DATA_INCEPTION_SIZE),
+            "--batch-size", "4",
+            "--max-batches", "2", "--device", str(dev)],
+            "eval_classifier inception_v3")
+        check(f"eval at step {SLIM_CLI_ITERS}:" in text,
+              "eval_classifier scored the inception_v3 snapshot")
+        out["eval"] = text.strip().splitlines()[-1]
+    return out
+
+
 def check_slim(dev) -> dict:
     """The slim tier on the card (section 13), each part timed."""
     out = {}
-    for name, part in (("clis", run_slim_clis), ("zoo", check_zoo),
+    for name, part in (("clis", run_slim_clis),
+                       ("data tier clis", run_data_tier_clis),
+                       ("zoo", check_zoo),
+                       ("inception fold", check_inception_fold),
                        ("optimizers", check_slim_optimizers),
                        ("accumulation", check_accumulation),
                        ("remat", check_remat),
@@ -3830,6 +4034,8 @@ def main(argv: list[str] | None = None) -> int:
         "launches_classifier_clis": cls_clis["train_launches"],
         "launches_train_classifier_cli": slim["clis"]["train_launches"],
         "launches_flowers_train_cli": slim["clis"]["flowers_launches"],
+        "launches_prepared_darknet19_cli":
+            slim["data tier clis"]["darknet19_launches"],
         "launches_yolo1_pretrain_accum": slim["accumulation"]["launches"],
         "launches_timed_steps": {k: v[b]["max_pool2_bwd_launches"]
                                  for k, v in slim["times"].items()

@@ -15,12 +15,17 @@ nothing of JAX.
                  ``synsets``: synset maps; ``augment``: image reads and
                  the classifier's augmentation chain; ``prefetch``:
                  threads, worker processes, pinned copies to the card;
-                 ``flowers``: TF_flowers; ``memory``: in-memory data.
+                 ``flowers``: TF_flowers; ``memory``: in-memory data;
+                 the slim data tier: ``preprocessing`` (the factory),
+                 ``mnist``, ``cifar10``, ``prepared`` (npz shards),
+                 ``fetch`` (URL download, archive unpacking).
 - ``models``   — Darknet19 trunk (pool or stride downsample), the v1 head,
                  the YOLOv2 passthrough head, the ImageNet classifier,
                  BatchNorm with flax's running statistics, flax's
-                 initializers, BN folding; ResNet-50 v1; the registry,
-                 the slim zoo, ResNet v2 and YOLOv1.
+                 initializers, BN folding (and the identity fold);
+                 ResNet-50 v1; the registry, the slim zoo, ResNet v2,
+                 YOLOv1 and the inception family (v1–v4,
+                 Inception-ResNet-v2).
 - ``ops``      — IoU, the v1 and anchor grid decodes, fixed-shape NMS, and
                  the hand-written CUDA kernels (sources in ``csrc/``):
                  decode / decode+NMS (``ops.cuda_decode``), the 2×2
@@ -42,10 +47,13 @@ nothing of JAX.
                  ``imagenet_predict_darknet``: the classifier's
                  pretraining, accuracy (bf16, int8) and top-5; the
                  ResNet-50 entries; ``train_classifier``,
-                 ``eval_classifier``, ``flowers_train``: the slim tier.
+                 ``eval_classifier``, ``flowers_train``: the slim tier;
+                 ``download_and_convert``: raw datasets to prepared
+                 shards.
 - ``utils``    — the kernels' build, the device default, the native host
-                 layer, timers, the profiler trace and the detection
-                 drawing.
+                 layer, timers, the profiler trace, the detection
+                 drawing and ``helpers`` (label counts, the contrast
+                 channels).
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``.
 """

@@ -23,6 +23,15 @@ their biases) and YOLOv1's (``conv1`` to ``conv24``, ``fc21``, ``fc25``,
     <path>/<layer>/kernel (in, out) → <path>.<layer>.weight (out, in)
     <path>/<layer>/bias             → <path>.<layer>.bias
 
+The inception family's bare layers are the residual blocks' ``up``
+conv, the separable stem's ``depthwise`` (HWIO (kh, kw, 1, in·mult) →
+(in·mult, 1, kh, kw), the grouped weight of ``groups = in``) and
+``pointwise`` convs, v1's auxiliary heads' ``fc`` (``aux_4a/fc``,
+``aux_4d/fc``; an ``fc`` anywhere else is refused) and v3's / v4's
+``aux_logits`` (a 1×1 conv, a dense). Its BatchNorms have no scale: a
+``bn`` child with ``bias`` alone, which maps to a BatchNorm without a
+``weight``.
+
 A nested BatchNorm (``conv1_bn``, ``preact_bn``, ``bn1``, ``postnorm``)
 is a ``bn`` child as above. Folded trees (no ``bn`` children) convert the same way and load into a
 model built with ``fold_bn=True``. ``save_npz`` / ``load_npz`` carry such
@@ -70,12 +79,15 @@ def unflatten(flat: Mapping[str, Any]) -> dict[str, Any]:
 
 _BARE_LAYERS = (
     "shortcut_conv", "logits", "yolo_fc1", "yolo_fc2",
+    "up", "depthwise", "pointwise", "aux_logits",
     *(f"conv{i}" for i in range(1, 25)),
     *(f"conv{s}_{i}" for s in range(1, 6) for i in range(1, 5)),
     *(f"fc{i}" for i in (3, 4, 6, 7, 8, 21, 25, 26)))
 _BARE_LEAVES = {(layer, leaf): f"{layer}.{name}"
                 for layer in _BARE_LAYERS
                 for leaf, name in (("kernel", "weight"), ("bias", "bias"))}
+# a dense ``fc`` is bare only inside inception v1's auxiliary heads
+_AUX_FC_LEAVES = {("fc", "kernel"): "fc.weight", ("fc", "bias"): "fc.bias"}
 
 
 def _map(tree: Mapping[str, Any], leaves: Mapping[tuple, str],
@@ -84,6 +96,9 @@ def _map(tree: Mapping[str, Any], leaves: Mapping[tuple, str],
     for path, value in flatten(tree).items():
         *module, layer, leaf = path.split("/")
         name = leaves.get((layer, leaf))
+        if name is None and module and module[-1].startswith("aux_") and \
+                what == "params":
+            name = _AUX_FC_LEAVES.get((layer, leaf))
         if name is None:
             raise ValueError(f"unknown {what} leaf {path!r}")
         t = torch.from_numpy(np.array(value, dtype=np.float32))
@@ -101,8 +116,9 @@ def state_dict_from_flax(params: Mapping[str, Any],
     """Flax ``params`` (+ ``batch_stats``) of numpy arrays → state dict."""
     sd = _map(params, {**_PARAM_LEAVES, **_BARE_LEAVES}, "params")
     sd.update(_map(batch_stats or {}, _STAT_LEAVES, "batch_stats"))
-    for key in [k for k in sd if k.endswith(".bn.weight")]:
-        sd[key[:-len("weight")] + "num_batches_tracked"] = torch.tensor(0)
+    for key in [k for k in sd if k.endswith((".bn.weight", ".bn.bias"))]:
+        sd[key.rpartition(".")[0] + ".num_batches_tracked"] = \
+            torch.tensor(0)
     return sd
 
 

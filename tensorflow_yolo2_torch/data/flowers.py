@@ -8,11 +8,12 @@ the validation list. ``get_train()`` serves augmented batches
 (``data.augment.read_and_augment``) and reshuffles the train list when
 its cursor wraps, ``get_val()`` plain resized ones (``image_read``) from
 the validation list (the train list when it is empty), ``get()`` is
-``get_train()``. The cursors move under a lock and the decode runs
-outside it, so prefetch threads decode in parallel.
-
-The slim preprocessing functions (``preprocess_name``) are not ported
-yet: they come with the slim data tier.
+``get_train()``. With ``preprocess_name`` the factory preprocessing
+(``data.preprocessing``) replaces both: its train form for
+``get_train()``, its eval form for ``get_val()``, each on the cv2-read
+BGR image and each with its own ``random.Random(seed)``. The cursors move
+under a lock and the decode runs outside it, so prefetch threads decode
+in parallel.
 """
 
 from __future__ import annotations
@@ -30,10 +31,6 @@ from tensorflow_yolo2_torch.data.augment import (
     read_and_augment,
 )
 
-DATA_TIER = ("the slim data tier (preprocessing, mnist, cifar10, prepared, "
-             "fetch) is not ported yet (ROADMAP.md, queue A, A6)")
-
-
 class TFFlowers:
     """Flowers with the datasets' interface (``get``, ``classes``,
     ``num_class``, ``epoch``, ``total_batch``) and ``get_train`` /
@@ -43,9 +40,6 @@ class TFFlowers:
                  val_split: float = 0.2, data_aug: bool = True,
                  paths: Paths | None = None, data_path: str | None = None,
                  seed: int = 0, preprocess_name: str | None = None):
-        if preprocess_name:
-            raise ValueError(f"preprocess_name={preprocess_name!r}: "
-                             f"{DATA_TIER}")
         self.name = "tf_flowers"
         self.paths = paths or Paths()
         self.data_path = data_path or self.paths.flowers
@@ -54,6 +48,18 @@ class TFFlowers:
         self.data_aug = data_aug
         self.aug_cfg = AugmentConfig(image_size=image_size)
         self.rng = random.Random(seed)
+        self._pp_train = self._pp_eval = None
+        if preprocess_name:
+            from tensorflow_yolo2_torch.data.preprocessing import (
+                get_preprocessing,
+            )
+
+            self._pp_train = get_preprocessing(
+                preprocess_name, is_training=True, image_size=image_size,
+                seed=seed)
+            self._pp_eval = get_preprocessing(
+                preprocess_name, is_training=False, image_size=image_size,
+                seed=seed)
         self.epoch = 1
         self.train_cursor = 0
         self.val_cursor = 0
@@ -103,7 +109,12 @@ class TFFlowers:
             (self.batch_size, self.image_size, self.image_size, 3), np.float32)
         labels = np.zeros(self.batch_size, np.int32)
         for count, (path, cls) in enumerate(picked):
-            if augment and self.data_aug:
+            if self._pp_train is not None:
+                import cv2
+
+                fn = self._pp_train if augment else self._pp_eval
+                images[count] = fn(cv2.imread(path))
+            elif augment and self.data_aug:
                 images[count] = read_and_augment(path, self.aug_cfg, self.rng)
             else:
                 images[count] = image_read(path, self.image_size)

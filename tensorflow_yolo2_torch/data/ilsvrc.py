@@ -13,8 +13,10 @@ Images: a warp resize to image_size² (``data.augment.image_read``: cv2's
 decode, the native resize), or with ``resize_policy="pad"`` an
 aspect-preserving resize centred on zeros; with ``data_aug`` the
 augmentation chain (``data.augment.augment_image``). ``uint8=True`` gives
-uint8 batches for the on-device normalize. The slim preprocessing
-functions (``preprocess_name``) are not ported yet.
+uint8 batches for the on-device normalize. ``preprocess_name`` replaces
+all of these with a factory preprocessing (``data.preprocessing``) of the
+cv2-read BGR image: its train form on the train split with ``data_aug``,
+else its eval form; it gives float32 images, so it refuses ``uint8``.
 """
 
 from __future__ import annotations
@@ -71,12 +73,11 @@ class IlsvrcCls:
         if resize_policy not in ("warp", "pad"):
             raise ValueError(f"resize_policy must be 'warp' or 'pad', got "
                              f"{resize_policy!r}")
-        if preprocess_name:
-            raise ValueError(f"preprocess_name={preprocess_name!r}: the slim "
-                             "preprocessing functions are not ported yet "
-                             "(ROADMAP.md, queue A, A6)")
         if uint8 and random_noise:
             raise ValueError("random_noise is host-side float arithmetic; "
+                             "use float transfer")
+        if uint8 and preprocess_name:
+            raise ValueError("slim preprocessing fns emit normalized float; "
                              "use float transfer")
         self.name = "ilsvrc_2017_cls"
         self.paths = paths or Paths()
@@ -92,6 +93,15 @@ class IlsvrcCls:
                                      random_noise=random_noise)
         self.uint8 = uint8
         self.rng = random.Random(seed)
+        self._preprocess = None
+        if preprocess_name:
+            from tensorflow_yolo2_torch.data.preprocessing import (
+                get_preprocessing,
+            )
+
+            self._preprocess = get_preprocessing(
+                preprocess_name, is_training=image_set == "train" and data_aug,
+                image_size=image_size, seed=seed)
         self.cursor = 0
         self.epoch = 1
         self._lock = threading.Lock()
@@ -164,7 +174,14 @@ class IlsvrcCls:
 
     def image_read(self, path: str) -> np.ndarray:
         """One image as the batches hold it (uint8 with ``uint8``, else
-        float32 in [-1, 1])."""
+        float32 in [-1, 1], or the factory preprocessing's float32)."""
+        if self._preprocess is not None:
+            import cv2
+
+            image = cv2.imread(path)
+            if image is None:
+                raise FileNotFoundError(path)
+            return self._preprocess(image)
         if not self.data_aug and self.resize_policy != "pad":
             read = image_read_u8 if self.uint8 else image_read
             return read(path, self.image_size, rgb=self.rgb)

@@ -33,6 +33,12 @@ class InMemoryImdb:
         self._lock = threading.Lock()
 
     @property
+    def channels(self) -> int:
+        """The stored images' channels (MNIST's 1), which the factory
+        preprocessings keep."""
+        return self._images.shape[-1]
+
+    @property
     def total_batch(self) -> int:
         return max(1, len(self._labels) // self.batch_size)
 

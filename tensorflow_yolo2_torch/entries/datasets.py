@@ -4,13 +4,18 @@ tensorflow_yolo2_tpu/entries/datasets.py): ``get_dataset`` builds
 ``synthetic-bg`` (the same with class 0 kept free as an ImageNet-style
 background slot, the layout ``--labels-offset`` strips), ``flowers``
 (``data.flowers.TFFlowers``), ``imagenet`` (``data.ilsvrc.IlsvrcCls``;
-``validation`` and ``test`` read the val split) and ``voc``
-(``data.voc.PascalVOC``).
+``validation`` and ``test`` read the val split), ``voc``
+(``data.voc.PascalVOC``), ``mnist`` (``data.mnist.MNIST``), ``cifar10``
+or ``cifar-10`` (``data.cifar10.Cifar10``) and ``prepared``
+(``data.prepared.PreparedDataset`` over the shards at ``data_path``).
 
-``mnist``, ``cifar10`` and ``prepared`` and the factory preprocessing
-(``preprocessing_name``) belong to the slim data tier, which is not
-ported yet: they raise, naming it. The JAX package's own refusals are
-kept word for word.
+``preprocessing_name`` picks a factory preprocessing
+(``data.preprocessing.get_preprocessing``, slim's
+``--preprocessing_name``) in place of a dataset's own convention: the
+train form on the train split, the eval form on the others. The
+raw-image datasets (flowers, imagenet) and the uint8 in-memory ones
+(mnist, cifar10, prepared) take it; voc and synthetic refuse it, as in
+the JAX package.
 """
 
 from __future__ import annotations
@@ -19,7 +24,6 @@ from typing import Any
 
 import numpy as np
 
-from tensorflow_yolo2_torch.data.flowers import DATA_TIER
 from tensorflow_yolo2_torch.data.memory import InMemoryImdb
 
 
@@ -42,6 +46,20 @@ class SyntheticClassification(InMemoryImdb):
         self._labels = rng.randint(label_min, num_class, size
                                    ).astype(np.int32)
         self._init_order(seed)
+
+
+def _with_preprocess(imdb, preprocessing_name, split):
+    """Set an in-memory uint8 dataset's ``preprocess_fn`` from the
+    factory (the train form on the train split)."""
+    if preprocessing_name:
+        from tensorflow_yolo2_torch.data.preprocessing import (
+            get_preprocessing,
+        )
+
+        imdb.preprocess_fn = get_preprocessing(
+            preprocessing_name, is_training=split == "train",
+            image_size=imdb.image_size)
+    return imdb
 
 
 def get_dataset(name: str, split: str = "train", **kwargs: Any):
@@ -76,8 +94,29 @@ def get_dataset(name: str, split: str = "train", **kwargs: Any):
         return PascalVOC(split if split != "train" else "trainval",
                          batch_size=kwargs.get("batch_size", 24),
                          data_path=kwargs.get("data_path"))
-    if name in ("mnist", "cifar10", "cifar-10", "prepared"):
-        raise ValueError(f"dataset {name!r}: {DATA_TIER}")
+    if name == "mnist":
+        from tensorflow_yolo2_torch.data.mnist import MNIST
+
+        return _with_preprocess(
+            MNIST(split, batch_size=kwargs.get("batch_size", 32),
+                  data_path=kwargs.get("data_path"),
+                  seed=kwargs.get("seed", 0)), pp_name, split)
+    if name in ("cifar10", "cifar-10"):
+        from tensorflow_yolo2_torch.data.cifar10 import Cifar10
+
+        return _with_preprocess(
+            Cifar10(split, batch_size=kwargs.get("batch_size", 32),
+                    data_path=kwargs.get("data_path"),
+                    seed=kwargs.get("seed", 0)), pp_name, split)
+    if name == "prepared":
+        from tensorflow_yolo2_torch.data.prepared import PreparedDataset
+
+        if not kwargs.get("data_path"):
+            raise ValueError("prepared dataset needs data_path=<shard dir>")
+        return _with_preprocess(
+            PreparedDataset(kwargs["data_path"],
+                            batch_size=kwargs.get("batch_size", 32),
+                            seed=kwargs.get("seed", 0)), pp_name, split)
     if name == "synthetic":
         return SyntheticClassification(split, **kwargs)
     if name == "synthetic-bg":

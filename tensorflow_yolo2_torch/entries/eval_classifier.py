@@ -11,7 +11,8 @@ JAX package's warning, when the restore carried no EMA tensors.
 ``--max-batches`` bounds the pass (default: one pass over the split);
 as in the JAX entry, which shapes its state from it, the split's first
 batch is drawn before the pass, so the pass scores the batches after it.
-``--labels-offset`` strips a background slot as the trainer does.
+``--labels-offset`` strips a background slot as the trainer does;
+``--preprocessing-name`` picks the factory preprocessing's eval form.
 ``--tf-checkpoint`` is not ported yet (A7). Runs on ``cuda`` unless
 ``--device`` names another device.
 
@@ -44,7 +45,8 @@ def main(argv: list[str] | None = None) -> int:
     p.add_argument("--image-size", type=int, default=None,
                    help="input resolution for datasets that resize")
     p.add_argument("--preprocessing-name", default=None,
-                   help="factory preprocessing (not ported yet)")
+                   help="factory preprocessing instead of the dataset's "
+                        "native convention (data.preprocessing)")
     p.add_argument("--labels-offset", type=int, default=0,
                    help="subtract this offset from dataset labels and "
                         "shrink the logits layer to num_classes-offset")
@@ -59,12 +61,11 @@ def main(argv: list[str] | None = None) -> int:
     size_kw = {"image_size": args.image_size} if args.image_size else {}
     imdb = get_dataset(args.dataset_name, args.dataset_split_name,
                        batch_size=batch_size, data_path=args.data_path,
-                       **size_kw)
+                       preprocessing_name=args.preprocessing_name, **size_kw)
     if not 0 <= args.labels_offset < imdb.num_class:
         p.error(f"--labels-offset {args.labels_offset} out of range for "
                 f"{imdb.num_class} classes")
-    model = build_model(p, args, imdb.num_class - args.labels_offset,
-                        imdb.image_size)
+    model = build_model(p, args, imdb, imdb.num_class - args.labels_offset)
     # --use-ema: an EMA slot in the restore target, so that the
     # snapshot's EMA tensors are restored (the decay is never used)
     opt_cfg = OptimizerConfig(

@@ -15,11 +15,13 @@ summaries, and snapshots every ``--save-every`` iterations and every
 on flowers, rmsprop, an exponential schedule from 0.01, weight decay
 4e-5, batch 32, 1000 iterations.
 
-Refused until they are ported: ``--checkpoint-path`` to a TF checkpoint
-(A7), ``--num-clones`` or ``--model-parallel`` above 1 (A8),
-``--preprocessing-name`` (the slim data tier); ``--aux-loss`` keeps the
-JAX package's error for a net without an auxiliary head. Runs on
-``cuda`` unless ``--device`` names another device.
+``--preprocessing-name`` picks a factory preprocessing
+(``data.preprocessing``) in place of the dataset's own convention;
+``--aux-loss`` trains the auxiliary head(s) of inception v1, v3 and v4
+at 0.4 of the loss, and keeps the JAX package's error for a net without
+one. Refused until they are ported: ``--checkpoint-path`` to a TF
+checkpoint (A7), ``--num-clones`` or ``--model-parallel`` above 1 (A8).
+Runs on ``cuda`` unless ``--device`` names another device.
 
     python -m tensorflow_yolo2_torch.entries.train_classifier \\
         --model-name vgg_16 --dataset-name flowers --optimizer momentum \\
@@ -81,7 +83,9 @@ def add_slim_flags(p) -> None:
     p.add_argument("--image-size", type=int, default=None,
                    help="input resolution for datasets that resize")
     p.add_argument("--preprocessing-name", default=None,
-                   help="factory preprocessing (not ported yet)")
+                   help="factory preprocessing to use instead of the "
+                        "dataset's native convention (cifarnet, lenet, "
+                        "vgg, inception, ...: data.preprocessing)")
     p.add_argument("--label-smoothing", type=float, default=0.0,
                    help="blend one-hot targets toward uniform by this "
                         "amount in the CE loss")
@@ -99,9 +103,6 @@ def add_slim_flags(p) -> None:
 def refuse_unported(p, args) -> None:
     """The flags whose features are not ported yet, each refused naming
     its queue item, never passed over."""
-    if args.preprocessing_name:
-        p.error("--preprocessing-name: the slim data tier is not ported "
-                "yet (ROADMAP.md, queue A, A6)")
     if (getattr(args, "num_clones", None) or 1) > 1 or \
             getattr(args, "model_parallel", 1) > 1:
         p.error("--num-clones / --model-parallel above 1: parallelism is "
@@ -129,14 +130,22 @@ def offset_labels(get_batch, offset: int):
     return shifted
 
 
-def build_model(p, args, num_classes: int, image_size: int):
-    """The registry's net for ``--model-name``, or the JAX package's
-    parser error when it takes no such head."""
+def build_model(p, args, imdb, num_classes: int):
+    """The registry's net for ``--model-name`` at the dataset's image size
+    and, where its images are not RGB (MNIST's 1 channel), its channels
+    (which flax reads from the first batch); the JAX package's parser
+    error when the net takes no auxiliary head."""
     net_kw = {"aux_logits": True} if getattr(args, "aux_loss", False) else {}
+    channels = getattr(imdb, "channels", 3)
+    if channels != 3:
+        net_kw["in_channels"] = channels
     try:
         return get_network(args.model_name, num_classes=num_classes,
-                           image_size=image_size, **net_kw)
+                           image_size=imdb.image_size, **net_kw)
     except TypeError:
+        if "in_channels" in net_kw:
+            p.error(f"{args.model_name} takes {channels}-channel images "
+                    "only as lenet and cifarnet do")
         p.error(f"--aux-loss: {args.model_name} has no auxiliary "
                 "classifier head (inception_v1/v3/v4 do)")
 
@@ -164,12 +173,12 @@ def main(argv: list[str] | None = None) -> int:
     size_kw = {"image_size": args.image_size} if args.image_size else {}
     imdb = get_dataset(args.dataset_name, args.dataset_split_name,
                        batch_size=batch_size, data_path=args.data_path,
-                       seed=args.seed, **size_kw)
+                       seed=args.seed,
+                       preprocessing_name=args.preprocessing_name, **size_kw)
     if not 0 <= args.labels_offset < imdb.num_class:
         p.error(f"--labels-offset {args.labels_offset} out of range for "
                 f"{imdb.num_class} classes")
-    model = build_model(p, args, imdb.num_class - args.labels_offset,
-                        imdb.image_size)
+    model = build_model(p, args, imdb, imdb.num_class - args.labels_offset)
 
     opt_cfg = OptimizerConfig(
         name=args.optimizer, momentum=args.momentum,

@@ -127,6 +127,25 @@ def avg_pool(x: torch.Tensor, window: int, stride: int) -> torch.Tensor:
     return F.avg_pool2d(x, window, stride)
 
 
+def avg_pool_exclusive(x: torch.Tensor, window: int,
+                       stride: int) -> torch.Tensor:
+    """window×window SAME average pool of an NCHW tensor that leaves the
+    padded zeros out of the divisor, flax's ``avg_pool`` with
+    ``count_include_pad=False``: each output is its window's sum over the
+    number of input values in it. That is ``F.avg_pool2d``'s
+    ``count_include_pad=False`` where XLA's SAME pads are the same on
+    both sides, as for the inception nets' 3×3/1 pools; other pads raise
+    ``ValueError``."""
+    (top, bottom), (left, right) = (_same_pads(s, window, stride)
+                                    for s in x.shape[-2:])
+    if top != bottom or left != right:
+        raise ValueError(f"avg_pool_exclusive: SAME pads ({top}, {bottom}) "
+                         f"× ({left}, {right}) of a {window}×{window}/"
+                         f"{stride} pool are not symmetric")
+    return F.avg_pool2d(x, window, stride, padding=(top, left),
+                        count_include_pad=False)
+
+
 class BatchNorm(nn.BatchNorm2d):
     """BatchNorm over NCHW with flax's running statistics.
 
@@ -137,23 +156,43 @@ class BatchNorm(nn.BatchNorm2d):
     the unbiased one, and its momentum is the complement). Statistics are
     float32 whatever the input type. In eval mode it normalises with the
     running statistics. The state dict is ``nn.BatchNorm2d``'s.
+
+    ``use_scale=False`` is flax's BatchNorm without a scale (slim's
+    ``batch_norm`` default, the inception nets'): the module has no
+    ``weight`` at all, only the ``bias``, so no optimizer, weight decay
+    or norm sees a scale. The kernel is given a constant unit scale
+    instead, a buffer outside the state dict: CUDA's BatchNorm backward
+    returns no bias gradient when it has no weight.
     """
 
     def __init__(self, num_features: int, eps: float = BN_EPSILON,
-                 momentum: float = BN_MOMENTUM):
-        super().__init__(num_features, eps=eps)
+                 momentum: float = BN_MOMENTUM, use_scale: bool = True):
+        super().__init__(num_features, eps=eps, affine=use_scale)
+        if not use_scale:
+            self.bias = nn.Parameter(torch.zeros(num_features))
+            self.register_buffer("unit_scale", torch.ones(num_features),
+                                 persistent=False)
         self.flax_momentum = momentum
+
+    def reset_parameters(self) -> None:
+        super().reset_parameters()
+        if not self.affine and getattr(self, "bias", None) is not None:
+            nn.init.zeros_(self.bias)
+
+    def _scale(self) -> torch.Tensor:
+        return self.unit_scale if self.weight is None else self.weight
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if not self.training:
             return F.batch_norm(x, self.running_mean, self.running_var,
-                                self.weight, self.bias, False, 0.0, self.eps)
+                                self._scale(), self.bias, False, 0.0,
+                                self.eps)
         # the batch statistics come out of the fused kernel: with
         # momentum 1 it writes the batch mean and unbiased variance into
         # zeroed buffers (it refuses a single value per channel)
         mean = torch.zeros_like(self.running_mean)
         var = torch.zeros_like(self.running_var)
-        y = F.batch_norm(x, mean, var, self.weight, self.bias, True, 1.0,
+        y = F.batch_norm(x, mean, var, self._scale(), self.bias, True, 1.0,
                          self.eps)
         if _FROZEN_STATS:
             return y
@@ -168,30 +207,60 @@ class BatchNorm(nn.BatchNorm2d):
 
 
 class SameConv2d(nn.Conv2d):
-    """A k×k conv with flax's ``padding="SAME"``: XLA's padding of each
+    """A conv with flax's ``padding="SAME"``: XLA's padding of each
     dimension for its size and the stride (``_same_pads``), zeros, then
-    the unpadded conv. At stride 1 with an odd kernel that is the
+    the unpadded conv. At stride 1 with odd kernel sides that is the
     symmetric ``k // 2``; at stride 2 on an even map the total k − 2 goes
     low ⌊·/2⌋ and high the rest (low 2, high 3 for a 7×7; low 0, high 1
     for a 3×3), where torch's symmetric ``padding`` would shift the
-    sampling grid. Parameters are ``nn.Conv2d``'s."""
+    sampling grid. ``kernel_size`` is k or (kh, kw); ``groups`` is
+    flax's ``feature_group_count``. Parameters are ``nn.Conv2d``'s."""
 
-    def __init__(self, in_channels: int, features: int, kernel_size: int,
-                 stride: int = 1, bias: bool = True):
-        symmetric = stride == 1 and kernel_size % 2 == 1
-        super().__init__(in_channels, features, kernel_size, stride=stride,
-                         padding=kernel_size // 2 if symmetric else 0,
-                         bias=bias)
+    def __init__(self, in_channels: int, features: int,
+                 kernel_size: int | tuple[int, int], stride: int = 1,
+                 bias: bool = True, groups: int = 1):
+        kh, kw = ((kernel_size, kernel_size) if isinstance(kernel_size, int)
+                  else kernel_size)
+        symmetric = stride == 1 and kh % 2 == 1 and kw % 2 == 1
+        super().__init__(in_channels, features, (kh, kw), stride=stride,
+                         padding=(kh // 2, kw // 2) if symmetric else 0,
+                         bias=bias, groups=groups)
         self.symmetric = symmetric
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if not self.symmetric:
-            k, s = self.kernel_size[0], self.stride[0]
-            (top, bottom), (left, right) = (_same_pads(n, k, s)
-                                            for n in x.shape[-2:])
+            (top, bottom), (left, right) = (
+                _same_pads(n, k, s) for n, k, s in
+                zip(x.shape[-2:], self.kernel_size, self.stride))
             if top or bottom or left or right:
                 x = F.pad(x, (left, right, top, bottom))
         return super().forward(x)
+
+
+SLIM_BN_MOMENTUM = 0.9997  # slim's inception arg scope (epsilon 1e-3)
+
+
+class SeparableConvBNReLU(nn.Module):
+    """slim's ``separable_conv2d`` with ``batch_norm``: ``depthwise``, a
+    SAME k×k conv of ``groups = in_channels`` with ``in_channels ·
+    depth_multiplier`` outputs and no bias (output channel o reads input
+    channel o // depth_multiplier, as flax's grouped kernel (kh, kw, 1,
+    in·mult) does), ``pointwise``, a 1×1 conv to ``features`` with no
+    bias, then BatchNorm without a scale and ReLU."""
+
+    def __init__(self, in_channels: int, features: int,
+                 kernel_size: int | tuple[int, int], depth_multiplier: int,
+                 stride: int = 1):
+        super().__init__()
+        mid = in_channels * depth_multiplier
+        self.depthwise = SameConv2d(in_channels, mid, kernel_size, stride,
+                                    bias=False, groups=in_channels)
+        self.pointwise = nn.Conv2d(mid, features, 1, bias=False)
+        self.bn = BatchNorm(features, momentum=SLIM_BN_MOMENTUM,
+                            use_scale=False)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return F.relu(self.bn(self.pointwise(self.depthwise(x))))
 
 
 class ConvBN(nn.Module):

@@ -10,9 +10,9 @@ for the detectors) and returns a fresh ``nn.Module``; an override it
 does not know raises ``TypeError``. The port runs in float32 parameters
 and takes bf16 from autocast, so there is no ``dtype`` override.
 
-The inception family (``inception_v1`` … ``inception_v4``,
-``inception_resnet_v2``) is listed with its default sizes; building one
-raises ``NotImplementedError`` until it is ported.
+The inception family (``models.inception``: ``inception_v1`` …
+``inception_v4``, ``inception_resnet_v2``) builds at 224, 224, 299, 299
+and 299; v1, v3 and v4 also take ``aux_logits``.
 """
 
 from __future__ import annotations
@@ -20,10 +20,6 @@ from __future__ import annotations
 from typing import Any, Callable, Dict, NamedTuple
 
 from torch import nn
-
-INCEPTION_NOT_PORTED = ("the inception family is not ported yet (ROADMAP.md, "
-                        "queue A, A6 slice 3)")
-
 
 class NetworkSpec(NamedTuple):
     build: Callable[..., nn.Module]
@@ -59,14 +55,9 @@ def list_networks() -> list[str]:
     return sorted(_REGISTRY)
 
 
-def _inception(name: str):
-    def build(**_: Any) -> nn.Module:
-        raise NotImplementedError(f"{name}: {INCEPTION_NOT_PORTED}")
-    return build
-
-
 def _register_builtins() -> None:
     from tensorflow_yolo2_torch.models import darknet, resnet, yolo1
+    from tensorflow_yolo2_torch.models.inception import INCEPTION_ZOO
     from tensorflow_yolo2_torch.models.resnet_v2 import RESNET_V2_ZOO
     from tensorflow_yolo2_torch.models.zoo import ZOO
 
@@ -110,12 +101,9 @@ def _register_builtins() -> None:
         return yolo1.Yolo1PretrainNet(num_classes=num_classes,
                                       image_size=image_size)
 
-    for zoo_name, (build, size) in {**ZOO, **RESNET_V2_ZOO}.items():
+    for zoo_name, (build, size) in {**ZOO, **RESNET_V2_ZOO,
+                                    **INCEPTION_ZOO}.items():
         _REGISTRY[zoo_name] = NetworkSpec(build, size)
-    for name, size in (("inception_v1", 224), ("inception_v2", 224),
-                       ("inception_v3", 299), ("inception_v4", 299),
-                       ("inception_resnet_v2", 299)):
-        _REGISTRY[name] = NetworkSpec(_inception(name), size)
 
 
 _register_builtins()

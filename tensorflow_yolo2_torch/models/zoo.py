@@ -20,7 +20,8 @@ Where PyTorch's defaults differ from flax's:
 - the flatten before ``LeNet``'s and ``CifarNet``'s ``fc3`` is in NHWC
   order, a view of the channels_last map, so a dense kernel maps by a
   transpose alone; the models need ``image_size`` for that layer's
-  width, which flax infers from the first input;
+  width, and ``in_channels`` (3, or MNIST's 1) for ``conv1``'s, which
+  flax infers from the first input;
 - dropout 0.5 is flax's rule on a generator the caller passes
   (``layers.dropout``), active only in training.
 
@@ -71,10 +72,11 @@ class LeNet(nn.Module):
     """slim lenet: two 5×5 SAME conv + ReLU + 2×2 pool, ``fc3`` 1024
     (ReLU, dropout), ``fc4`` to the classes."""
 
-    def __init__(self, num_classes: int = 10, image_size: int = 28):
+    def __init__(self, num_classes: int = 10, image_size: int = 28,
+                 in_channels: int = 3):
         super().__init__()
         side = image_size // 4
-        self.conv1 = _conv_same(3, 32, 5)
+        self.conv1 = _conv_same(in_channels, 32, 5)
         self.conv2 = _conv_same(32, 64, 5)
         self.fc3 = nn.Linear(side * side * 64, 1024)
         self.fc4 = nn.Linear(1024, num_classes)
@@ -93,10 +95,11 @@ class CifarNet(nn.Module):
     """slim cifarnet (the JAX zoo's, without LRN): two 5×5 conv + ReLU +
     2×2 pool, ``fc3`` 384 (dropout), ``fc4`` 192, ``logits``."""
 
-    def __init__(self, num_classes: int = 10, image_size: int = 32):
+    def __init__(self, num_classes: int = 10, image_size: int = 32,
+                 in_channels: int = 3):
         super().__init__()
         side = image_size // 4
-        self.conv1 = _conv_same(3, 64, 5)
+        self.conv1 = _conv_same(in_channels, 64, 5)
         self.conv2 = _conv_same(64, 64, 5)
         self.fc3 = nn.Linear(side * side * 64, 384)
         self.fc4 = nn.Linear(384, 192)
@@ -261,10 +264,20 @@ def _entry(cls, size: int, **fixed):
     return build, size
 
 
+def _small_entry(cls, size: int):
+    """``_entry`` for the nets of MNIST and CIFAR-10, whose constructor
+    also takes ``in_channels``."""
+    def build(num_classes: int = 1000, image_size: int = size,
+              in_channels: int = 3) -> nn.Module:
+        return cls(num_classes=num_classes, image_size=image_size,
+                   in_channels=in_channels)
+    return build, size
+
+
 # name → (constructor, default_image_size); consumed by models.registry.
 ZOO = {
-    "lenet": _entry(LeNet, 28),
-    "cifarnet": _entry(CifarNet, 32),
+    "lenet": _small_entry(LeNet, 28),
+    "cifarnet": _small_entry(CifarNet, 32),
     "alexnet_v2": _entry(AlexNet, 224),
     "overfeat": _entry(OverFeat, 231),
     "vgg_a": _entry(VGG, 224, stages=(1, 1, 2, 2, 2)),

@@ -27,6 +27,10 @@ updates its running statistics, as the JAX package's
 the trained parameters' gradients (the JAX package computes the frozen
 ones too and counts them in its metric).
 
+A model may return ``(logits, aux_logits)`` (an inception net built with
+``aux_logits``): both come out float32 and ``softmax_task`` adds the
+auxiliary head's loss, as in the JAX package.
+
 Every model's ``forward`` takes ``generator``: a train step passes
 ``TrainState.rng``, a generator on the trainer's device seeded from the
 caller's, and an eval step passes none. Only a model with dropout
@@ -289,7 +293,7 @@ class Trainer:
     def _forward(self, images: torch.Tensor,
                  generator: torch.Generator | None = None,
                  params: Mapping[str, torch.Tensor] | None = None,
-                 remat: bool = False) -> torch.Tensor:
+                 remat: bool = False):
         images = device_normalize(torch.as_tensor(images).to(self.device))
         with torch.autocast(self.device.type, dtype=torch.bfloat16,
                             enabled=self.compute_dtype == torch.bfloat16):
@@ -301,10 +305,12 @@ class Trainer:
                 outputs = self._remat_forward(images, generator)
             else:
                 outputs = self.model(images, generator=generator)
+        if isinstance(outputs, tuple):  # (logits, aux logits)
+            return tuple(o.float() for o in outputs)
         return outputs.float()
 
     def _remat_forward(self, images: torch.Tensor,
-                       generator: torch.Generator | None) -> torch.Tensor:
+                       generator: torch.Generator | None):
         """The model's forward under ``torch.utils.checkpoint``; its
         recompute leaves the running statistics and the generator as the
         forward left them and draws what the forward drew."""

@@ -129,8 +129,8 @@ def test_ilsvrc_batches_bit_equal_to_jax(ilsvrc_dir, tmp_path, image_set,
 
 def test_ilsvrc_refusals(ilsvrc_dir, tmp_path):
     paths = PtPaths(str(tmp_path))
-    with pytest.raises(ValueError, match="A6"):
-        PtIlsvrc("train", data_path=ilsvrc_dir, paths=paths,
+    with pytest.raises(ValueError, match="use float transfer"):
+        PtIlsvrc("train", data_path=ilsvrc_dir, paths=paths, uint8=True,
                  preprocess_name="inception_v1")
     with pytest.raises(ValueError, match="random_noise"):
         PtIlsvrc("train", data_path=ilsvrc_dir, paths=paths, uint8=True,

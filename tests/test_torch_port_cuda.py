@@ -31,7 +31,14 @@ chip_smoke.INT8_GRID_REL_TOL of the CPU's; no float conv runs. The slim
 tier (``-k slim``): its three CLIs on the card, each optimizer's update
 within 1e-6 of the CPU's, k=2 accumulation equal to the doubled batch
 within 1e-5 with B5 4 times a yolo1 step, a remat step bit-equal to the
-plain one.
+plain one. The inception family and the data tier (``-k "inception or
+data_tier"``): each inception net's float32 forward on the card (TF32
+off) within chip_smoke.ZOO_F32_REL_TOL of the CPU's and its bf16 forward
+within ZOO_BF16_REL_TOL, the auxiliary logits too; the identity fold of
+inception_v3 at 299² within chip_smoke.FOLD_REL_TOL of the unfolded
+logits; ``train_classifier`` on prepared shards, MNIST and the flowers
+tree (darknet19 with B5 5 times a step, inception_v3 with ``--aux-loss``)
+and ``eval_classifier`` with ``--preprocessing-name``.
 """
 
 import ctypes
@@ -1138,3 +1145,70 @@ def test_slim_remat_is_bit_equal_on_the_card(card):
     running statistics, slots and generator where the plain step does
     (``chip_smoke.check_remat``, cuDNN deterministic)."""
     assert chip_smoke.check_remat(card)["max_abs_diff"] == 0.0
+
+
+# -- the inception family and the slim data tier -----------------------------
+
+
+@pytest.mark.parametrize("name", ["inception_v1", "inception_v2",
+                                  "inception_v3", "inception_v4",
+                                  "inception_resnet_v2"])
+def test_inception_forward_on_the_card_matches_the_cpu(card, no_tf32, name):
+    """One net at its default size, batch 2, seeded random weights drawn
+    on the card, eval mode, with its auxiliary head where it has one
+    (``chip_smoke.check_zoo`` on that net alone)."""
+    from unittest import mock
+
+    from tensorflow_yolo2_torch.models import registry
+
+    with mock.patch.object(registry, "list_networks", lambda: [name]):
+        out = chip_smoke.check_zoo(card)[name]
+    assert out["f32_rel_err"] <= chip_smoke.ZOO_F32_REL_TOL
+    assert out["bf16_rel_err"] <= chip_smoke.ZOO_BF16_REL_TOL
+    assert ("aux_f32_rel_err" in out) == (name in chip_smoke.AUX_NETS)
+
+
+def test_inception_no_scale_batchnorm_gradients_on_the_card(card, no_tf32):
+    """``layers.BatchNorm(use_scale=False)`` in train mode on the card:
+    the output, the bias gradient, the input gradient and the running
+    statistics within 1e-5 of the CPU's (float32, the same arithmetic in
+    another order)."""
+    from tensorflow_yolo2_torch.models.layers import BatchNorm
+
+    gen = torch.Generator().manual_seed(3)
+    x = torch.randn(4, 192, 5, 5, generator=gen) * 2 + 0.5
+    dout = torch.randn(4, 192, 5, 5, generator=gen)
+    bias = torch.randn(192, generator=gen) * 0.1
+    runs = []
+    for dev in ("cpu", card):
+        bn = BatchNorm(192, use_scale=False).to(dev).train()
+        with torch.no_grad():
+            bn.bias.copy_(bias)
+        xi = x.detach().to(dev).clone().requires_grad_(True)
+        y = bn(xi)
+        y.backward(dout.to(dev))
+        runs.append([t.detach().cpu() for t in (
+            y, bn.bias.grad, xi.grad, bn.running_mean, bn.running_var)])
+    assert [n for n, _ in bn.named_parameters()] == ["bias"]
+    for got, want in zip(runs[1], runs[0]):
+        assert got.shape == want.shape and bool(torch.isfinite(got).all())
+        torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+
+
+def test_inception_identity_fold_on_the_card(card, no_tf32):
+    out = chip_smoke.check_inception_fold(card)
+    assert out["tensors_folded"] > 0
+    assert max(out["logits_rel_err"], out["aux_logits_rel_err"]) <= \
+        chip_smoke.FOLD_REL_TOL
+
+
+def test_data_tier_clis_on_the_card(card):
+    """``download_and_convert`` from a ``file://`` mirror, then
+    ``train_classifier`` on the prepared cifar10 shards, MNIST, the
+    prepared flowers shards (darknet19: B5 5 times a step) and
+    ``inception_v3 --aux-loss`` at 299², and ``eval_classifier``
+    (``chip_smoke.run_data_tier_clis``)."""
+    out = chip_smoke.run_data_tier_clis(card)
+    assert out["darknet19_launches"] == 5 * chip_smoke.SLIM_CLI_ITERS
+    assert out["inception_v3_launches"] == 0
+

@@ -1,0 +1,24 @@
+"""``inception_v4`` (with its auxiliary tower) against the JAX package's
+on the CPU at 160², through the tests of
+``tests/test_torch_port_inception_model.py`` (eval mode in float32 to
+1e-4, train mode and its running statistics in float64 to 1e-9; see
+there). A file of its own, as ``inception_resnet_v2``'s
+(``tests/test_torch_port_inception_resnet.py``), so that each stays under
+a minute.
+"""
+
+import pytest
+
+from tests.test_torch_port_inception_model import (  # noqa: F401
+    net_results,
+    test_forward_eval_matches_jax,
+    test_forward_train_and_statistics_match_jax,
+)
+from tests.test_torch_port_resnet_train import (  # noqa: F401
+    few_torch_threads,  # autouse
+)
+
+
+@pytest.fixture(scope="module", params=["inception_v4"])
+def net(request):
+    return net_results(request.param)

@@ -111,7 +111,8 @@ def test_labels_offset(root):
     (["--tf-checkpoint", "model.ckpt"], "A7"),
     (["--num-clones", "2"], "A8"),
     (["--model-parallel", "2"], "A8"),
-    (["--preprocessing-name", "vgg"], "data tier"),
+    (["--model-name", "inception_v2", "--aux-loss"],
+     "inception_v2 has no auxiliary classifier head"),
     (["--aux-loss"], "no auxiliary classifier head"),
     (["--labels-offset", "10"], "out of range"),
 ])
@@ -125,9 +126,11 @@ def test_eval_refusal_and_datasets(root, capsys):
     with pytest.raises(SystemExit):
         pt_eval.main([*CPU, "--tf-checkpoint", "model.ckpt"])
     assert "A7" in capsys.readouterr().err
-    for name in ("mnist", "cifar10", "prepared"):
-        with pytest.raises(ValueError, match="data tier"):
+    for name in ("mnist", "cifar10"):  # no raw files under the root
+        with pytest.raises(FileNotFoundError):
             datasets.get_dataset(name, data_path=str(root))
+    with pytest.raises(ValueError, match="needs data_path"):
+        datasets.get_dataset("prepared")
     with pytest.raises(ValueError, match="is not supported by dataset"):
         datasets.get_dataset("synthetic", preprocessing_name="vgg")
     with pytest.raises(ValueError, match="Name of dataset unknown"):

@@ -73,8 +73,21 @@ def test_registry_names_and_sizes_match_jax():
 
 @pytest.mark.parametrize("name", INCEPTION)
 def test_inception_is_listed_and_refused(name):
-    with pytest.raises(NotImplementedError, match="ROADMAP.md, queue A, A6"):
-        registry.get_network(name, num_classes=NUM_CLASSES)
+    """Each inception net is listed and builds (``models.inception``,
+    held to the JAX package in ``tests/test_torch_port_inception_*.py``);
+    an override it does not take is refused: ``aux_logits`` on the nets
+    without auxiliary heads, ``dtype`` on every net (the port takes bf16
+    from autocast)."""
+    assert name in registry.list_networks()
+    model = registry.get_network(name, num_classes=NUM_CLASSES)
+    assert model.logits.out_features == NUM_CLASSES
+    with pytest.raises(TypeError):
+        registry.get_network(name, dtype="bfloat16")
+    if name in ("inception_v2", "inception_resnet_v2"):
+        with pytest.raises(TypeError):
+            registry.get_network(name, aux_logits=True)
+    else:
+        assert registry.get_network(name, aux_logits=True).aux
 
 
 def test_unknown_names_and_overrides_raise():
