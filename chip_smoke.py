@@ -3,9 +3,10 @@
 
     python3 chip_smoke.py
 
-1. Prints the card's name and power limit, the torch and CUDA versions, and
-   builds the CUDA kernels from tensorflow_yolo2_torch/csrc with nvcc
-   (failing if ptxas serializes B4's wgmma pipeline).
+1. Prints the card's name and power limit, the torch and CUDA versions,
+   whether TensorFlow is importable there, and builds the CUDA kernels
+   from tensorflow_yolo2_torch/csrc with nvcc (failing if ptxas
+   serializes B4's wgmma pipeline).
 2. Holds each kernel against its plain PyTorch version on the card, on
    seeded synthetic grids with exact score ties and overlapping same- and
    cross-class boxes, batch 256, class-aware NMS on and off: the v1
@@ -153,7 +154,30 @@
    16; B5 4 times a step), inception_v3 with its auxiliary loss and
    inception_resnet_v2 (299², batch 32), bf16, images/s with the idle
    share.
-14. Times the v1, v1 ``--pallas-stem`` and v2p serving paths in bf16 and
+14. Imports TF checkpoints and trains adversarially at full width. The
+   448² v1 detector's seeded weights written as a TF V2 bundle in the
+   reference's names (``write_tf_bundle``, a writer of the format that
+   TensorFlow's reader reads bit for bit; CPU test), imported by the
+   port's numpy reader bit for bit; the detect CLI with
+   ``--tf-checkpoint --nms --device cuda`` on ``assets/demo.jpg``, B1
+   once, its boxes equal to those of the same weights as a state dict;
+   ``pascal_train_resnet --tf-checkpoint`` (2 iterations at batch 4) from
+   a seeded ResNet-50 trunk written in slim's names, every trunk tensor
+   warm-started. Then ``imagenet_train_adversarial`` with ``--device
+   cuda``: Inception-ResNet-v2 at 299², batch 18, ``--attack-model
+   inception_v3 --grouped-opt``, 3 iterations on the ILSVRC tree of 11
+   (exit 0, both streams with ``clean/`` and ``adv/`` metrics); a timed
+   pair of that configuration and of the white-box Darknet19 classifier
+   at 224², batch 18 (images/s and the idle share beside the card's name
+   and power limit), B5 15 times a Darknet19 pair
+   (``launches_adversarial_pair``); and one Darknet19 pair in float32 on
+   the card (TF32 off) against float64 on the CPU from the weights those
+   pairs reached: the clean loss to 1e-4, the attack's input gradient to
+   1e-1 (relative norm; the CPU's own float32 pair printed beside it),
+   the FGSM images where the float64 input gradient exceeds 0.25 of its
+   largest value (``ADV_SIGN_THRESH``), the adversarial step's loss on
+   the same images to 1e-4.
+15. Times the v1, v1 ``--pallas-stem`` and v2p serving paths in bf16 and
    the v1 and v1 ``--pallas-stem`` paths in float32 with TF32 off
    (images/s at batch 32 and 256, with a profile), the v1 224² and v2p
    416² train steps (steps/s and images/s at batch 24 and 64, with a
@@ -171,7 +195,7 @@
    with a profile), and B1 and B3 on the ResNet grid at batch 256,
    threshold 0.2, as the entries ``decode_nms_resnet`` and
    ``decode_grid_resnet``.
-15. Ends with ``{"ok": true, "device": {...}}``.
+16. Ends with ``{"ok": true, "device": {...}}``.
 
     python3 chip_smoke.py --stem-ab [OTHER_STEM_CU ...]
 
@@ -205,6 +229,7 @@ import argparse
 import contextlib
 import ctypes
 import functools
+import importlib.util
 import io
 import itertools
 import json
@@ -3131,6 +3156,589 @@ def check_slim(dev) -> dict:
     return out
 
 
+# -- 14. TF checkpoint import and adversarial training ------------------------
+
+TF_DETECT_THRESH = 0.2  # the import check's detect CLI threshold
+TF_RESNET_MOVE = 3 * 5e-4  # 2 Adam steps at 5e-4 move a weight at most this
+ADV_BATCH = 18  # the reference's adversarial batch
+ADV_IRV2_SIZE = 299
+ADV_CLI_ITERS = 3
+ADV_TIMED_PAIRS = 5
+ADV_DARKNET_SIZE = 224
+ADV_WARM_PAIRS = 3
+ADV_CHECK_IMAGES = 4
+ADV_EPSILON = 8 / 255 * 2
+# the FGSM signs of the float32 card pair are held to the float64 ones
+# where |g64| > ADV_SIGN_THRESH · max|g64|: below, float32 rounding of an
+# ill-conditioned input gradient may flip a sign, which is not a fault
+# (on the card signs flipped up to 0.113 and 0.038 of the largest value
+# in two runs, in the CPU's own float32 pair up to 0.046)
+ADV_SIGN_THRESH = 0.25
+# the input gradient's relative norm from float64: the CPU's float32 pair
+# is printed beside the card's
+ADV_GRAD_REL_TOL = 1e-1
+ADV_IMAGE_ATOL = 1e-6  # float32 against float64 rounding of x + ε·sign
+
+# numpy dtype → TensorFlow's DataType enum, for the bundle writer
+_TF_DTYPES = {np.dtype(np.float32): 1, np.dtype(np.float64): 2,
+              np.dtype(np.int32): 3, np.dtype(np.uint8): 4,
+              np.dtype(np.int16): 5, np.dtype(np.int8): 6,
+              np.dtype(np.int64): 9, np.dtype(np.bool_): 10,
+              np.dtype(np.float16): 19}
+
+
+def _pb_varint(n: int) -> bytes:
+    out = bytearray()
+    while True:
+        byte, n = n & 0x7F, n >> 7
+        out.append(byte | (0x80 if n else 0))
+        if not n:
+            return bytes(out)
+
+
+def _pb_field(number: int, value) -> bytes:
+    """A protobuf field: bytes are length-delimited, ints varints."""
+    if isinstance(value, bytes):
+        return _pb_varint(number << 3 | 2) + _pb_varint(len(value)) + value
+    return _pb_varint(number << 3) + _pb_varint(value)
+
+
+def _table_block(entries: list[tuple[bytes, bytes]]) -> bytes:
+    """One leveldb table block of (key, value) pairs in key order, each
+    entry a restart point (no shared key prefixes)."""
+    body, restarts = bytearray(), []
+    for key, value in entries:
+        restarts.append(len(body))
+        body += (_pb_varint(0) + _pb_varint(len(key)) +
+                 _pb_varint(len(value)) + key + value)
+    for r in restarts or [0]:
+        body += r.to_bytes(4, "little")
+    return bytes(body + len(restarts or [0]).to_bytes(4, "little"))
+
+
+def write_tf_bundle(prefix: str, tensors: dict[str, np.ndarray]) -> None:
+    """A TF V2 checkpoint (``prefix.index``, ``prefix.data-00000-of-
+    00001``) of ``tensors`` by name, as TensorFlow's ``BundleWriter``
+    lays it out: the tensors' little-endian bytes back to back, and a
+    table whose key ``""`` holds the ``BundleHeaderProto`` (one shard,
+    little-endian, version 1) and every other key a tensor's
+    ``BundleEntryProto`` (dtype, shape, offset, size, masked crc32c)."""
+    from tensorflow_yolo2_torch.compat.tf_bundle import (
+        TABLE_MAGIC,
+        crc32c,
+        mask_crc,
+    )
+
+    header = _pb_field(1, 1) + _pb_field(3, _pb_field(1, 1))
+    entries, offset = [(b"", header)], 0
+    with open(f"{prefix}.data-00000-of-00001", "wb") as data:
+        for name in sorted(tensors):
+            a = np.asarray(tensors[name], order="C")
+            raw = a.astype(a.dtype.newbyteorder("<"), copy=False).tobytes()
+            shape = b"".join(_pb_field(2, _pb_field(1, d)) for d in a.shape)
+            entries.append((name.encode(), (
+                _pb_field(1, _TF_DTYPES[a.dtype]) + _pb_field(2, shape) +
+                _pb_field(4, offset) + _pb_field(5, len(raw)) +
+                _pb_varint(6 << 3 | 5) +
+                mask_crc(crc32c(raw)).to_bytes(4, "little"))))
+            data.write(raw)
+            offset += len(raw)
+    table, handles = bytearray(), []
+    for block in (_table_block(entries), _table_block([])):
+        handles.append(_pb_varint(len(table)) + _pb_varint(len(block)))
+        table += block + b"\0" + mask_crc(crc32c(block + b"\0")).to_bytes(
+            4, "little")
+    index = _table_block([(entries[-1][0], handles[0])])
+    index_handle = _pb_varint(len(table)) + _pb_varint(len(index))
+    table += index + b"\0" + mask_crc(crc32c(index + b"\0")).to_bytes(
+        4, "little")
+    footer = handles[1] + index_handle
+    table += footer + bytes(40 - len(footer)) + TABLE_MAGIC.to_bytes(
+        8, "little")
+    with open(f"{prefix}.index", "wb") as f:
+        f.write(table)
+
+
+_TF_BN = (("gamma", "weight"), ("beta", "bias"),
+          ("moving_mean", "running_mean"), ("moving_variance", "running_var"))
+
+
+def _tf_array(t: torch.Tensor) -> np.ndarray:
+    """A conv kernel OIHW → HWIO, a dense (out, in) → (in, out), as TF
+    lays them out; anything else as it is."""
+    t = t.detach().cpu()
+    if t.dim() == 4:
+        t = t.permute(2, 3, 1, 0)
+    elif t.dim() == 2:
+        t = t.t()
+    return t.contiguous().numpy()
+
+
+def tf_darknet19_names(sd: dict) -> dict[str, np.ndarray]:
+    """The reference detector's TF variables of a port Darknet19 v1
+    detector state dict: the inverse of ``compat.tf_import``'s positional
+    names (``darknet19/Variable_<2i>`` kernel, ``Variable_<2i+1>`` bias,
+    ``batch_normalization_<i>``; the head's convs in the named scopes
+    ``darknet19_detection/conv1..3, output``)."""
+    out = {}
+
+    def put(scope: str, var: int, bn: int, module: str) -> None:
+        out[f"{scope}/Variable" + (f"_{var}" if var else "")] = _tf_array(
+            sd[f"{module}.conv.weight"])
+        out[f"{scope}/Variable_{var + 1}"] = _tf_array(
+            sd[f"{module}.conv.bias"])
+        scope_bn = f"{scope}/batch_normalization" + (f"_{bn}" if bn else "")
+        for tf_leaf, leaf in _TF_BN:
+            out[f"{scope_bn}/{tf_leaf}"] = _tf_array(sd[f"{module}.bn.{leaf}"])
+
+    for i in range(18):
+        put("darknet19", 2 * i, i, f"backbone.conv{i + 1}")
+    for name in ("conv1", "conv2", "conv3", "output"):
+        put(f"darknet19_detection/{name}", 0, 0, f"detection.{name}")
+    return out
+
+
+def tf_resnet50_trunk_names(sd: dict, prefix: str = ""
+                            ) -> dict[str, np.ndarray]:
+    """slim's ``resnet_v1_50`` variables of a port ``ResNet50V1`` trunk
+    (its keys under ``prefix``): ``conv1/weights`` and ``BatchNorm``,
+    ``block<b>/unit_<u>/bottleneck_v1/conv<c>`` and ``shortcut``."""
+    scope, out = "resnet_v1_50", {}
+
+    def put(dst: str, conv: str, bn: str) -> None:
+        out[f"{dst}/weights"] = _tf_array(sd[f"{prefix}{conv}.weight"])
+        for tf_leaf, leaf in _TF_BN:
+            out[f"{dst}/BatchNorm/{tf_leaf}"] = _tf_array(
+                sd[f"{prefix}{bn}.bn.{leaf}"])
+
+    put(f"{scope}/conv1", "conv1", "conv1_bn")
+    for b, units in enumerate((3, 4, 6, 3), start=1):
+        for u in range(1, units + 1):
+            src, dst = (f"block{b}_unit{u}",
+                        f"{scope}/block{b}/unit_{u}/bottleneck_v1")
+            for c in (1, 2, 3):
+                put(f"{dst}/conv{c}", f"{src}.conv{c}", f"{src}.bn{c}")
+            if f"{prefix}{src}.shortcut_conv.weight" in sd:
+                put(f"{dst}/shortcut", f"{src}.shortcut_conv",
+                    f"{src}.shortcut_bn")
+    return out
+
+
+def check_tf_import(dev) -> dict:
+    """The TF checkpoint import at full width, under a temporary run
+    root: the 448² v1 detector's seeded weights (``v1_detector``) written
+    as a V2 bundle in the reference's names (``write_tf_bundle``); the
+    port's import (``compat.tf_import``) equal to them bit for bit; the
+    detect CLI with ``--tf-checkpoint --nms --device cuda`` on
+    ``assets/demo.jpg`` (drawing recorded), B1 once, its boxes equal to
+    ``make_detect_fn``'s from the same weights as a state dict; then a
+    seeded ResNet-50 trunk written in slim's names, and
+    ``pascal_train_resnet --tf-checkpoint`` for 2 iterations at batch 4
+    on a synthetic VOC tree: every trunk tensor warm-started, each trunk
+    weight of its snapshot within 2 Adam steps of the written one."""
+    import tempfile
+
+    from tensorflow_yolo2_torch.compat.tf_import import (
+        import_darknet19_checkpoint,
+        state_dict_for,
+    )
+    from tensorflow_yolo2_torch.data.augment import image_read
+    from tensorflow_yolo2_torch.entries import (
+        pascal_detect_darknet,
+        pascal_train_resnet,
+    )
+    from tensorflow_yolo2_torch.models.resnet import ResNet50V1
+    from tensorflow_yolo2_torch.ops import cuda_decode as cd
+    from tensorflow_yolo2_torch.train.checkpoint import (
+        CheckpointManager,
+        read_snapshot,
+    )
+    from tensorflow_yolo2_torch.utils import cuda_build
+    from tests import synthetic
+
+    out = {}
+    yolo, state = v1_detector()
+    with tempfile.TemporaryDirectory(dir=cuda_build.BUILD_DIR) as root, \
+            mock.patch.dict(os.environ, {"TFY2_ROOT": root}):
+        prefix = os.path.join(root, "darknet19_pascal.ckpt")
+        t0 = time.perf_counter()
+        write_tf_bundle(prefix, tf_darknet19_names(state))
+        out["write_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        imported = state_dict_for(import_darknet19_checkpoint(prefix))
+        out["import_s"] = time.perf_counter() - t0
+        written = {k: v for k, v in state.items()
+                   if not k.endswith("num_batches_tracked")}
+        check(set(imported) == set(state) and all(
+            torch.equal(imported[k], v) for k, v in written.items()),
+            "the imported detector equals the written arrays bit for bit")
+        print(f"TF import, v1 448² detector: {len(written)} tensors, "
+              f"{os.path.getsize(prefix + '.data-00000-of-00001') / 2**20:.1f}"
+              f" MiB written in {out['write_s']:.2f} s, imported in "
+              f"{out['import_s']:.2f} s, bit-equal")
+        drawn = []
+
+        def record(path, boxes, scores, classes, names, out_path=None):
+            drawn.append((boxes, scores, classes))
+            return os.path.join(root, "detections.png")
+
+        cd.reset_launch_counts()
+        with mock.patch.object(pascal_detect_darknet, "draw_detections",
+                               record):
+            run_cli(pascal_detect_darknet.main,
+                    [DEMO, "--tf-checkpoint", prefix, "--nms",
+                     "--image-size", "448", "--threshold",
+                     str(TF_DETECT_THRESH), "--device", str(dev)],
+                    "pascal_detect_darknet --tf-checkpoint --nms")
+        torch.cuda.synchronize()
+        out["detect_launches"] = cd.DECODE_NMS_LAUNCHES
+        check(out["detect_launches"] == 1, "the detect CLI launched B1 once")
+        detect = pascal_detect_darknet.make_detect_fn(
+            yolo, state, TF_DETECT_THRESH, use_nms=True, device=dev)
+        want = [t[0].cpu().numpy()
+                for t in detect(image_read(DEMO, yolo.image_size)[None])]
+        (got,) = drawn
+        check(all(np.array_equal(g, w) for g, w in zip(got, want)),
+              "the CLI's detections from the TF checkpoint equal those of "
+              "the state dict")
+        out["detect_kept"] = int((want[1] > 0).sum())
+        print(f"pascal_detect_darknet --tf-checkpoint: {out['detect_kept']} "
+              f"boxes at {TF_DETECT_THRESH}, equal to make_detect_fn's on "
+              f"the state dict")
+        del detect, imported
+
+        trunk = random_weights_(ResNet50V1(), torch.Generator().manual_seed(
+            3)).state_dict()
+        names = tf_resnet50_trunk_names(trunk)
+        rprefix = os.path.join(root, "resnet_v1_50.ckpt")
+        write_tf_bundle(rprefix, names)
+        synthetic.make_voc(os.path.join(root, "data", "VOCdevkit"),
+                           n_images=VOC_TREE_IMAGES)
+        text = run_cli(pascal_train_resnet.main,
+                       ["--iters", "2", "--batch-size", str(RESNET_CLI_BATCH),
+                        "--save-every", "2", "--log-every", "1",
+                        "--num-workers", "2", "--device", str(dev),
+                        "--tf-checkpoint", rprefix],
+                       "pascal_train_resnet --tf-checkpoint")
+        n_stats = sum(k.endswith(("moving_mean", "moving_variance"))
+                      for k in names)
+        check(f"Warm-started {len(names) - n_stats} param + {n_stats} "
+              f"batch-stat tensors" in text,
+              "pascal_train_resnet warm-started every trunk tensor")
+        snap = read_snapshot(CheckpointManager("resnet50", "voc_2007")
+                             .latest_path())["model"]
+        params = [k for k in trunk if not k.endswith(
+            ("running_mean", "running_var", "num_batches_tracked"))]
+        out["resnet_trunk_max_move"] = max(
+            (snap[f"backbone.{k}"] - trunk[k]).abs().max().item()
+            for k in params)
+        print(f"pascal_train_resnet --tf-checkpoint: {len(names)} trunk "
+              f"tensors imported; after 2 Adam steps the trunk weights are "
+              f"within {out['resnet_trunk_max_move']:.2e} of the written "
+              f"ones (bound {TF_RESNET_MOVE:.1e})")
+        check(out["resnet_trunk_max_move"] <= TF_RESNET_MOVE,
+              "the snapshot's trunk is the imported one, 2 steps on")
+        del snap
+    return out
+
+
+def adversarial_trainer(backbone: str, size: int, dtype: torch.dtype, dev,
+                        grouped: bool = False, state_dict=None,
+                        double: bool = False):
+    """The adversarial entry's classifier (``ContrastInputModel`` around
+    ``backbone``, 1000 classes at ``size``²) and trainer (momentum 0.9 at
+    1e-3, or the grouped Adam optimizers), its state from seed 0 or
+    ``state_dict``; ``double``: the model in float64 before its state is
+    made (the float64 reference)."""
+    from tensorflow_yolo2_torch.config import (
+        LRScheduleConfig,
+        OptimizerConfig,
+    )
+    from tensorflow_yolo2_torch.entries.imagenet_train_adversarial import (
+        grouped_tx_factory,
+    )
+    from tensorflow_yolo2_torch.models.contrast import ContrastInputModel
+    from tensorflow_yolo2_torch.models.registry import get_network
+    from tensorflow_yolo2_torch.train.trainer import Trainer, softmax_task
+
+    model = ContrastInputModel(get_network(backbone, num_classes=CLS_CLASSES,
+                                           image_size=size))
+    if double:
+        model.double()
+    trainer = Trainer(
+        model, softmax_task(),
+        OptimizerConfig(name="momentum", momentum=0.9,
+                        schedule=LRScheduleConfig(learning_rate=1e-3)),
+        device=dev, compute_dtype=dtype,
+        tx_factory=grouped_tx_factory(1e-3) if grouped else None)
+    return trainer, trainer.create_state(torch.Generator().manual_seed(0),
+                                         state_dict)
+
+
+def time_pairs(pair, label: str, batch: int) -> dict:
+    """images/s of an adversarial pair (``pair()``: a clean step, the
+    attack, the adversarial step) on a batch already on the card, host
+    clock around pairs that end in a synchronize; then a profile."""
+    pair()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(ADV_TIMED_PAIRS):
+        pair()
+    torch.cuda.synchronize()
+    dt = (time.perf_counter() - t0) / ADV_TIMED_PAIRS
+    prof = profile_call(pair, f"adversarial pair {label}", top=16)
+    out = {"ms_per_pair": dt * 1e3, "images_per_s": batch / dt,
+           "idle_share": prof["idle_share"], "kernels_ms": prof["kernels_ms"],
+           "idle_share_unprofiled": 1 - prof["kernels_ms"] / (dt * 1e3),
+           "card": card_line()}
+    print(f"adversarial pair {label}, batch {batch}: {dt * 1e3:.1f} ms a "
+          f"pair, {batch / dt:.1f} images/s (clean images a second; each "
+          f"passes a train step, the attack and an adversarial step); "
+          f"{prof['kernels_ms']:.1f} ms of kernels: idle share "
+          f"{out['idle_share_unprofiled']:.3f} unprofiled "
+          f"({prof['idle_share']:.3f} profiled); {card_line()}")
+    return out
+
+
+def pair_parts(trainer, state, images, labels, attack_model=None,
+               adv_images=None) -> dict:
+    """One adversarial pair (``train.adversarial``) with its attack's
+    images and input gradient kept: the clean and adversarial losses, the
+    FGSM images, and the gradient FGSM took the signs of. With
+    ``adv_images`` the adversarial step takes those in place of the
+    attack's own (which are kept all the same)."""
+    from tensorflow_yolo2_torch.train.adversarial import (
+        adversarial_train_step_pair,
+        fgsm,
+        make_attack_loss,
+    )
+
+    seen = {}
+
+    def attack(x, y):
+        loss = make_attack_loss(attack_model or state.model, y,
+                                trainer.compute_dtype)
+
+        def keep_gradient(images):
+            images.register_hook(lambda g: seen.update(grad=g.detach()))
+            return loss(images)
+
+        seen["adv"] = fgsm(keep_gradient, x, ADV_EPSILON)
+        return seen["adv"] if adv_images is None else adv_images
+
+    _, clean, adv = adversarial_train_step_pair(
+        trainer, state, images, labels, ADV_EPSILON, attack_fn=attack)
+    return {"clean_loss": clean["loss"].item(),
+            "adv_loss": adv["loss"].item(), **seen}
+
+
+def check_pair_against_float64(state_dict: dict, images: torch.Tensor,
+                               labels: torch.Tensor, dev) -> dict:
+    """One adversarial pair of the white-box Darknet19 classifier from the
+    weights of ``state_dict``: float32 on the card (TF32 off) against
+    float64 on the CPU. The clean losses to LOSS_REL_TOL; the attack's
+    input gradient to ADV_GRAD_REL_TOL (the CPU's own float32 pair is
+    printed beside it); the FGSM images where the float64 input gradient
+    is firm (|g| > ADV_SIGN_THRESH · max|g|) to ADV_IMAGE_ATOL, i.e. the
+    same signs there; the
+    adversarial step's losses to LOSS_REL_TOL, the float64 step taking
+    the card's adversarial images (a sign flipped where the gradient is
+    not firm moves a pixel by 2ε, and the loss with it: not a fault of
+    the arithmetic). The float64 step on its own images is printed
+    beside it."""
+    cpu = torch.device("cpu")
+    trainer, state = adversarial_trainer("darknet19", ADV_DARKNET_SIZE,
+                                         torch.float32, dev,
+                                         state_dict=state_dict)
+    card = pair_parts(trainer, state, images.float().to(dev), labels.to(dev))
+    del trainer, state
+    t64, s64 = adversarial_trainer("darknet19", ADV_DARKNET_SIZE,
+                                   torch.float32, cpu, state_dict=state_dict,
+                                   double=True)
+    adv32 = card["adv"].double().cpu()
+    ref = pair_parts(t64, s64, images.double().cpu(), labels.cpu(),
+                     adv_images=adv32)
+    t64, s64 = adversarial_trainer("darknet19", ADV_DARKNET_SIZE,
+                                   torch.float32, cpu, state_dict=state_dict,
+                                   double=True)
+    own = pair_parts(t64, s64, images.double().cpu(), labels.cpu())
+    t32, s32 = adversarial_trainer("darknet19", ADV_DARKNET_SIZE,
+                                   torch.float32, cpu, state_dict=state_dict)
+    cpu32 = pair_parts(t32, s32, images.float().cpu(), labels.cpu())
+    del t64, s64, t32, s32
+    adv64, g64 = ref["adv"], ref["grad"]
+    ratio = g64.abs() / g64.abs().max()
+    firm = ratio > ADV_SIGN_THRESH
+    flipped = (adv32 - adv64).abs() > ADV_IMAGE_ATOL
+
+    def grad_err(g):
+        return ((g.double().cpu() - g64).norm() / g64.norm()).item()
+
+    def flip_ratio(adv):
+        wrong = (adv.double().cpu() - adv64).abs() > ADV_IMAGE_ATOL
+        return ratio[wrong].max().item() if wrong.any() else 0.0
+
+    out = {
+        "clean_loss": card["clean_loss"], "clean_loss64": ref["clean_loss"],
+        "clean_loss_rel_err": abs(card["clean_loss"] - ref["clean_loss"]) /
+        abs(ref["clean_loss"]),
+        "adv_loss": card["adv_loss"], "adv_loss64": ref["adv_loss"],
+        "adv_loss_rel_err": abs(card["adv_loss"] - ref["adv_loss"]) /
+        abs(ref["adv_loss"]),
+        "adv_loss64_own_images": own["adv_loss"],
+        "input_grad_rel_err": grad_err(card["grad"]),
+        "cpu_f32_input_grad_rel_err": grad_err(cpu32["grad"]),
+        "cpu_f32_largest_flipped_ratio": flip_ratio(cpu32["adv"]),
+        "firm_share": firm.double().mean().item(),
+        "flips": int(flipped.sum()), "flips_firm": int((flipped & firm).sum()),
+        "largest_flipped_ratio": flip_ratio(card["adv"]),
+        "sign_thresh": ADV_SIGN_THRESH,
+        "images_max_abs_err_firm": (adv32 - adv64)[firm].abs().max().item()}
+    print(f"adversarial pair, float32 card (TF32 off) vs float64 CPU, batch "
+          f"{len(images)}, {ADV_DARKNET_SIZE}²: clean loss "
+          f"{out['clean_loss']:.6f} vs {out['clean_loss64']:.6f} (rel. "
+          f"{out['clean_loss_rel_err']:.2e}, bound {LOSS_REL_TOL}); input "
+          f"gradient rel. err {out['input_grad_rel_err']:.2e} (bound "
+          f"{ADV_GRAD_REL_TOL}; the CPU's float32 pair "
+          f"{out['cpu_f32_input_grad_rel_err']:.2e}, its largest flipped "
+          f"|g64| / max {out['cpu_f32_largest_flipped_ratio']:.2e}); FGSM "
+          f"images: {out['flips']} of {adv64.numel()} values on the other "
+          f"side (sign flips), {out['flips_firm']} of them where |g64| > "
+          f"{ADV_SIGN_THRESH} max|g64| ({out['firm_share']:.3f} of the "
+          f"values), the largest flipped |g64| / max "
+          f"{out['largest_flipped_ratio']:.2e}; adversarial step's loss "
+          f"{out['adv_loss']:.6f} vs {out['adv_loss64']:.6f} on the same "
+          f"images (rel. {out['adv_loss_rel_err']:.2e}, bound "
+          f"{LOSS_REL_TOL}), float64 on its own images "
+          f"{out['adv_loss64_own_images']:.6f}")
+    check(out["clean_loss_rel_err"] <= LOSS_REL_TOL,
+          "float32 clean loss of the pair vs float64")
+    check(out["input_grad_rel_err"] <= ADV_GRAD_REL_TOL,
+          "float32 input gradient of the attack vs float64")
+    check(out["flips_firm"] == 0 and
+          out["images_max_abs_err_firm"] <= ADV_IMAGE_ATOL,
+          "FGSM images vs float64 where the input gradient is firm")
+    check(out["adv_loss_rel_err"] <= LOSS_REL_TOL,
+          "float32 adversarial step's loss vs float64 on the same images")
+    return out
+
+
+def check_adversarial(dev) -> dict:
+    """Adversarial training at full width: the CLI
+    (``imagenet_train_adversarial``: Inception-ResNet-v2 at 299², batch
+    18, ``--attack-model inception_v3 --grouped-opt``, 3 iterations, a
+    validation batch every 2) on the ``write_ilsvrc_tree`` tree: exit 0,
+    the snapshot, both streams with ``clean/`` and ``adv/`` keys; a timed
+    pair of that configuration; the white-box Darknet19 classifier at
+    224², batch 18, bf16: B5 15 times a pair (5 in the clean step, 5 in
+    the FGSM input gradient, 5 in the adversarial step), a timed pair;
+    then one pair in float32 against float64
+    (``check_pair_against_float64``) from the weights those pairs
+    reached."""
+    import tempfile
+
+    from tensorflow_yolo2_torch.entries import imagenet_train_adversarial
+    from tensorflow_yolo2_torch.models.darknet import init_params_
+    from tensorflow_yolo2_torch.models.registry import get_network
+    from tensorflow_yolo2_torch.ops import cuda_pool
+    from tensorflow_yolo2_torch.train.adversarial import (
+        adversarial_train_step_pair,
+        make_attack,
+    )
+    from tensorflow_yolo2_torch.train.checkpoint import CheckpointManager
+    from tensorflow_yolo2_torch.utils import cuda_build
+
+    out = {}
+    with tempfile.TemporaryDirectory(dir=cuda_build.BUILD_DIR) as root, \
+            mock.patch.dict(os.environ, {"TFY2_ROOT": root}):
+        write_ilsvrc_tree(os.path.join(root, "data", "ILSVRC"),
+                          np.random.RandomState(16))
+        run_cli(imagenet_train_adversarial.main,
+                ["--backbone", "inception_resnet_v2", "--image-size",
+                 str(ADV_IRV2_SIZE), "--attack-model", "inception_v3",
+                 "--grouped-opt", "--batch-size", str(ADV_BATCH),
+                 "--iters", str(ADV_CLI_ITERS), "--eval-every", "2",
+                 "--log-every", "1", "--save-every", str(ADV_CLI_ITERS),
+                 "--num-workers", "2", "--device", str(dev)],
+                "imagenet_train_adversarial inception_resnet_v2 299² "
+                "--attack-model inception_v3 --grouped-opt")
+        name = "inception_resnet_v2_adv"
+        check(CheckpointManager(name, "ilsvrc_2017_cls").all_steps() ==
+              [ADV_CLI_ITERS], f"the adversarial CLI saved train_iter_"
+                               f"{ADV_CLI_ITERS}")
+        streams = {}
+        for split in ("train", "val"):
+            path = os.path.join(root, "tensorboard", name, "ilsvrc_2017_cls",
+                                split, "events.jsonl")
+            with open(path) as f:
+                recs = [json.loads(line) for line in f]
+            keys = sorted({k for r in recs for k in r
+                           if k.startswith(("clean/", "adv/"))})
+            streams[split] = {"records": len(recs), "keys": keys}
+            check(len(recs) >= 1 and all(
+                k in keys for k in ("clean/loss", "clean/accuracy",
+                                    "adv/loss", "adv/accuracy")),
+                f"the {split} stream holds clean/ and adv/ metrics")
+        out["cli_streams"] = streams
+        print(f"adversarial CLI streams: {streams}")
+
+    rng = np.random.RandomState(17)
+    images, labels = (torch.from_numpy(a).to(dev) for a in cls_batch(
+        rng, ADV_BATCH, num_classes=CLS_CLASSES, size=ADV_IRV2_SIZE))
+    images = images.float() / 255.0 * 2.0 - 1.0
+    trainer, state = adversarial_trainer("inception_resnet_v2",
+                                         ADV_IRV2_SIZE, torch.bfloat16, dev,
+                                         grouped=True)
+    gen = get_network("inception_v3", num_classes=CLS_CLASSES,
+                      image_size=ADV_IRV2_SIZE)
+    init_params_(gen, torch.Generator().manual_seed(1))
+    gen.to(dev, memory_format=torch.channels_last).requires_grad_(False)
+    attack = make_attack(gen, ADV_EPSILON, torch.bfloat16)
+    out["irv2_299_transfer_grouped"] = time_pairs(
+        lambda: adversarial_train_step_pair(trainer, state, images, labels,
+                                            ADV_EPSILON, attack),
+        f"inception_resnet_v2 {ADV_IRV2_SIZE}², inception_v3 attack, "
+        f"grouped Adam, bf16", ADV_BATCH)
+    del trainer, state, gen, attack, images
+
+    images, labels = (torch.from_numpy(a).to(dev) for a in cls_batch(
+        rng, ADV_BATCH, num_classes=CLS_CLASSES, size=ADV_DARKNET_SIZE))
+    images = images.float() / 255.0 * 2.0 - 1.0
+    trainer, state = adversarial_trainer("darknet19", ADV_DARKNET_SIZE,
+                                         torch.bfloat16, dev)
+    losses = []
+    for _ in range(ADV_WARM_PAIRS):
+        state, clean, adv = adversarial_train_step_pair(
+            trainer, state, images, labels, ADV_EPSILON)
+        losses.append((clean["loss"].item(), adv["loss"].item()))
+    torch.cuda.synchronize()
+    cuda_pool.reset_launch_counts()
+    state, clean, adv = adversarial_train_step_pair(
+        trainer, state, images, labels, ADV_EPSILON)
+    torch.cuda.synchronize()
+    out["launches_adversarial_pair"] = cuda_pool.MAX_POOL2_BWD_LAUNCHES
+    print(f"white-box adversarial pairs, darknet19 {ADV_DARKNET_SIZE}², "
+          f"batch {ADV_BATCH}, bf16: (clean, adversarial) losses "
+          f"{losses}; B5 launched {out['launches_adversarial_pair']} times "
+          f"in one pair")
+    check(out["launches_adversarial_pair"] == 15,
+          "B5 ran 15 times an adversarial pair (clean step, FGSM input "
+          "gradient, adversarial step)")
+    check(all(math.isfinite(v) for pair in losses for v in pair),
+          "finite adversarial losses")
+    out["darknet19_224_white_box"] = time_pairs(
+        lambda: adversarial_train_step_pair(trainer, state, images, labels,
+                                            ADV_EPSILON),
+        f"darknet19 {ADV_DARKNET_SIZE}², white-box, momentum, bf16",
+        ADV_BATCH)
+    trained = {k: v.detach().cpu().clone()
+               for k, v in state.model.state_dict().items()}
+    del trainer, state
+    out["float64_pair"] = check_pair_against_float64(
+        trained, images[:ADV_CHECK_IMAGES], labels[:ADV_CHECK_IMAGES], dev)
+    return out
+
+
 def card_grid(yolo, state, images, dev, pallas_stem: bool = False,
               dtype: torch.dtype = torch.bfloat16, **head) -> torch.Tensor:
     """The ``dtype`` detector's float32 grid of a uint8 batch, on the
@@ -3448,6 +4056,9 @@ def main(argv: list[str] | None = None) -> int:
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"device {torch.cuda.get_device_name(0)}, "
           f"count {torch.cuda.device_count()}; TF32 off for float32 checks")
+    print("tensorflow importable on this machine: "
+          f"{importlib.util.find_spec('tensorflow') is not None} (the port "
+          "reads TF checkpoints without it)")
     if args.stem_ab is not None:
         return stem_ab([os.path.join(cuda_build.CSRC_DIR, "stem.cu"),
                         *args.stem_ab], card)
@@ -3865,8 +4476,13 @@ def main(argv: list[str] | None = None) -> int:
     mark("section 13")
     slim = check_slim(dev)
 
-    # 14. times --------------------------------------------------------------
+    # 14. TF checkpoint import and adversarial training --------------------
     mark("section 14")
+    tf_import = check_tf_import(dev)
+    adversarial = check_adversarial(dev)
+
+    # 15. times --------------------------------------------------------------
+    mark("section 15")
     print(f"times on {card}:")
     v1_flops = conv_flops_per_image(448, yolo.cell_channels)
     tf32 = (f"TF32: cudnn.allow_tf32={torch.backends.cudnn.allow_tf32}, "
@@ -3908,6 +4524,8 @@ def main(argv: list[str] | None = None) -> int:
         "fine_tune_resnet50_224": fine_tune,
         "resnet_clis": resnet_clis,
         "slim": slim,
+        "tf_import": tf_import,
+        "adversarial": adversarial,
         "tf32": {"cudnn": torch.backends.cudnn.allow_tf32,
                  "matmul": torch.backends.cuda.matmul.allow_tf32},
     }
@@ -3984,6 +4602,7 @@ def main(argv: list[str] | None = None) -> int:
     errs["decode_nms_resnet"] = resnet["errs"]["decode_nms"]
     errs["decode_grid_resnet"] = resnet["errs"]["decode_grid"]
     launches_int8.update(decode_nms_resnet={}, decode_grid_resnet={})
+    launches_tf_import = {"decode_nms": tf_import["detect_launches"]}
     kernels = []
     for name, (fused, plain, (bound, by), shape, one_step) in runs.items():
         ms = graph_ms(fused)
@@ -3996,6 +4615,8 @@ def main(argv: list[str] | None = None) -> int:
             "max_abs_err": errs[name], "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound, "bound_by": by, "library_ms": None,
             "call_ms": call_ms, "launches_int8": launches_int8[name]})
+        if name in launches_tf_import:  # the detect CLI on a TF checkpoint
+            kernels[-1]["launches_tf_import_cli"] = launches_tf_import[name]
         eval_runs = {  # the same kernel under evaluation (section 8)
             ev_name: {k: ev[k] for k in (
                 "threshold", "batch", "launches", "candidates_per_image",
@@ -4037,6 +4658,7 @@ def main(argv: list[str] | None = None) -> int:
         "launches_prepared_darknet19_cli":
             slim["data tier clis"]["darknet19_launches"],
         "launches_yolo1_pretrain_accum": slim["accumulation"]["launches"],
+        "launches_adversarial_pair": adversarial["launches_adversarial_pair"],
         "launches_timed_steps": {k: v[b]["max_pool2_bwd_launches"]
                                  for k, v in slim["times"].items()
                                  for b in v},

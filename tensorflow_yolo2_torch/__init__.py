@@ -25,7 +25,7 @@ nothing of JAX.
                  initializers, BN folding (and the identity fold);
                  ResNet-50 v1; the registry, the slim zoo, ResNet v2,
                  YOLOv1 and the inception family (v1–v4,
-                 Inception-ResNet-v2).
+                 Inception-ResNet-v2); the contrast-channel input wrapper.
 - ``ops``      — IoU, the v1 and anchor grid decodes, fixed-shape NMS, and
                  the hand-written CUDA kernels (sources in ``csrc/``):
                  decode / decode+NMS (``ops.cuda_decode``), the 2×2
@@ -34,11 +34,15 @@ nothing of JAX.
 - ``losses``   — ``yolo``: the YOLOv1 grid loss; ``yolo_v2``: the YOLOv2
                  anchor loss.
 - ``eval``     — the VOC mAP evaluator.
-- ``train``    — schedules, the optimizer family, gradient
-                 accumulation, EMA, the train step (YOLO and softmax
-                 tasks; remat, activation summaries), snapshots, metrics.
+- ``train``    — schedules, the optimizer family (and per-scope
+                 groups), gradient accumulation, EMA, the train step
+                 (YOLO and softmax tasks; remat, activation summaries),
+                 FGSM adversarial training, snapshots, metrics.
 - ``convert``  — flax parameter trees (as numpy) → torch state dicts, and
                  the ``.npz`` format that carries them between machines.
+- ``compat``   — TF checkpoints: ``tf_bundle`` reads V1 and V2 files in
+                 numpy alone (no TensorFlow), ``tf_import`` maps the
+                 reference's and slim's names onto the models.
 - ``entries``  — ``pascal_detect_darknet``: the serving entry point (v1,
                  ``--v2``, ``--v2 --passthrough``); ``pascal_train_darknet``:
                  detector training (the same three heads);
@@ -49,7 +53,10 @@ nothing of JAX.
                  ResNet-50 entries; ``train_classifier``,
                  ``eval_classifier``, ``flowers_train``: the slim tier;
                  ``download_and_convert``: raw datasets to prepared
-                 shards.
+                 shards; ``imagenet_train_adversarial``: clean + FGSM
+                 training of a contrast-channel classifier;
+                 ``verify_released_ckpts``: the released TF bundles
+                 through the serving path, with golden boxes.
 - ``utils``    — the kernels' build, the device default, the native host
                  layer, timers, the profiler trace, the detection
                  drawing and ``helpers`` (label counts, the contrast

@@ -30,7 +30,8 @@ conv, the separable stem's ``depthwise`` (HWIO (kh, kw, 1, in·mult) →
 ``aux_4d/fc``; an ``fc`` anywhere else is refused) and v3's / v4's
 ``aux_logits`` (a 1×1 conv, a dense). Its BatchNorms have no scale: a
 ``bn`` child with ``bias`` alone, which maps to a BatchNorm without a
-``weight``.
+``weight``. The adversarial defence's ``ContrastInputModel`` adds the
+bare ``input_transform`` conv; its net sits under ``backbone``.
 
 A nested BatchNorm (``conv1_bn``, ``preact_bn``, ``bn1``, ``postnorm``)
 is a ``bn`` child as above. Folded trees (no ``bn`` children) convert the same way and load into a
@@ -79,7 +80,7 @@ def unflatten(flat: Mapping[str, Any]) -> dict[str, Any]:
 
 _BARE_LAYERS = (
     "shortcut_conv", "logits", "yolo_fc1", "yolo_fc2",
-    "up", "depthwise", "pointwise", "aux_logits",
+    "up", "depthwise", "pointwise", "aux_logits", "input_transform",
     *(f"conv{i}" for i in range(1, 25)),
     *(f"conv{s}_{i}" for s in range(1, 6) for i in range(1, 5)),
     *(f"fc{i}" for i in (3, 4, 6, 7, 8, 21, 25, 26)))

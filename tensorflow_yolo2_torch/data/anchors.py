@@ -186,11 +186,14 @@ def load_anchors(ckpt_dir: str, S: int
     return tuple((w * factor, h * factor) for w, h in payload["anchors"])
 
 
-def v2_config_for_snapshot(snapshot_dir: str | None,
-                           image_size: int) -> YoloConfig:
+def v2_config_for_snapshot(snapshot_dir: str | None, image_size: int,
+                           external_weights: bool = False) -> YoloConfig:
     """Anchor-head config with the priors of ``snapshot_dir/anchors.json``,
-    else (no file, or no directory) the classic VOC priors."""
+    else (no file, or no directory) the classic VOC priors.
+    ``external_weights`` (imported TF checkpoints) skips the lookup: a
+    stale ``anchors.json`` of an unrelated training run must not re-prior
+    an imported checkpoint, which decodes with the classic priors."""
     stored = None
-    if snapshot_dir is not None:
+    if snapshot_dir is not None and not external_weights:
         stored = load_anchors(snapshot_dir, image_size // 32)
     return yolo_v2_config(image_size, anchors=stored)

@@ -12,6 +12,11 @@ from typing import Any, Callable, Mapping, Optional
 
 import torch
 
+from tensorflow_yolo2_torch.compat.tf_bundle import checkpoint_present
+from tensorflow_yolo2_torch.compat.tf_import import (
+    import_resnet50_checkpoint,
+    state_dict_for,
+)
 from tensorflow_yolo2_torch.convert import state_dict_from_flax
 from tensorflow_yolo2_torch.data.prefetch import PrefetchLoader, device_prefetch
 from tensorflow_yolo2_torch.train.checkpoint import (
@@ -43,8 +48,8 @@ def base_parser(description: str) -> argparse.ArgumentParser:
                    help="host prefetch threads")
     p.add_argument("--data-path", default=None)
     p.add_argument("--tf-checkpoint", default=None,
-                   help="TF1 checkpoint to import weights from (not "
-                        "ported yet)")
+                   help="TF1 checkpoint to import weights from (where the "
+                        "entry reads one)")
     p.add_argument("--profile-dir", default=None,
                    help="write a torch.profiler trace (Chrome JSON) of the "
                         "train loop into this dir")
@@ -53,23 +58,43 @@ def base_parser(description: str) -> argparse.ArgumentParser:
     return p
 
 
-def refuse_resnet_tf_import(parser: argparse.ArgumentParser,
-                            tf_checkpoint: Optional[str],
-                            weights_dir: str) -> None:
-    """The ResNet entries of the JAX package warm-start from a TF
-    checkpoint given with ``--tf-checkpoint`` or found at
-    ``<weights>/resnet_v1_50.ckpt[.index]``. That import is not ported
-    (ROADMAP.md, queue A, A7), so either case is refused here, never
-    passed over: a run starts from fresh weights only where the JAX one
-    would too."""
+def require_tf_checkpoint(parser: argparse.ArgumentParser, flag: str,
+                          path: Optional[str]) -> None:
+    """A TF checkpoint named on the command line must be there: the
+    parser's error otherwise (the JAX entries pass over a missing one and
+    start from other weights)."""
+    if path and not checkpoint_present(path):
+        parser.error(f"{flag} {path}: no TF checkpoint there (neither "
+                     f"{path}.index nor {path})")
+
+
+def refuse_ignored_tf_checkpoint(parser: argparse.ArgumentParser,
+                                 tf_checkpoint: Optional[str]) -> None:
+    """The JAX entries that take ``--tf-checkpoint`` with the shared flags
+    and read no TF checkpoint through it (``flowers_train``,
+    ``imagenet_train_darknet``, ``imagenet_test_darknet``,
+    ``train_classifier``, ``imagenet_train_adversarial``) ignore it; the
+    port refuses it, so that a run never looks as if it started from
+    weights it did not read."""
     if tf_checkpoint:
-        parser.error("--tf-checkpoint is not ported yet (ROADMAP.md, queue "
-                     "A, A7)")
-    ckpt = os.path.join(weights_dir, "resnet_v1_50.ckpt")
-    if os.path.exists(ckpt) or os.path.exists(ckpt + ".index"):
-        parser.error(f"{ckpt} is a TF checkpoint the JAX package would "
-                     "import; TF checkpoint import is not ported yet "
-                     "(ROADMAP.md, queue A, A7)")
+        parser.error("--tf-checkpoint: the JAX entry reads no TF checkpoint "
+                     "through this flag (it ignores it); refused here "
+                     "rather than ignored")
+
+
+def resnet_tf_trunk(tf_checkpoint: Optional[str], weights_dir: str,
+                    prefix: Optional[str] = None
+                    ) -> Optional[dict[str, torch.Tensor]]:
+    """The ResNet entries' TF warm start, as in the JAX package: the slim
+    resnet_v1_50 checkpoint given with ``--tf-checkpoint``, else
+    ``<weights>/resnet_v1_50.ckpt[.index]``, imported as a state dict
+    (under ``prefix``, a module path such as ``"backbone"``); None when
+    neither exists."""
+    path = tf_checkpoint or os.path.join(weights_dir, "resnet_v1_50.ckpt")
+    if not checkpoint_present(path):
+        return None
+    print(f"Importing TF checkpoint {path}")
+    return state_dict_for(import_resnet50_checkpoint(path), prefix)
 
 
 def _as_state_dict(params: Mapping[str, Any],

@@ -13,8 +13,11 @@ as in the JAX entry, which shapes its state from it, the split's first
 batch is drawn before the pass, so the pass scores the batches after it.
 ``--labels-offset`` strips a background slot as the trainer does;
 ``--preprocessing-name`` picks the factory preprocessing's eval form.
-``--tf-checkpoint`` is not ported yet (A7). Runs on ``cuda`` unless
-``--device`` names another device.
+``--tf-checkpoint`` scores a TF checkpoint of ``--model-name`` as it is
+(``compat.tf_import.import_checkpoint_for``, read in numpy alone; merged
+by name and shape into fresh weights, no snapshot looked up, no EMA), as
+slim's eval does. Runs on ``cuda`` unless ``--device`` names another
+device.
 
     python -m tensorflow_yolo2_torch.entries.eval_classifier \\
         --model-name vgg_16 --dataset-name flowers --use-ema
@@ -29,10 +32,14 @@ from tensorflow_yolo2_torch.entries import common
 from tensorflow_yolo2_torch.entries.datasets import get_dataset
 from tensorflow_yolo2_torch.entries.train_classifier import (
     build_model,
+    import_tf_for,
     offset_labels,
     refuse_unported,
 )
-from tensorflow_yolo2_torch.train.checkpoint import CheckpointManager
+from tensorflow_yolo2_torch.train.checkpoint import (
+    CheckpointManager,
+    merge_into_model,
+)
 from tensorflow_yolo2_torch.train.trainer import Trainer, softmax_task
 
 
@@ -54,6 +61,7 @@ def main(argv: list[str] | None = None) -> int:
                    help="evaluate the EMA weights from the snapshot")
     args = p.parse_args(argv)
     refuse_unported(p, args)
+    common.require_tf_checkpoint(p, "--tf-checkpoint", args.tf_checkpoint)
 
     batch_size = args.batch_size or 64
     dtype = (torch.bfloat16 if args.compute_dtype == "bfloat16"
@@ -82,11 +90,20 @@ def main(argv: list[str] | None = None) -> int:
                               args.labels_offset)
     get_batch()  # the JAX entry's sample batch: the pass starts after it
     info: dict = {}
-    state, step = common.bootstrap_state(
-        trainer, mgr, torch.Generator().manual_seed(0), info=info)
-    if step == 0 and mgr.latest_step() is None:
-        print("WARNING: no snapshot found under "
-              f"{mgr.dir} — evaluating freshly-initialized weights")
+    if args.tf_checkpoint:
+        from tensorflow_yolo2_torch.compat.tf_import import state_dict_for
+        trees = import_tf_for(p, args.model_name, args.tf_checkpoint)
+        state = trainer.create_state(torch.Generator().manual_seed(0))
+        n, m = merge_into_model(state.model, state_dict_for(trees))
+        step, info["ema_restored"] = 0, 0  # no EMA in a TF checkpoint
+        print(f"Imported {n} param + {m} batch-stat tensors from TF "
+              f"checkpoint {args.tf_checkpoint}")
+    else:
+        state, step = common.bootstrap_state(
+            trainer, mgr, torch.Generator().manual_seed(0), info=info)
+        if step == 0 and mgr.latest_step() is None:
+            print("WARNING: no snapshot found under "
+                  f"{mgr.dir} — evaluating freshly-initialized weights")
     use_ema = args.use_ema and state.ema_params is not None
     if use_ema and info.get("ema_restored") == 0:
         # the EMA slot still holds the restored raw parameters' copy:

@@ -34,9 +34,7 @@ def main(argv: list[str] | None = None) -> int:
     p.add_argument("--val-split", type=float, default=0.2)
     p.add_argument("--image-size", type=int, default=224)
     args = p.parse_args(argv)
-    if args.tf_checkpoint:
-        p.error("--tf-checkpoint is not ported yet (ROADMAP.md, queue A, "
-                "A7)")
+    common.refuse_ignored_tf_checkpoint(p, args.tf_checkpoint)
 
     batch_size = args.batch_size or 16
     iters = args.iters or 1000

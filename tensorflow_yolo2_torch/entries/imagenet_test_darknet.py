@@ -59,9 +59,7 @@ def main(argv: list[str] | None = None) -> int:
                         "(ops.quant; BN folded, activations calibrated on "
                         "the first batch)")
     args = p.parse_args(argv)
-    if args.tf_checkpoint:
-        p.error("--tf-checkpoint is not ported yet (ROADMAP.md, queue A, "
-                "A7)")
+    common.refuse_ignored_tf_checkpoint(p, args.tf_checkpoint)
 
     batch_size = args.batch_size or 64
     dtype = (torch.bfloat16 if args.compute_dtype == "bfloat16"

@@ -75,9 +75,7 @@ def main(argv: list[str] | None = None) -> int:
                    help="decode and augment in N worker processes, every "
                         "image once an epoch (0: --num-workers threads)")
     args = p.parse_args(argv)
-    if args.tf_checkpoint:
-        p.error("--tf-checkpoint is not ported yet (ROADMAP.md, queue A, "
-                "A7)")
+    common.refuse_ignored_tf_checkpoint(p, args.tf_checkpoint)
 
     batch_size = args.batch_size or 48
     epochs = args.epochs or 10

@@ -10,15 +10,15 @@ trunk's BatchNorm still runs on batch statistics and updates its running
 ones, as in the JAX package. A validation batch every ``--eval-every``
 iterations goes to its own metric writer; snapshots are named by epoch
 (``ckpts/resnet50/ilsvrc_2017_cls/train_epoch_N``), one every 2 epochs,
-and a run resumes from the newest. Runs on ``cuda`` unless ``--device``
-names another device.
+and a run resumes from the newest. A fresh run starts from the slim
+resnet_v1_50 TF checkpoint of ``--tf-checkpoint``, else
+``weights/resnet_v1_50.ckpt[.index]`` where it exists, merged by name and
+shape (a ``logits`` of another class count keeps its fresh weights; read
+in numpy alone, ``compat.tf_import``). Runs on ``cuda`` unless
+``--device`` names another device.
 
     python -m tensorflow_yolo2_torch.entries.imagenet_train_resnet \\
         --iters 1000 --eval-every 100
-
-The JAX entry starts from the TF checkpoint ``resnet_v1_50.ckpt``
-(``--tf-checkpoint``, or under ``weights/`` when it exists); that import
-is not ported yet (A7), and either case is refused.
 """
 
 from __future__ import annotations
@@ -58,7 +58,8 @@ def main(argv: list[str] | None = None) -> int:
                    help="train the whole net, not just the logits scope")
     args = p.parse_args(argv)
     paths = Paths()
-    common.refuse_resnet_tf_import(p, args.tf_checkpoint, paths.weights)
+    common.require_tf_checkpoint(p, "--tf-checkpoint", args.tf_checkpoint)
+    trunk = common.resnet_tf_trunk(args.tf_checkpoint, paths.weights)
 
     batch_size = args.batch_size or 32
     epochs = args.epochs or 10
@@ -78,7 +79,8 @@ def main(argv: list[str] | None = None) -> int:
                             paths=paths)
     tb_train, tb_val = paths.tb_dirs(NET_NAME, train_imdb.name)
     state, last_epoch = common.bootstrap_state(
-        trainer, mgr, torch.Generator().manual_seed(args.seed))
+        trainer, mgr, torch.Generator().manual_seed(args.seed),
+        warm_start_tree=None if trunk is None else (trunk, None))
     train_imdb.epoch = last_epoch + 1
     total_batch = train_imdb.total_batch
     iters = args.iters or total_batch * (epochs - last_epoch)

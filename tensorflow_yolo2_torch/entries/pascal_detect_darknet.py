@@ -30,15 +30,22 @@ the native resize); the boxes are drawn onto it with PIL and matplotlib
 (``utils.visualize``, the JAX package's drawing).
 
 Weights come from a ``.npz`` written by ``convert.save_npz`` (a flax
-params / batch_stats pair); reading Orbax snapshots or TF checkpoints
-needs JAX or TensorFlow and is not part of this package. An anchor head
-decodes with the priors of an ``anchors.json`` beside the ``.npz``, else
-with the classic VOC priors.
+params / batch_stats pair) given with ``--weights``; else, as in the JAX
+package (``load_detector_params``), from the TF checkpoint given with
+``--tf-checkpoint``, else ``<weights>/darknet19_pascal.ckpt[.index]``
+(the plain v1 detector only), else the newest snapshot of this package's
+own training run (``ckpts/<net>/voc_2007``). TF checkpoints are read in
+numpy alone (``compat.tf_bundle``); Orbax snapshots of the JAX package
+need JAX and are not read here. An anchor head decodes with the priors
+of an ``anchors.json`` beside the ``.npz`` or in the snapshot's dir, else
+(and always for a TF checkpoint) with the classic VOC priors.
 
     python -m tensorflow_yolo2_torch.entries.pascal_detect_darknet \\
         image.jpg --weights darknet19.npz --image-size 448 --nms
     python -m tensorflow_yolo2_torch.entries.pascal_detect_darknet \\
         image.jpg --weights v2p.npz --image-size 416 --nms --v2 --passthrough
+    python -m tensorflow_yolo2_torch.entries.pascal_detect_darknet \\
+        image.jpg --tf-checkpoint weights/darknet19_pascal.ckpt --nms
     python -m tensorflow_yolo2_torch.entries.pascal_detect_darknet \\
         image.jpg --weights darknet19.npz --image-size 448 --int8 \\
         --int8-export darknet19_int8.npz --host-nms
@@ -52,13 +59,15 @@ from typing import Any, Mapping
 
 import torch
 
-from tensorflow_yolo2_torch.config import VOC_CLASSES, YoloConfig
+from tensorflow_yolo2_torch.compat.tf_bundle import checkpoint_present
+from tensorflow_yolo2_torch.config import VOC_CLASSES, Paths, YoloConfig
 from tensorflow_yolo2_torch.convert import load_npz, state_dict_from_flax
 from tensorflow_yolo2_torch.data.augment import image_read
 from tensorflow_yolo2_torch.data.anchors import (
     ANCHORS_FILE,
     v2_config_for_snapshot,
 )
+from tensorflow_yolo2_torch.entries.common import require_tf_checkpoint
 from tensorflow_yolo2_torch.models.darknet import (
     Darknet19Detector,
     Darknet19DetectorV2,
@@ -76,6 +85,10 @@ from tensorflow_yolo2_torch.ops.cuda_stem import (
     fused_detect_forward,
     pack_stem_weights,
 )
+from tensorflow_yolo2_torch.train.checkpoint import (
+    CheckpointManager,
+    read_snapshot,
+)
 from tensorflow_yolo2_torch.utils import native
 from tensorflow_yolo2_torch.utils.device import (
     device_normalize,
@@ -92,6 +105,41 @@ def as_state_dict(params_or_state_dict: Mapping[str, Any],
     if any(isinstance(v, Mapping) for v in params_or_state_dict.values()):
         return state_dict_from_flax(params_or_state_dict, batch_stats)
     return {k: torch.as_tensor(v) for k, v in params_or_state_dict.items()}
+
+
+def load_detector_params(yolo: YoloConfig, tf_checkpoint: str | None = None,
+                         paths: Paths | None = None,
+                         network_name: str = "darknet19",
+                         imdb_name: str = "voc_2007"
+                         ) -> dict[str, torch.Tensor]:
+    """The detector's state dict, from the first of (the JAX package's
+    order): the TF checkpoint ``tf_checkpoint``, where it exists;
+    ``<weights>/darknet19_pascal.ckpt``, only for the plain v1
+    ``darknet19`` network it was trained for (never for an anchor head or
+    a stride-downsample ``_sd`` network); the newest snapshot of
+    ``network_name`` on ``imdb_name`` (``FileNotFoundError`` when there is
+    none)."""
+    paths = paths or Paths()
+    tf_path = tf_checkpoint
+    if tf_path is None and not yolo.per_slot_classes \
+            and network_name == "darknet19":
+        tf_path = os.path.join(paths.weights, "darknet19_pascal.ckpt")
+    if checkpoint_present(tf_path):
+        from tensorflow_yolo2_torch.compat.tf_import import (
+            import_darknet19_checkpoint,
+            state_dict_for,
+        )
+        state_dict = state_dict_for(
+            import_darknet19_checkpoint(tf_path, detection=True))
+        print(f"Imported TF checkpoint {tf_path}")
+        return state_dict
+    snap_dir = os.path.join(paths.ckpts, network_name, imdb_name)
+    path = (CheckpointManager(network_name, imdb_name, paths=paths)
+            .latest_path() if os.path.isdir(snap_dir) else None)
+    if path is None:
+        raise FileNotFoundError(f"no snapshot under {snap_dir}")
+    print(f"Restored snapshot from {path}")
+    return read_snapshot(path)["model"]
 
 
 def build_detector(yolo: YoloConfig, state_dict: Mapping[str, torch.Tensor],
@@ -293,7 +341,9 @@ def main(argv: list[str] | None = None) -> int:
                    help="the image to detect on (default: assets/demo.jpg)")
     p.add_argument("--weights", default=None, metavar="NPZ",
                    help="params / batch_stats written by convert.save_npz "
-                        "(required unless --int8-weights)")
+                        "(default: --tf-checkpoint, else "
+                        "weights/darknet19_pascal.ckpt for v1, else the "
+                        "newest snapshot)")
     p.add_argument("--threshold", type=float, default=0.5)
     p.add_argument("--nms", action="store_true",
                    help="apply class-aware NMS (the reference has none)")
@@ -327,15 +377,14 @@ def main(argv: list[str] | None = None) -> int:
                    help="the first two conv + pool stages as one fused "
                         "CUDA kernel (bf16; not with --passthrough)")
     p.add_argument("--tf-checkpoint", default=None,
-                   help="not ported yet (ROADMAP.md, queue A, A7)")
+                   help="TF checkpoint prefix (V1 or V2) of the reference's "
+                        "detector to import instead of --weights")
     p.add_argument("--spatial", type=int, default=0, metavar="N",
                    help="not ported yet (ROADMAP.md, queue A, A8)")
     p.add_argument("--device", default=None,
                    help="torch device (default: cuda)")
     args = p.parse_args(argv)
     int8 = args.int8 or args.int8_weights
-    if args.tf_checkpoint:
-        p.error("--tf-checkpoint is not ported yet (ROADMAP.md, queue A, A7)")
     if args.spatial:
         p.error("--spatial is not ported yet (ROADMAP.md, queue A, A8)")
     if args.image_size % 32:
@@ -349,8 +398,13 @@ def main(argv: list[str] | None = None) -> int:
     if args.int8_weights and args.weights:
         p.error("--int8-weights serves the artifact's own weights; "
                 "--weights would be ignored")
-    if not (args.weights or args.int8_weights):
-        p.error("--weights NPZ is required (or --int8-weights NPZ)")
+    if args.int8_weights and args.tf_checkpoint:
+        p.error("--int8-weights serves the artifact's own weights; "
+                "--tf-checkpoint would be ignored")
+    if args.weights and args.tf_checkpoint:
+        p.error("--weights and --tf-checkpoint both name the weights; "
+                "pass one")
+    require_tf_checkpoint(p, "--tf-checkpoint", args.tf_checkpoint)
     if args.no_fold_bn and int8:
         p.error("int8 serving quantizes the BN-folded chain; drop "
                 "--no-fold-bn")
@@ -362,17 +416,38 @@ def main(argv: list[str] | None = None) -> int:
     if args.pallas_stem and int8:
         p.error("--pallas-stem covers the bf16 / float32 chain, not int8")
 
-    weights_dir = os.path.dirname(os.path.abspath(args.weights or
-                                                  args.int8_weights))
+    net_name = ("darknet19_v2p" if args.passthrough else "darknet19_v2"
+                if args.v2 else "darknet19")
+    net_name += "_sd" if args.downsample == "stride" else ""
+    paths = Paths()
+    anchors_dir = (os.path.dirname(os.path.abspath(args.weights or
+                                                   args.int8_weights))
+                   if args.weights or args.int8_weights else
+                   os.path.join(paths.ckpts, net_name, "voc_2007"))
     if args.v2:
-        yolo = v2_config_for_snapshot(weights_dir, args.image_size)
-        stored = os.path.join(weights_dir, ANCHORS_FILE)
-        print("anchors: " + (stored if os.path.isfile(stored) else
+        # an imported checkpoint decodes with the classic priors
+        external = args.tf_checkpoint is not None
+        yolo = v2_config_for_snapshot(anchors_dir, args.image_size,
+                                      external_weights=external)
+        stored = os.path.join(anchors_dir, ANCHORS_FILE)
+        print("anchors: " + (stored if os.path.isfile(stored)
+                             and not external else
                              f"the classic VOC priors (no {ANCHORS_FILE} "
-                             "beside the weights)"))
+                             "beside the weights, or a TF checkpoint)"))
     else:
         yolo = YoloConfig(S=args.image_size // 32,
                           image_size=args.image_size)
+    state_dict = None
+    if args.weights:
+        state_dict = as_state_dict(*load_npz(args.weights))
+    elif not args.int8_weights:
+        try:
+            state_dict = load_detector_params(yolo, args.tf_checkpoint,
+                                              paths, network_name=net_name)
+        except FileNotFoundError as e:
+            p.error(f"--weights NPZ is required where there is no TF "
+                    f"checkpoint and no snapshot of this package ({e}); "
+                    "or pass --tf-checkpoint or --int8-weights")
     image = image_read(args.image, yolo.image_size)  # BGR, [-1, 1]
     use_nms = args.nms and not args.host_nms
     kw = {"use_nms": use_nms, "v2": args.v2, "passthrough": args.passthrough,
@@ -386,11 +461,10 @@ def main(argv: list[str] | None = None) -> int:
                         f"{key}={meta[key]}, run requests {want}")
         detect = make_detect_fn_int8(yolo, qlayers, args.threshold, **kw)
     elif args.int8:
-        params, stats = load_npz(args.weights)
-        if not stats:
+        if not any(k.endswith(".running_var") for k in state_dict):
             p.error("--int8 needs BatchNorm statistics to fold before "
                     "quantizing; the weights have none")
-        qlayers = quantize_detector(params, stats, image[None], v2=args.v2,
+        qlayers = quantize_detector(state_dict, None, image[None], v2=args.v2,
                                     passthrough=args.passthrough,
                                     device=args.device)
         if args.int8_export:
@@ -401,8 +475,7 @@ def main(argv: list[str] | None = None) -> int:
             print(f"Exported int8 artifact to {args.int8_export}")
         detect = make_detect_fn_int8(yolo, qlayers, args.threshold, **kw)
     else:
-        params, stats = load_npz(args.weights)
-        detect = make_detect_fn(yolo, params, stats, args.threshold,
+        detect = make_detect_fn(yolo, state_dict, None, args.threshold,
                                 fold_bn=not args.no_fold_bn,
                                 pallas_stem=args.pallas_stem,
                                 downsample=args.downsample, **kw)

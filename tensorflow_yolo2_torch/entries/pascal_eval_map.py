@@ -6,21 +6,23 @@ at a low threshold, K=32) runs over a VOC split in batches; the
 detections and the split's label grids go to ``eval.VocMapEvaluator``,
 which prints each class's AP and the mAP. 224² as in the JAX package.
 
-Weights come from ``--weights NPZ`` (``convert.save_npz``), else from the
-newest snapshot of this package's own training run
-(``ckpts/<net>/voc_2007``: ``darknet19``, ``darknet19_v2`` with ``--v2``,
-``darknet19_v2p`` with ``--v2 --passthrough``). An anchor head decodes
-with the ``anchors.json`` of that directory (the one holding the
-``.npz``, or the run's), else with the classic VOC priors. Runs on
-``cuda`` unless ``--device`` names another device.
+Weights come from ``--weights NPZ`` (``convert.save_npz``), else as in
+the JAX package (``pascal_detect_darknet.load_detector_params``): from
+the TF checkpoint of ``--tf-checkpoint``, else
+``<weights>/darknet19_pascal.ckpt`` (v1 only), else the newest snapshot
+of this package's own training run (``ckpts/<net>/voc_2007``:
+``darknet19``, ``darknet19_v2`` with ``--v2``, ``darknet19_v2p`` with
+``--v2 --passthrough``). An anchor head decodes with the
+``anchors.json`` of that directory (the one holding the ``.npz``, or the
+run's), else (and always for ``--tf-checkpoint``) with the classic VOC
+priors. Runs on ``cuda`` unless ``--device`` names another device.
 
     python -m tensorflow_yolo2_torch.entries.pascal_eval_map --v2 --passthrough
 
 ``--int8`` evaluates the post-training-quantized int8 chain
 (``ops.quant``), calibrated on the first batch of ``--int8-calib-set``
 (``trainval`` by default: the evaluated split never calibrates the
-quantizer); not with ``--passthrough``, as in the JAX package. TF
-checkpoint import (``--tf-checkpoint``) is not ported yet and is refused.
+quantizer); not with ``--passthrough``, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -30,20 +32,17 @@ import os
 import numpy as np
 import torch
 
-from tensorflow_yolo2_torch.config import Paths, YoloConfig
+from tensorflow_yolo2_torch.config import Paths, YoloConfig, yolo_v2_config
 from tensorflow_yolo2_torch.convert import load_npz
 from tensorflow_yolo2_torch.data.anchors import v2_config_for_snapshot
 from tensorflow_yolo2_torch.data.voc import PascalVOC
 from tensorflow_yolo2_torch.entries import common
 from tensorflow_yolo2_torch.entries.pascal_detect_darknet import (
     as_state_dict,
+    load_detector_params,
     make_detect_fn,
 )
 from tensorflow_yolo2_torch.eval import VocMapEvaluator
-from tensorflow_yolo2_torch.train.checkpoint import (
-    CheckpointManager,
-    read_snapshot,
-)
 
 IMAGE_SIZE = 224
 
@@ -75,22 +74,25 @@ def run_eval(detect, imdb, yolo: YoloConfig, iou: float = 0.5,
     return evaluator.mean_ap()
 
 
-def load_weights(weights: str | None, net_name: str,
-                 paths: Paths) -> tuple[dict, str]:
+def load_weights(weights: str | None, net_name: str, paths: Paths,
+                 tf_checkpoint: str | None = None,
+                 v2: bool = False) -> tuple[dict, str | None]:
     """(state dict, the directory its anchors.json would be in): from the
-    ``.npz`` when given, else the newest snapshot of ``net_name`` on
-    voc_2007."""
+    ``.npz`` when given, else ``load_detector_params``'s order for
+    ``net_name`` on voc_2007."""
     if weights:
         params, stats = load_npz(weights)
         return (as_state_dict(params, stats),
                 os.path.dirname(os.path.abspath(weights)))
-    mgr = CheckpointManager(net_name, "voc_2007", paths=paths)
-    path = mgr.latest_path()
-    if path is None:
-        raise FileNotFoundError(f"no snapshot under {mgr.dir}; train one "
-                                "or pass --weights NPZ")
-    print(f"Restored snapshot from {path}")
-    return read_snapshot(path)["model"], mgr.dir
+    yolo = (yolo_v2_config(IMAGE_SIZE) if v2
+            else YoloConfig(S=IMAGE_SIZE // 32, image_size=IMAGE_SIZE))
+    try:
+        state_dict = load_detector_params(yolo, tf_checkpoint, paths,
+                                          network_name=net_name)
+    except FileNotFoundError as e:
+        raise FileNotFoundError(f"{e}; train one or pass --weights NPZ "
+                                "or --tf-checkpoint") from None
+    return state_dict, os.path.join(paths.ckpts, net_name, "voc_2007")
 
 
 def main(argv: list[str] | None = None) -> int:
@@ -120,9 +122,10 @@ def main(argv: list[str] | None = None) -> int:
                         "the evaluated data never calibrates the "
                         "quantizer)")
     args = p.parse_args(argv)
-    if args.tf_checkpoint:
-        p.error("--tf-checkpoint is not ported yet (ROADMAP.md, queue A, "
-                "A7)")
+    if args.weights and args.tf_checkpoint:
+        p.error("--weights and --tf-checkpoint both name the weights; "
+                "pass one")
+    common.require_tf_checkpoint(p, "--tf-checkpoint", args.tf_checkpoint)
     if args.passthrough and not args.v2:
         p.error("--passthrough is the YOLOv2 reorg head; it requires --v2")
     if args.passthrough and args.int8:
@@ -137,9 +140,12 @@ def main(argv: list[str] | None = None) -> int:
         net_name = "darknet19_v2p" if args.passthrough else "darknet19_v2"
     else:
         net_name = "darknet19"
-    state_dict, anchors_dir = load_weights(args.weights, net_name, paths)
+    state_dict, anchors_dir = load_weights(args.weights, net_name, paths,
+                                           args.tf_checkpoint, args.v2)
     # an anchor head decodes with the priors it was trained against
-    yolo = (v2_config_for_snapshot(anchors_dir, IMAGE_SIZE) if args.v2
+    yolo = (v2_config_for_snapshot(
+        anchors_dir, IMAGE_SIZE,
+        external_weights=args.tf_checkpoint is not None) if args.v2
             else YoloConfig(S=IMAGE_SIZE // 32, image_size=IMAGE_SIZE))
     imdb = PascalVOC(args.image_set, batch_size=batch_size, yolo=yolo,
                      data_path=args.data_path, paths=paths,

@@ -23,8 +23,11 @@ device.
     python -m tensorflow_yolo2_torch.entries.pascal_train_darknet \\
         --v2 --passthrough --anchors kmeans --iters 1000
 
-Spatial sharding (``--spatial``) and TF checkpoint import
-(``--tf-checkpoint``) are not ported yet and are refused.
+``--tf-checkpoint`` starts from the reference's detector checkpoint (TF
+V1 or V2, read in numpy alone: ``compat.tf_import``) in place of fresh
+weights; the classifier's snapshot, where there is one, still warm-starts
+the trunk over it, as in the JAX package. Spatial sharding
+(``--spatial``) is not ported yet and is refused.
 """
 
 from __future__ import annotations
@@ -61,7 +64,7 @@ from tensorflow_yolo2_torch.train.trainer import Trainer, yolo_task
 
 # flags of the JAX entry point that the port does not have yet, with the
 # value that means "not given" and the queue item that owns them
-_NOT_PORTED = {"spatial": (0, "A8"), "tf_checkpoint": (None, "A7")}
+_NOT_PORTED = {"spatial": (0, "A8")}
 MULTISCALE_HOP = 10  # batches between two multiscale size draws
 
 
@@ -137,6 +140,10 @@ def main(argv: list[str] | None = None) -> int:
         p.error("; ".join(f"--{n.replace('_', '-')} is not ported yet "
                           f"(ROADMAP.md, queue A, {item})"
                           for n, item in given))
+    common.require_tf_checkpoint(p, "--tf-checkpoint", args.tf_checkpoint)
+    if args.tf_checkpoint and (args.v2 or args.downsample != "pool"):
+        p.error("--tf-checkpoint imports the reference's v1 detector "
+                "(pool downsample); not with --v2 or --downsample stride")
     if args.multiscale and not args.v2:
         p.error("--multiscale requires --v2 (the anchor loss is "
                 "grid-size polymorphic; the v1 grid loss is fixed S=7)")
@@ -233,9 +240,17 @@ def main(argv: list[str] | None = None) -> int:
     # warm start from the newest ImageNet classifier snapshot, if any
     warm = CheckpointManager("darknet19", "ilsvrc_2017_cls",
                              save_by_epoch=True, paths=paths).latest_path()
+    imported = None
+    if args.tf_checkpoint:
+        from tensorflow_yolo2_torch.compat.tf_import import (
+            import_darknet19_checkpoint,
+            state_dict_for,
+        )
+        imported = state_dict_for(import_darknet19_checkpoint(
+            args.tf_checkpoint, detection=True))
     state, start = common.bootstrap_state(
         trainer, mgr, torch.Generator().manual_seed(args.seed),
-        warm_start_dir=warm)
+        warm_start_dir=warm, state_dict=imported)
     try:
         common.run_train_loop(
             trainer, state, get_batch, mgr, writer, start_iter=start,

@@ -8,16 +8,16 @@ C=20) with the YOLO grid loss (``yolo_task``, with histograms), Adam at
 5e-4, batch 4, 200 000 added iterations, a snapshot every 40 000
 (``ckpts/resnet50/<imdb>/train_iter_N``); a run resumes from its newest
 snapshot, else starts from fresh weights (flax's initializers, from
-``--seed``). bf16 compute with float32 parameters; the dropout masks come
-from the train state's generator. Runs on ``cuda`` unless ``--device``
-names another device.
+``--seed``) with the trunk warm-started, by name and shape, from the slim
+resnet_v1_50 TF checkpoint of ``--tf-checkpoint``, else
+``weights/resnet_v1_50.ckpt[.index]`` where it exists (``yolo_fc1`` and
+``yolo_fc2`` keep their fresh weights; the checkpoint is read in numpy
+alone, ``compat.tf_import``). bf16 compute with float32 parameters; the
+dropout masks come from the train state's generator. Runs on ``cuda``
+unless ``--device`` names another device.
 
     python -m tensorflow_yolo2_torch.entries.pascal_train_resnet \\
         --iters 1000 --save-every 500
-
-The JAX entry warm-starts the trunk from a TF checkpoint
-(``--tf-checkpoint``, or ``weights/resnet_v1_50.ckpt`` when it exists);
-that import is not ported yet (A7), and either case is refused.
 """
 
 from __future__ import annotations
@@ -39,6 +39,7 @@ from tensorflow_yolo2_torch.train.metrics import MetricsWriter
 from tensorflow_yolo2_torch.train.trainer import Trainer, yolo_task
 
 NET_NAME = "resnet50"
+HEAD_SCOPES = ("yolo_fc1", "yolo_fc2")  # never taken from the TF trunk
 
 
 def main(argv: list[str] | None = None) -> int:
@@ -46,7 +47,9 @@ def main(argv: list[str] | None = None) -> int:
     p.add_argument("--image-set", default="trainval")
     args = p.parse_args(argv)
     paths = Paths()
-    common.refuse_resnet_tf_import(p, args.tf_checkpoint, paths.weights)
+    common.require_tf_checkpoint(p, "--tf-checkpoint", args.tf_checkpoint)
+    trunk = common.resnet_tf_trunk(args.tf_checkpoint, paths.weights,
+                                   prefix="backbone")
 
     batch_size = args.batch_size or 4
     iters = args.iters or 200_000
@@ -68,7 +71,9 @@ def main(argv: list[str] | None = None) -> int:
     mgr = CheckpointManager(NET_NAME, imdb.name, paths=paths, yolo=yolo)
     writer = MetricsWriter(paths.tb_dirs(NET_NAME, imdb.name, val=False)[0])
     state, start = common.bootstrap_state(
-        trainer, mgr, torch.Generator().manual_seed(args.seed))
+        trainer, mgr, torch.Generator().manual_seed(args.seed),
+        warm_start_tree=None if trunk is None else (trunk, None),
+        warm_start_exclude=HEAD_SCOPES)
     try:
         common.run_train_loop(
             trainer, state, imdb.get, mgr, writer, start_iter=start,

@@ -19,9 +19,13 @@ on flowers, rmsprop, an exponential schedule from 0.01, weight decay
 (``data.preprocessing``) in place of the dataset's own convention;
 ``--aux-loss`` trains the auxiliary head(s) of inception v1, v3 and v4
 at 0.4 of the loss, and keeps the JAX package's error for a net without
-one. Refused until they are ported: ``--checkpoint-path`` to a TF
-checkpoint (A7), ``--num-clones`` or ``--model-parallel`` above 1 (A8).
-Runs on ``cuda`` unless ``--device`` names another device.
+one. ``--checkpoint-path`` may also name a TF checkpoint prefix (V1 or
+V2; anything that is not a directory), imported for ``--model-name``
+(``compat.tf_import.import_checkpoint_for``, read in numpy alone) and
+merged by name and shape as slim's ``_get_init_fn`` does. Refused:
+``--num-clones`` or ``--model-parallel`` above 1 (not ported yet, A8) and
+``--tf-checkpoint``, which the JAX entry ignores. Runs on ``cuda`` unless
+``--device`` names another device.
 
     python -m tensorflow_yolo2_torch.entries.train_classifier \\
         --model-name vgg_16 --dataset-name flowers --optimizer momentum \\
@@ -67,8 +71,8 @@ def add_slim_flags(p) -> None:
     p.add_argument("--trainable-scopes", default=None,
                    help="comma-separated scope prefixes to train")
     p.add_argument("--checkpoint-path", default=None,
-                   help="warm-start snapshot dir (a TF checkpoint is not "
-                        "ported yet)")
+                   help="warm-start snapshot dir, or a TF checkpoint prefix "
+                        "of --model-name")
     p.add_argument("--checkpoint-exclude-scopes", default=None)
     p.add_argument("--clip-gradient-norm", type=float, default=None)
     p.add_argument("--num-clones", type=int, default=None,
@@ -107,9 +111,22 @@ def refuse_unported(p, args) -> None:
             getattr(args, "model_parallel", 1) > 1:
         p.error("--num-clones / --model-parallel above 1: parallelism is "
                 "not ported yet (ROADMAP.md, queue A, A8)")
-    if args.tf_checkpoint:
-        p.error("--tf-checkpoint is not ported yet (ROADMAP.md, queue A, "
-                "A7)")
+
+
+def import_tf_for(p, model_name: str, path: str):
+    """A TF checkpoint of ``model_name`` as flax-shaped (params,
+    batch_stats) trees; the parser's error where no importer takes the
+    net."""
+    from tensorflow_yolo2_torch.compat.tf_import import (
+        _IMPORTERS,
+        import_checkpoint_for,
+    )
+    if model_name not in _IMPORTERS:
+        p.error(f"no TF importer for {model_name!r}; have "
+                f"{sorted(_IMPORTERS)}")
+    trees = import_checkpoint_for(model_name, path)
+    print(f"Imported TF checkpoint {path}")
+    return trees
 
 
 def offset_labels(get_batch, offset: int):
@@ -159,10 +176,7 @@ def main(argv: list[str] | None = None) -> int:
     add_slim_flags(p)
     args = p.parse_args(argv)
     refuse_unported(p, args)
-    if args.checkpoint_path and not os.path.isdir(args.checkpoint_path):
-        p.error(f"--checkpoint-path {args.checkpoint_path} is not a "
-                "snapshot dir; TF checkpoint import is not ported yet "
-                "(ROADMAP.md, queue A, A7)")
+    common.refuse_ignored_tf_checkpoint(p, args.tf_checkpoint)
 
     batch_size = args.batch_size or 32
     iters = args.iters or 1000
@@ -202,9 +216,16 @@ def main(argv: list[str] | None = None) -> int:
     mgr = CheckpointManager(args.model_name, imdb.name, paths=paths)
     writer = MetricsWriter(
         paths.tb_dirs(args.model_name, imdb.name, val=False)[0])
+    # a TF checkpoint is a file prefix (path or path.index), a snapshot
+    # of this package a directory
+    warm_dir, warm_tree = args.checkpoint_path, None
+    if warm_dir and not os.path.isdir(warm_dir):
+        common.require_tf_checkpoint(p, "--checkpoint-path", warm_dir)
+        warm_tree = import_tf_for(p, args.model_name, warm_dir)
+        warm_dir = None
     state, start = common.bootstrap_state(
         trainer, mgr, torch.Generator().manual_seed(args.seed),
-        warm_start_dir=args.checkpoint_path,
+        warm_start_dir=warm_dir, warm_start_tree=warm_tree,
         warm_start_exclude=_scopes(args.checkpoint_exclude_scopes))
     try:
         common.run_train_loop(

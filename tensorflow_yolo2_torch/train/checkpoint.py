@@ -70,6 +70,20 @@ def load_into(model: torch.nn.Module,
             own[key].copy_(value)
 
 
+def merge_into_model(model: torch.nn.Module,
+                     state_dict: Mapping[str, Any]) -> tuple[int, int]:
+    """``state_dict``'s entries merged into ``model`` by name and shape, in
+    place: (parameters replaced, BatchNorm statistics replaced)."""
+    own = model.state_dict()
+    params = {k: own[k] for k, _ in model.named_parameters()}
+    stats = {k: v for k, v in own.items()
+             if k.endswith(("running_mean", "running_var"))}
+    merged_p, n_p = merge_pytrees(params, state_dict)
+    merged_s, n_s = merge_pytrees(stats, state_dict)
+    load_into(model, {**merged_p, **merged_s})
+    return n_p, n_s
+
+
 def optimizer_slots(opt_state: Any) -> dict[str, dict[str, torch.Tensor]]:
     """The per-parameter tensors of an optimizer state by name (Adam's
     ``mu`` and ``nu``, momentum's ``trace``, ..., and ``acc_grads`` under

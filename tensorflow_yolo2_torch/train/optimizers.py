@@ -58,7 +58,8 @@ set_to_zero()})`` over its ``trainable_mask``: the optimizer's slots
 hold the trained parameters only, an update touches no other, and the
 global-norm clip and the weight decay, inside the trained branch, see
 the trained gradients only. Per-scope optimizer groups
-(``make_grouped_optimizer``) are not ported yet.
+(``make_grouped_optimizer``) are optax's ``multi_transform`` of one
+optimizer per group, with a frozen remainder when no default is given.
 """
 
 from __future__ import annotations
@@ -483,11 +484,68 @@ def make_optimizer(cfg: OptimizerConfig) -> Optimizer | MultiSteps:
     return opt
 
 
-def make_grouped_optimizer(groups, params, default=None):
-    """Per-scope optimizer groups (the adversarial trainer's): not ported
-    yet."""
-    raise NotImplementedError("make_grouped_optimizer is not ported yet "
-                              "(ROADMAP.md, queue A, A6 slice 3)")
+class GroupedOptimizer:
+    """The JAX package's ``make_grouped_optimizer``: per-scope optimizer
+    groups, as optax's ``multi_transform``. Each trained parameter
+    belongs to one group, the first whose scopes take it, or to the
+    ``default`` group; without ``default`` the rest is frozen (no slot,
+    never updated). Each group runs its own optimizer on its own
+    parameters (its clip and weight decay see its gradients only); all
+    groups step together, so one count serves them all. The state's
+    slots are named ``group<i>/<slot>`` (``rest/<slot>`` for the
+    default)."""
+
+    def __init__(self, groups: list[tuple[str, Optimizer | MultiSteps,
+                                          list[str]]]):
+        self.groups = groups  # (label, optimizer, parameter names)
+
+    def init(self, params: Mapping[str, torch.Tensor]) -> OptState:
+        names, slots = [], {}
+        for label, opt, keys in self.groups:
+            sub = opt.init({k: params[k] for k in keys})
+            names += sub.names
+            slots.update({f"{label}/{s}": v for s, v in sub.slots.items()})
+        return OptState(0, names, slots)
+
+    @staticmethod
+    def _sub(state: OptState, label: str, keys: list[str]) -> OptState:
+        prefix = f"{label}/"
+        return OptState(state.count, keys,
+                        {s[len(prefix):]: v for s, v in state.slots.items()
+                         if s.startswith(prefix)})
+
+    @torch.no_grad()
+    def update_(self, grads: Mapping[str, torch.Tensor], state: OptState,
+                params: Mapping[str, torch.Tensor],
+                grad_norm: torch.Tensor | None = None) -> OptState:
+        """One step of every group (``grad_norm``, of all the trained
+        gradients, is not any group's: unused)."""
+        for label, opt, keys in self.groups:
+            if keys:
+                opt.update_(grads, self._sub(state, label, keys), params)
+        state.count += 1
+        return state
+
+
+def make_grouped_optimizer(
+        groups: list[tuple[tuple[str, ...], OptimizerConfig]],
+        params: Mapping[str, torch.Tensor],
+        default: OptimizerConfig | None = None) -> GroupedOptimizer:
+    """Per-scope optimizer groups (the JAX package's
+    ``make_grouped_optimizer``): ``groups`` lists (scopes, config); a
+    parameter joins the first group one of whose scopes takes it (the
+    flax path's ``/`` or the port's ``.``, matched per path component);
+    the rest uses ``default`` when given, else stays frozen."""
+    taken: set[str] = set()
+    built = []
+    for i, (scopes, cfg) in enumerate(groups):
+        keys = [k for k in trainable_names(params, scopes) if k not in taken]
+        taken.update(keys)
+        built.append((f"group{i}", make_optimizer(cfg), keys))
+    if default is not None:
+        built.append(("rest", make_optimizer(default),
+                      [k for k in params if k not in taken]))
+    return GroupedOptimizer(built)
 
 
 def make_ema(decay: float) -> Callable[[Tensors, Tensors], None]:

@@ -86,7 +86,6 @@ from tensorflow_yolo2_torch.train.optimizers import (
     global_norm,
     make_ema,
     make_optimizer,
-    trainable_names,
 )
 from tensorflow_yolo2_torch.utils.device import (
     device_normalize,
@@ -218,7 +217,11 @@ class Trainer:
     burn-in it drives) gets the step count before the update in a train
     step and None in an eval step, as in the JAX package. ``remat``,
     ``activation_summaries`` and ``eval_with_ema`` are the JAX
-    trainer's options (module docstring).
+    trainer's options (module docstring). ``tx_factory(params)``, given
+    the parameters by name, builds the optimizer in place of ``opt_cfg``'s
+    (``train.optimizers.make_grouped_optimizer``), on ``create_state``
+    and on every ``resume_optimizer``; the parameters its state does not
+    train are frozen.
     """
 
     def __init__(self, model: nn.Module, task: Callable,
@@ -226,7 +229,8 @@ class Trainer:
                  device: str | torch.device | None = None,
                  compute_dtype: torch.dtype = torch.bfloat16,
                  remat: bool = False, activation_summaries: bool = False,
-                 eval_with_ema: bool = True):
+                 eval_with_ema: bool = True,
+                 tx_factory: Callable[[dict], Any] | None = None):
         if compute_dtype not in (torch.bfloat16, torch.float32):
             raise ValueError(f"compute_dtype must be bfloat16 or float32, "
                              f"got {compute_dtype}")
@@ -234,6 +238,7 @@ class Trainer:
         self.task = task
         self._task_takes_step = _takes_step(task)
         self.opt_cfg = opt_cfg
+        self._tx_factory = tx_factory
         self.optimizer = make_optimizer(opt_cfg)
         self._ema = (make_ema(opt_cfg.moving_average_decay)
                      if opt_cfg.moving_average_decay else None)
@@ -262,17 +267,25 @@ class Trainer:
             self.model.load_state_dict(state_dict)
         self.model.to(self.device, memory_format=torch.channels_last)
         params = dict(self.model.named_parameters())
-        scopes = self.opt_cfg.trainable_scopes
-        trained = set(trainable_names(params, scopes))
+        opt_state = self._init_optimizer(params)
+        trained = set(opt_state.names)
         if not trained:
-            raise ValueError(f"trainable_scopes {scopes} take no parameter "
-                             "of the model")
+            scopes = self.opt_cfg.trainable_scopes
+            raise ValueError(f"trainable_scopes {scopes} (or the optimizer "
+                             "groups) take no parameter of the model")
         for name, p in params.items():
             p.requires_grad_(name in trained)
         seed = int(torch.randint(2**62, (), generator=generator))
         rng = torch.Generator(self.device).manual_seed(seed)
-        state = TrainState(0, self.model, self.optimizer.init(params), rng)
+        state = TrainState(0, self.model, opt_state, rng)
         return self.restart_ema(state)
+
+    def _init_optimizer(self, params: dict) -> OptState:
+        """A fresh optimizer state for ``params``, the optimizer rebuilt
+        from them first where a ``tx_factory`` is given."""
+        if self._tx_factory is not None:
+            self.optimizer = self._tx_factory(params)
+        return self.optimizer.init(params)
 
     def restart_ema(self, state: TrainState) -> TrainState:
         """The EMA restarted from the state's parameters (distinct
@@ -285,7 +298,7 @@ class Trainer:
     def resume_optimizer(self, state: TrainState) -> TrainState:
         """The optimizer swap of a resume: a fresh optimizer state for the
         current parameters."""
-        state.opt_state = self.optimizer.init(state.params)
+        state.opt_state = self._init_optimizer(state.params)
         return state
 
     # -- steps ----------------------------------------------------------------

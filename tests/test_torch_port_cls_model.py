@@ -321,12 +321,18 @@ def test_momentum_matches_optax(clip, kind):
 @pytest.mark.parametrize("name", ["sgd", "rmsprop", "adagrad"])
 def test_other_optimizers_are_refused_naming_a6(name):
     """These optimizers are ported now (held to optax in
-    ``tests/test_torch_port_slim_optim.py``); the per-scope optimizer
-    groups stay refused, naming A6."""
+    ``tests/test_torch_port_slim_optim.py``), and so are the per-scope
+    optimizer groups (held to optax in
+    ``tests/test_torch_port_adversarial.py``): a group of this optimizer
+    builds it, and takes every parameter of its scope."""
     assert isinstance(pt_opt.make_optimizer(OptimizerConfig(name=name)),
                       pt_opt.OPTIMIZERS[name])
-    with pytest.raises(NotImplementedError, match="A6"):
-        pt_opt.make_grouped_optimizer([], {})
+    params = {"a.w": torch.zeros(2), "b.w": torch.zeros(3)}
+    grouped = pt_opt.make_grouped_optimizer(
+        [(("a",), OptimizerConfig(name=name))], params)
+    (label, opt, keys), = grouped.groups
+    assert isinstance(opt, pt_opt.OPTIMIZERS[name]) and keys == ["a.w"]
+    assert grouped.init(params).names == ["a.w"]
 
 
 # -- one float64 train step ---------------------------------------------------

@@ -38,7 +38,14 @@ within ZOO_BF16_REL_TOL, the auxiliary logits too; the identity fold of
 inception_v3 at 299² within chip_smoke.FOLD_REL_TOL of the unfolded
 logits; ``train_classifier`` on prepared shards, MNIST and the flowers
 tree (darknet19 with B5 5 times a step, inception_v3 with ``--aux-loss``)
-and ``eval_classifier`` with ``--preprocessing-name``.
+and ``eval_classifier`` with ``--preprocessing-name``. TF checkpoint
+import and adversarial training (``-k "tf_import or adversarial"``): a
+written V2 bundle imported bit for bit, serving through B1 as its state
+dict does; the detect, ResNet train and ``verify_released_ckpts`` CLIs
+on TF checkpoints; B5 15 times a Darknet19 adversarial pair; a float32
+pair (TF32 off) against float64 on the CPU (losses 1e-4, the FGSM
+images where the float64 input gradient exceeds 1e-2 of its largest
+value); the adversarial CLI with ``--device cuda``.
 """
 
 import ctypes
@@ -983,9 +990,10 @@ def test_importing_the_entries_initialises_no_cuda(card):
     code = ("import torch\n"
             "from tensorflow_yolo2_torch.entries import (\n"
             "    imagenet_predict_darknet, imagenet_test_darknet,\n"
-            "    imagenet_train_darknet, imagenet_train_resnet,\n"
-            "    pascal_detect_resnet, pascal_train_darknet,\n"
-            "    pascal_train_resnet)\n"
+            "    imagenet_train_adversarial, imagenet_train_darknet,\n"
+            "    imagenet_train_resnet, pascal_detect_resnet,\n"
+            "    pascal_train_darknet, pascal_train_resnet,\n"
+            "    verify_released_ckpts)\n"
             "assert not torch.cuda.is_initialized()\n")
     import os
 
@@ -1212,3 +1220,148 @@ def test_data_tier_clis_on_the_card(card):
     assert out["darknet19_launches"] == 5 * chip_smoke.SLIM_CLI_ITERS
     assert out["inception_v3_launches"] == 0
 
+
+
+# -- TF checkpoint import and adversarial training ----------------------------
+
+
+def test_tf_import_reader_and_importers_on_the_card(card, tmp_path):
+    """The 448² v1 detector written as a TF V2 bundle in the reference's
+    names (``chip_smoke.write_tf_bundle``) and a ResNet-50 trunk in
+    slim's: the port's import equals the written arrays bit for bit,
+    loads strictly, and the imported detector serves through B1 on the
+    card exactly as the state dict it came from."""
+    from tensorflow_yolo2_torch.compat.tf_import import (
+        import_darknet19_checkpoint,
+        import_resnet50_checkpoint,
+        state_dict_for,
+    )
+    from tensorflow_yolo2_torch.models.resnet import ResNet50V1
+
+    yolo, state = chip_smoke.v1_detector()
+    prefix = str(tmp_path / "darknet19_pascal.ckpt")
+    chip_smoke.write_tf_bundle(prefix, chip_smoke.tf_darknet19_names(state))
+    imported = state_dict_for(import_darknet19_checkpoint(prefix))
+    assert set(imported) == set(state)
+    assert all(torch.equal(imported[k], v) for k, v in state.items()
+               if not k.endswith("num_batches_tracked"))
+    images = torch.from_numpy(np.random.RandomState(9).randint(
+        0, 256, (4, 448, 448, 3)).astype(np.uint8)).to(card)
+    got, want = (make_detect_fn(yolo, sd, 0.2, use_nms=True)(images)
+                 for sd in (imported, state))
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    trunk = chip_smoke.random_weights_(
+        ResNet50V1(), torch.Generator().manual_seed(2)).state_dict()
+    rprefix = str(tmp_path / "resnet_v1_50.ckpt")
+    chip_smoke.write_tf_bundle(rprefix,
+                               chip_smoke.tf_resnet50_trunk_names(trunk))
+    model = ResNet50V1().to(card)
+    model.load_state_dict(state_dict_for(import_resnet50_checkpoint(
+        rprefix)), strict=True)
+    assert all(torch.equal(model.state_dict()[k].cpu(), v)
+               for k, v in trunk.items())
+
+
+def test_tf_import_clis_on_the_card(card):
+    """``pascal_detect_darknet --tf-checkpoint --nms --device cuda`` at
+    448² (B1 once, the boxes of the state dict) and
+    ``pascal_train_resnet --tf-checkpoint`` (``chip_smoke.check_tf_import``)."""
+    out = chip_smoke.check_tf_import(card)
+    assert out["detect_launches"] == 1
+    assert out["resnet_trunk_max_move"] <= chip_smoke.TF_RESNET_MOVE
+
+
+def test_verify_released_ckpts_tf_import_on_the_card(card, tmp_path,
+                                                     monkeypatch):
+    """``verify_released_ckpts --device cuda``: no bundle, all skipped;
+    a generated darknet19-Pascal bundle at 224² passes its own golden
+    check through B1."""
+    from tensorflow_yolo2_torch.entries import verify_released_ckpts
+
+    monkeypatch.setenv("TFY2_ROOT", str(tmp_path))
+    demo = ["--images", chip_smoke.DEMO, "--device", "cuda"]
+    assert verify_released_ckpts.main(demo) == 0
+    assert verify_released_ckpts.RESULT["ran"] == []
+    _, state = chip_smoke.v1_detector()
+    (tmp_path / "weights").mkdir()
+    chip_smoke.write_tf_bundle(str(tmp_path / "weights" /
+                                   "darknet19_pascal.ckpt"),
+                               chip_smoke.tf_darknet19_names(state))
+    golden = str(tmp_path / "golden.json")
+    cuda_decode.reset_launch_counts()
+    assert verify_released_ckpts.main(demo + ["--golden-out", golden]) == 0
+    assert verify_released_ckpts.RESULT["ran"] == ["darknet19_pascal"]
+    assert cuda_decode.DECODE_NMS_LAUNCHES == 1
+    assert verify_released_ckpts.main(demo + ["--golden-check",
+                                              golden]) == 0
+    assert verify_released_ckpts.RESULT["golden_ok"] is True
+
+
+def _adversarial_darknet(card, pairs: int):
+    """The white-box Darknet19 classifier at 224², batch 18, bf16, after
+    ``pairs`` adversarial pairs on one seeded batch."""
+    from tensorflow_yolo2_torch.train.adversarial import (
+        adversarial_train_step_pair,
+    )
+
+    images, labels = (torch.from_numpy(a).to(card) for a in
+                      chip_smoke.cls_batch(np.random.RandomState(3), 18))
+    images = images.float() / 255.0 * 2.0 - 1.0
+    trainer, state = chip_smoke.adversarial_trainer(
+        "darknet19", 224, torch.bfloat16, card)
+    for _ in range(pairs):
+        state, clean, adv = adversarial_train_step_pair(
+            trainer, state, images, labels, chip_smoke.ADV_EPSILON)
+    return trainer, state, images, labels
+
+
+def test_adversarial_pair_runs_b5_fifteen_times(card):
+    """B5 in the clean step (5), in the FGSM input gradient (5) and in the
+    adversarial step (5) of a Darknet19 pair."""
+    from tensorflow_yolo2_torch.train.adversarial import (
+        adversarial_train_step_pair,
+    )
+
+    trainer, state, images, labels = _adversarial_darknet(card, 1)
+    cuda_pool.reset_launch_counts()
+    _, clean, adv = adversarial_train_step_pair(
+        trainer, state, images, labels, chip_smoke.ADV_EPSILON)
+    torch.cuda.synchronize()
+    assert cuda_pool.MAX_POOL2_BWD_LAUNCHES == 15
+    assert math.isfinite(clean["loss"].item())
+    assert math.isfinite(adv["loss"].item())
+
+
+def test_adversarial_pair_matches_float64(card, no_tf32):
+    """One float32 pair on the card against float64 on the CPU from
+    weights trained 3 pairs (``chip_smoke.check_pair_against_float64``:
+    the clean and adversarial steps' losses to 1e-4, the FGSM images
+    where |g64| > 1e-2 max|g64|)."""
+    _, state, images, labels = _adversarial_darknet(card, 3)
+    trained = {k: v.detach().cpu() for k, v in
+               state.model.state_dict().items()}
+    out = chip_smoke.check_pair_against_float64(
+        trained, images[:4], labels[:4], card)
+    assert out["flips_firm"] == 0
+    assert out["adv_loss_rel_err"] <= chip_smoke.LOSS_REL_TOL
+
+
+def test_adversarial_cli_on_the_card(card, tmp_path, monkeypatch):
+    """``imagenet_train_adversarial --device cuda``, darknet19 at 224²,
+    white-box, 2 iterations at batch 8 with a validation batch at 2: B5
+    15 times a pair and 5 times the validation attack."""
+    from tensorflow_yolo2_torch.entries import imagenet_train_adversarial
+
+    monkeypatch.setenv("TFY2_ROOT", str(tmp_path))
+    chip_smoke.write_ilsvrc_tree(str(tmp_path / "data" / "ILSVRC"),
+                                 np.random.RandomState(6))
+    cuda_pool.reset_launch_counts()
+    assert imagenet_train_adversarial.main(
+        ["--backbone", "darknet19", "--image-size", "224", "--iters", "2",
+         "--batch-size", "8", "--eval-every", "2", "--num-workers", "2",
+         "--device", "cuda"]) == 0
+    torch.cuda.synchronize()
+    assert cuda_pool.MAX_POOL2_BWD_LAUNCHES == 2 * 15 + 5
+    assert (tmp_path / "ckpts" / "darknet19_adv" / "ilsvrc_2017_cls" /
+            "train_iter_2").is_dir()

@@ -208,7 +208,8 @@ def test_eval_cli_without_a_snapshot_names_the_dir(tmp_root):
 
 @pytest.mark.parametrize("argv,match", [
     (["--int8", "--v2", "--passthrough"], "passthrough head's concat"),
-    (["--tf-checkpoint", "x.ckpt"], "--tf-checkpoint is not ported yet .*A7"),
+    (["--tf-checkpoint", "x.ckpt"], "--tf-checkpoint x.ckpt: no TF "
+                                    "checkpoint there"),
     (["--passthrough"], "requires --v2"),
 ])
 def test_eval_cli_refuses(tmp_root, capsys, argv, match):

@@ -163,7 +163,7 @@ def test_cli_int8_export_then_int8_weights(cli_files, monkeypatch, capsys):
     (["--weights", "w.npz", "--int8", "--downsample", "stride"],
      "stride variant"),
     (["--int8-weights", "a.npz", "--pallas-stem"], "not int8"),
-    (["--weights", "w.npz", "--tf-checkpoint", "x"], "A7"),
+    (["--weights", "w.npz", "--tf-checkpoint", "x"], "both name the weights"),
     (["--weights", "w.npz", "--spatial", "2"], "A8"),
 ])
 def test_cli_refuses(argv, match, capsys):

@@ -256,7 +256,8 @@ def test_randomize_is_seeded():
 
 
 def test_port_imports_no_jax():
-    """Every module of the port (and chip_smoke.py) imports without JAX."""
+    """Every module of the port (and chip_smoke.py) imports without JAX
+    and without TensorFlow (the port reads TF checkpoints in numpy)."""
     code = (
         "import importlib, pkgutil, sys\n"
         "import tensorflow_yolo2_torch as pkg\n"
@@ -264,7 +265,8 @@ def test_port_imports_no_jax():
         "    importlib.import_module(m.name)\n"
         "import chip_smoke\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in\n"
-        "       ('jax', 'jaxlib', 'flax', 'orbax', 'tensorflow_yolo2_tpu')]\n"
+        "       ('jax', 'jaxlib', 'flax', 'orbax', 'tensorflow_yolo2_tpu',\n"
+        "        'tensorflow')]\n"
         "assert not bad, bad\n"
         "print(len([m for m in sys.modules\n"
         "           if m.startswith('tensorflow_yolo2_torch')]))\n")

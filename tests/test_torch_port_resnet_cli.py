@@ -2,8 +2,11 @@
 VOC tree (snapshots, resume), ``pascal_detect_resnet`` on its snapshot
 (the drawn boxes equal ``make_resnet_detect_fn``'s, with NMS and
 without), ``imagenet_train_resnet`` on the ``ilsvrc_dir`` fixture's tree
-(the frozen trunk, then ``--train-all``), and the refusal of the TF
-checkpoint import, which waits for A7.
+(the frozen trunk, then ``--train-all``), and the two entries' TF
+checkpoint warm start refusing a ``--tf-checkpoint`` that is not there
+and failing, before any data is read, on a broken
+``weights/resnet_v1_50.ckpt`` (the import itself:
+``tests/test_torch_port_tf_entries.py``).
 
 The detector CLIs run at a patched ``YoloConfig.image_size`` of 32 (a
 1×1 block4 map; the grid stays S=7), the fine-tune at a patched
@@ -173,20 +176,27 @@ def test_fine_tune_cli_freezes_the_trunk_then_trains_all(tmp_path,
 @pytest.mark.parametrize("how", ["flag", "weights_file"])
 def test_tf_checkpoint_import_is_refused_naming_a7(tmp_path, monkeypatch,
                                                    capsys, entry, how):
-    """Where the JAX entry would import a TF checkpoint (given, or found
-    at ``weights/resnet_v1_50.ckpt[.index]``) the port exits before it
-    builds anything, naming A7, instead of training from fresh weights."""
+    """The TF import is ported now; what is refused is a checkpoint that
+    is not one. A ``--tf-checkpoint`` that is not there: the parser's
+    error, never a run from fresh weights. A broken
+    ``weights/resnet_v1_50.ckpt.index`` (an empty file): the reader's
+    error naming it. Either before any data is read or any snapshot dir
+    is made."""
     main = {"pascal_train_resnet": train.main,
             "imagenet_train_resnet": cls_train.main}[entry]
     monkeypatch.setenv("TFY2_ROOT", str(tmp_path))
     argv = ["--device", "cpu"]
     if how == "flag":
-        argv += ["--tf-checkpoint", str(tmp_path / "missing.ckpt")]
+        missing = str(tmp_path / "missing.ckpt")
+        with pytest.raises(SystemExit) as err:
+            main(argv + ["--tf-checkpoint", missing])
+        assert err.value.code == 2
+        assert f"{missing}: no TF checkpoint there" in \
+            capsys.readouterr().err
     else:
         os.makedirs(tmp_path / "weights")
         (tmp_path / "weights" / "resnet_v1_50.ckpt.index").write_text("")
-    with pytest.raises(SystemExit) as err:
-        main(argv)
-    assert err.value.code == 2
-    assert "A7" in capsys.readouterr().err
+        with pytest.raises(ValueError, match="resnet_v1_50.ckpt.index: 0 "
+                                             "bytes, shorter than a table"):
+            main(argv)
     assert not (tmp_path / "ckpts").exists()

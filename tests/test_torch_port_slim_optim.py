@@ -165,5 +165,12 @@ def test_ema_matches_the_jax_update():
 
 
 def test_grouped_optimizer_is_refused():
-    with pytest.raises(NotImplementedError, match="A6 slice 3"):
-        pt_opt.make_grouped_optimizer([], {})
+    """The per-scope groups are ported now (held to optax's
+    ``multi_transform`` in ``tests/test_torch_port_adversarial.py``):
+    without groups and without a default, every parameter is frozen."""
+    params = {"w": torch.zeros(2)}
+    grouped = pt_opt.make_grouped_optimizer([], params)
+    state = grouped.init(params)
+    assert state.names == [] and state.slots == {}
+    grouped.update_({"w": torch.ones(2)}, state, params)
+    assert state.count == 1 and not params["w"].any()

@@ -266,12 +266,16 @@ def test_adam_matches_optax(clip):
                                 dict(grad_accum_steps=2)])
 def test_unported_optimizer_options_raise(kw):
     """These options are ported now (held to optax in
-    ``tests/test_torch_port_slim_optim.py``) and build; what stays
-    refused, naming its queue item, is the per-scope optimizer groups."""
+    ``tests/test_torch_port_slim_optim.py``) and build, and so do the
+    per-scope optimizer groups (``tests/test_torch_port_adversarial.py``):
+    a group without scopes takes every parameter."""
     opt = pt_opt.make_optimizer(OptimizerConfig(**kw))
     assert opt.cfg == OptimizerConfig(**kw)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        pt_opt.make_grouped_optimizer([((), OptimizerConfig(**kw))], {})
+    params = {"a.w": torch.zeros(2), "b.w": torch.zeros(3)}
+    grouped = pt_opt.make_grouped_optimizer([((), OptimizerConfig(**kw))],
+                                            params)
+    assert grouped.groups[0][1].cfg == OptimizerConfig(**kw)
+    assert grouped.init(params).names == ["a.w", "b.w"]
 
 
 # -- (d) whole train steps ----------------------------------------------------

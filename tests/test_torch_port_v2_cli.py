@@ -178,7 +178,8 @@ def test_profiling_helpers_match_jax(passthrough):
     (["--anchors", "kmeans"], "requires --v2"),
     (["--v2", "--multiscale", "64,100"], "multiples of 32"),
     (["--spatial", "2"], "--spatial is not ported yet .*A8"),
-    (["--tf-checkpoint", "x.ckpt"], "--tf-checkpoint is not ported yet .*A7"),
+    (["--tf-checkpoint", "x.ckpt"], "--tf-checkpoint x.ckpt: no TF "
+                                    "checkpoint there"),
 ])
 def test_train_cli_refuses(tmp_root, capsys, argv, match):
     """The JAX package's flag errors, and the options that wait for a
