@@ -177,7 +177,32 @@
    the FGSM images where the float64 input gradient exceeds 0.25 of its
    largest value (``ADV_SIGN_THRESH``), the adversarial step's loss on
    the same images to 1e-4.
-15. Times the v1, v1 ``--pallas-stem`` and v2p serving paths in bf16 and
+15. Drives the parallel paths (``parallel/``) through a world-1 NCCL
+   group opened in this process from torchrun's variables and destroyed
+   after (one card: the halos are SAME's zeros from both ends, the
+   all-reduces identities, but the group, the synced BatchNorm, the
+   autograd collectives and the launcher run at full width): the
+   data-parallel ``Trainer`` step on a (1, 1) mesh, v1 224² bf16 batch
+   24 from section 6's weights, B5 5 times a step, and its float32 step
+   (TF32 off) held to the plain float64 step on the CPU with the float32
+   step bounds of 6 (float32 rounding alone puts this trunk's gradients
+   ~1e-2 from float64, whichever float32 arithmetic computes them; the
+   distance from the plain float32 step is printed);
+   ``make_spatial_detect_fn`` at v1 448² bf16 with NMS on and off (B1 and
+   B3 once a call) and v2p 416² with NMS (B2 once), its grid against the
+   stock ``make_detect_fn`` grid (5e-2), the decode kernels against their
+   plain versions on it; the live-BatchNorm spatial steps
+   (``spatial_yolo_train_fn`` v1 224², ``spatial_yolo_v2_train_fn`` v2p
+   416², batch 8, float32, from the weights of 6 and 7) against the
+   plain float64 step on the CPU (loss 1e-4, the float32 gradient
+   bounds, running statistics 1e-2; B5 5 times a step); ``python -m
+   torch.distributed.run --nproc-per-node 1 -m ...train_classifier
+   --num-clones 1`` on a ``make_flowers`` tree (exit 0) and the same
+   ``train_classifier`` in this process under the group (B5 5 times a
+   step); images/s of the DP step against the plain one at batch 24 and
+   64 and of spatial serving against ``make_detect_fn`` at 32 and 256,
+   with the idle share.
+16. Times the v1, v1 ``--pallas-stem`` and v2p serving paths in bf16 and
    the v1 and v1 ``--pallas-stem`` paths in float32 with TF32 off
    (images/s at batch 32 and 256, with a profile), the v1 224² and v2p
    416² train steps (steps/s and images/s at batch 24 and 64, with a
@@ -195,7 +220,7 @@
    with a profile), and B1 and B3 on the ResNet grid at batch 256,
    threshold 0.2, as the entries ``decode_nms_resnet`` and
    ``decode_grid_resnet``.
-16. Ends with ``{"ok": true, "device": {...}}``.
+17. Ends with ``{"ok": true, "device": {...}}``.
 
     python3 chip_smoke.py --stem-ab [OTHER_STEM_CU ...]
 
@@ -4014,6 +4039,391 @@ def decode_ab(sources: list[str], card: str) -> int:
     return 0 if ok else 1
 
 
+# -- parallelism (section 15): a world-1 NCCL group ------------------------
+
+PAR_TRAIN_BATCH = 8  # the spatial live steps' batch
+PAR_CLI_TIMEOUT = 300
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+@contextlib.contextmanager
+def world1_group():
+    """A world-1 NCCL process group in this process, started as the
+    entries start one (``parallel.mesh.maybe_initialize_distributed``
+    from torchrun's variables), destroyed after; it must start (no
+    fallback)."""
+    import torch.distributed as dist
+
+    from tensorflow_yolo2_torch.parallel.mesh import (
+        maybe_initialize_distributed,
+    )
+
+    env = {"MASTER_ADDR": "127.0.0.1", "MASTER_PORT": str(_free_port()),
+           "WORLD_SIZE": "1", "RANK": "0", "LOCAL_RANK": "0"}
+    with mock.patch.dict(os.environ, env):
+        check(maybe_initialize_distributed("cuda"),
+              "a world-1 NCCL group started from torchrun's variables")
+        check(dist.get_backend() == "nccl", "the group is NCCL's")
+        try:
+            yield
+        finally:
+            dist.destroy_process_group()
+
+
+def rel_all(got: dict, want: dict) -> float:
+    """Relative norm error of all tensors of ``want`` as one vector."""
+    return rel_norm(torch.cat([got[k].double().cpu().ravel() for k in want]),
+                    torch.cat([want[k].double().cpu().ravel()
+                               for k in want]))
+
+
+def check_dp(dev, weights: dict, images, labels) -> dict:
+    """The data-parallel ``Trainer`` step on a (1, 1) mesh (BatchNorm
+    synced over the data axis, gradients and metrics all-reduced,
+    ``put_batch``) on the v1 224² detector from ``weights`` (section 6's,
+    after its steps), batch 24: a bf16 step (B5 5 times); the float32
+    step on the card (TF32 off) against the plain float64 step on the CPU
+    with the bounds of every float32 step check
+    (``check_train_step_against_cpu``: this trunk's float32 gradients are
+    ~1e-2 from float64 by rounding alone, whichever float32 arithmetic
+    computes them, so the DP step is held to float64, not to the plain
+    float32 step, whose distance from it is printed); then both steps'
+    images/s at batch 24 and 64 with the idle share."""
+    from tensorflow_yolo2_torch.config import YoloConfig
+    from tensorflow_yolo2_torch.models.darknet import Darknet19Detector
+    from tensorflow_yolo2_torch.ops import cuda_pool
+    from tensorflow_yolo2_torch.parallel.mesh import MeshConfig, make_mesh
+    from tensorflow_yolo2_torch.train.trainer import Trainer, yolo_task
+
+    yolo = YoloConfig()
+    mesh = make_mesh(MeshConfig(data=1, model=1))
+    check(mesh is not None and tuple(mesh.shape) == (1, 1),
+          "a (1, 1) DeviceMesh")
+
+    def build(dtype, where, state_dict=None, on_mesh=True):
+        on_card = torch.device(where).type == "cuda"
+        t = Trainer(Darknet19Detector(yolo.cell_channels), yolo_task(yolo),
+                    device=where, compute_dtype=dtype,
+                    mesh=mesh if on_mesh and on_card else None)
+        return t, t.create_state(torch.Generator().manual_seed(0),
+                                 state_dict)
+
+    dp, dp_state = build(torch.bfloat16, dev, weights)
+    cuda_pool.reset_launch_counts()
+    dp_state, metrics = dp.train_step(dp_state, images, labels)
+    torch.cuda.synchronize()
+    out = {"launches": cuda_pool.MAX_POOL2_BWD_LAUNCHES}
+    print(f"DP step, v1 224² bf16, batch {len(images)}, (1, 1) mesh: loss "
+          f"{metrics['loss'].item():.4f}; B5 {out['launches']} launches")
+    check(out["launches"] == 5, "B5 ran 5 times a data-parallel step")
+    check(math.isfinite(metrics["loss"].item()), "finite DP loss")
+    dp_loss, dp_grads = step_grads(build, torch.float32, dev, weights,
+                                   images, labels)
+    pl_loss, pl_grads = step_grads(
+        functools.partial(build, on_mesh=False), torch.float32, dev,
+        weights, images, labels)
+    out["vs_plain_f32"] = {"loss_rel": abs(dp_loss - pl_loss) / abs(pl_loss),
+                           "all_grads_rel": rel_all(dp_grads, pl_grads)}
+    print(f"DP step vs the plain step, both float32 on the card (TF32 "
+          f"off): loss {out['vs_plain_f32']['loss_rel']:.3e}, all gradients "
+          f"{out['vs_plain_f32']['all_grads_rel']:.3e} (relative norm; "
+          f"printed, float32 rounding alone is ~1e-2 here)")
+    out["vs_float64"] = check_train_step_against_cpu(build, images, labels,
+                                                     dev, weights)
+    del dp_grads, pl_grads
+    plain, plain_state = build(torch.bfloat16, dev, weights, on_mesh=False)
+    trng = np.random.RandomState(22)
+    flops = 3 * conv_flops_per_image(yolo.image_size, yolo.cell_channels)
+    out["times_plain"] = detector_train_times(plain, plain_state, trng, yolo)
+    out["times_dp"] = time_train(
+        dp, dp_state, lambda b: train_batch(trng, b, yolo), flops,
+        "v1 224² data-parallel (1, 1) mesh")
+    for b in out["times_dp"]:
+        print(f"DP step v1 224² batch {b}: "
+              f"{out['times_dp'][b]['images_per_s']:.1f} images/s (idle "
+              f"{out['times_dp'][b]['idle_share']:.3f}) vs the plain step's "
+              f"{out['times_plain'][b]['images_per_s']:.1f} (idle "
+              f"{out['times_plain'][b]['idle_share']:.3f}); {card_line()}")
+    return out
+
+
+def check_spatial_serving(dev, images, v2_images) -> dict:
+    """``make_spatial_detect_fn`` over the world-1 spatial mesh at full
+    width: v1 448² bf16 with NMS on and off (B1 and B3 once a call), v2p
+    416² with NMS (B2 once a call); the sharded grid against the stock
+    ``make_detect_fn`` grid (``GRID_REL_TOL``); B1 / B3 / B2 against their
+    plain versions on it; images/s at batch 32 and 256 against
+    ``make_detect_fn``'s, with the idle share."""
+    from tensorflow_yolo2_torch.entries.pascal_detect_darknet import (
+        make_detect_fn,
+        make_spatial_detect_fn,
+    )
+    from tensorflow_yolo2_torch.models.fold import fold_params
+    from tensorflow_yolo2_torch.ops import cuda_decode as cd
+    from tensorflow_yolo2_torch.parallel.spatial import (
+        spatial_detector_fn,
+        spatial_mesh,
+    )
+
+    out = {"launches": {}, "errs": {"decode_nms": 0.0, "decode_grid": 0.0,
+                                    "decode_nms_v2": 0.0}}
+    mesh = spatial_mesh(1)
+    for head in ("v1", "v2p"):
+        v2 = head == "v2p"
+        cfg, state = v2_detector(True) if v2 else v1_detector()
+        imgs = v2_images if v2 else images
+        kw = {"v2": True, "passthrough": True} if v2 else {}
+        det = make_spatial_detect_fn(cfg, state, None, 0.5, use_nms=True,
+                                     n_shards=1, device=dev, **kw)
+        cd.reset_launch_counts()
+        kept = det(imgs[:16])
+        dense = None
+        if not v2:
+            dense = make_spatial_detect_fn(cfg, state, None, 0.5,
+                                           use_nms=False, n_shards=1,
+                                           device=dev)(imgs[:16])
+        torch.cuda.synchronize()
+        counts = {"decode_nms": cd.DECODE_NMS_LAUNCHES,
+                  "decode_nms_v2": cd.DECODE_NMS_V2_LAUNCHES,
+                  "decode_grid": cd.DECODE_GRID_LAUNCHES}
+        want = ({"decode_nms_v2": 1, "decode_nms": 0, "decode_grid": 0}
+                if v2 else {"decode_nms_v2": 0, "decode_nms": 1,
+                            "decode_grid": 1})
+        print(f"spatial {head} serving launches (one call with NMS"
+              f"{'' if v2 else ', one without'}): {counts}")
+        check(counts == want, f"spatial {head}: each decode kernel once a "
+                              "call")
+        out["launches"][head] = counts
+        check(kept.boxes.shape == (16, K, 4) and
+              bool(torch.isfinite(kept.scores).all()) and
+              bool((kept.scores > 0).any()), f"spatial {head} detections")
+        if dense is not None:
+            check(dense.boxes.shape == (16, cfg.S * cfg.S * cfg.B, 4),
+                  "spatial v1 dense shapes")
+        folded = {k: v.float().to(dev, torch.bfloat16)
+                  for k, v in fold_params(state).items()}
+        fwd = spatial_detector_fn(mesh, bn_on_output=not v2,
+                                  head="v2p" if v2 else "v1")
+        with torch.inference_mode():
+            grid = fwd(folded, imgs[:BATCH].to(dev))
+        stock = card_grid(cfg, state, imgs[:BATCH], dev, **kw)
+        rel = ((grid.double() - stock.double()).norm() /
+               stock.double().norm()).item()
+        out[f"grid_rel_{head}"] = rel
+        print(f"spatial {head} grid (bf16, batch {BATCH}) against the stock "
+              f"make_detect_fn grid: relative norm {rel:.3e} (bound "
+              f"{GRID_REL_TOL})")
+        check(rel <= GRID_REL_TOL, f"spatial {head} grid agrees with the "
+                                   "stock grid")
+        del stock
+        for thresh in (0.05, 0.5):
+            if v2:
+                out["errs"]["decode_nms_v2"] = max(
+                    out["errs"]["decode_nms_v2"], compare_kept(
+                        cd.decode_nms_fused(grid, cfg, thresh, 0.5, K),
+                        cd.decode_nms_v2_plain(grid, cfg, thresh, 0.5, K),
+                        "decode_nms_v2"))
+            else:
+                out["errs"]["decode_nms"] = max(
+                    out["errs"]["decode_nms"], compare_kept(
+                        cd.decode_nms_fused(grid, cfg, thresh, 0.5, K),
+                        cd.decode_nms_plain(grid, cfg, thresh, 0.5, K)))
+                out["errs"]["decode_grid"] = max(
+                    out["errs"]["decode_grid"], compare_dense(
+                        cd.decode_grid_fused(grid, cfg, thresh),
+                        cd.decode_grid_plain(grid, cfg, thresh)))
+        torch.cuda.synchronize()
+        del grid
+        size = cfg.image_size
+        flops = conv_flops_per_image(size, cfg.cell_channels,
+                                     passthrough=v2)
+        stock_det = make_detect_fn(cfg, state, object_thresh=0.5,
+                                   use_nms=True, device=dev, **kw)
+        out[f"times_{head}"] = {
+            "spatial": time_path(det, imgs, dev, f"spatial {head} {size}²",
+                                 flops),
+            "stock": time_path(stock_det, imgs, dev, f"{head} {size}²",
+                               flops)}
+        for b in PATH_BATCHES:
+            t = out[f"times_{head}"]
+            print(f"spatial {head} {size}² batch {b}: "
+                  f"{t['spatial'][b]['images_per_s']:.1f} images/s (idle "
+                  f"{t['spatial'][b]['idle_share']:.3f}) vs make_detect_fn's "
+                  f"{t['stock'][b]['images_per_s']:.1f} (idle "
+                  f"{t['stock'][b]['idle_share']:.3f}); {card_line()}")
+    print(f"spatial serving grids: the decode kernels match their plain "
+          f"versions (max abs err {out['errs']})")
+    return out
+
+
+def check_spatial_training(dev, cases) -> dict:
+    """One float32 (TF32 off) live-BatchNorm spatial step over the
+    world-1 mesh for each of ``cases`` ((head, config, weights, uint8
+    images, labels): v1 224² with ``spatial_yolo_train_fn``, v2p 416²
+    with ``spatial_yolo_v2_train_fn``, batch ``PAR_TRAIN_BATCH``, from the
+    weights sections 6 and 7 reached): B5 5 times a step; the loss (1e-4),
+    the gradients (the float32 step bounds, ``grad_errors``) and the new
+    running statistics (1e-2, relative norm of all) against the plain
+    ``Trainer`` step in float64 on the CPU; the distance from the plain
+    float32 step on the card printed."""
+    from tensorflow_yolo2_torch.ops import cuda_pool
+    from tensorflow_yolo2_torch.parallel.spatial import (
+        spatial_mesh,
+        spatial_yolo_train_fn,
+        spatial_yolo_v2_train_fn,
+    )
+
+    def plain_step(cfg, dtype, where, weights, images, labels):
+        """(loss, gradients, new running statistics) of the plain step."""
+        trainer, state = make_trainer(cfg, torch.float32, where, weights)
+        if dtype == torch.float64:
+            state.model.double()
+            images = images.double() / 255.0 * 2.0 - 1.0
+        metrics, grads = trainer.loss_and_grads(state, images.to(where),
+                                                labels.to(where))
+        stats = {k: v.double().cpu()
+                 for k, v in state.model.state_dict().items()
+                 if k.endswith(("running_mean", "running_var"))}
+        return (metrics["loss"].item(),
+                {k: g.double().cpu() for k, g in grads.items()}, stats)
+
+    mesh = spatial_mesh(1)
+    out = {}
+    for head, cfg, weights, images, labels in cases:
+        images, labels = images.to(dev), labels.to(dev)
+        trainer, state = make_trainer(cfg, torch.float32, dev, weights)
+        model = state.model.train()
+        params = dict(model.named_parameters())
+        stats = {k: v.clone() for k, v in model.state_dict().items()
+                 if k.endswith(("running_mean", "running_var"))}
+        cuda_pool.reset_launch_counts()
+        if head == "v1":
+            loss, grads, new = spatial_yolo_train_fn(mesh, cfg)(
+                params, stats, images, labels)
+        else:
+            loss, grads, new = spatial_yolo_v2_train_fn(
+                mesh, cfg, head="v2p")(params, stats, images, labels, 0)
+        torch.cuda.synchronize()
+        n_pool = cuda_pool.MAX_POOL2_BWD_LAUNCHES
+        grads = {k: g.double().cpu() for k, g in grads.items()}
+        new = {k: v.double().cpu() for k, v in new.items()}
+        del trainer, state, model, params
+        loss64, grads64, stats64 = plain_step(
+            cfg, torch.float64, torch.device("cpu"), weights, images.cpu(),
+            labels.cpu())
+        loss32, grads32, stats32 = plain_step(cfg, torch.float32, dev,
+                                              weights, images, labels)
+        loss_rel = abs(loss.item() - loss64) / abs(loss64)
+        worst, key, total = grad_errors(grads, grads64)
+        stats_rel = rel_all(new, stats64)
+        out[head] = {"launches": n_pool, "loss_rel": loss_rel,
+                     "grad_rel_err": worst, "grad_tensor": key,
+                     "all_grads_rel_err": total, "stats_rel": stats_rel,
+                     "vs_plain_f32": {
+                         "loss_rel": abs(loss.item() - loss32) / abs(loss32),
+                         "all_grads_rel": rel_all(grads, grads32),
+                         "stats_rel": rel_all(new, stats32)},
+                     "plain_f32_all_grads_rel_err": rel_all(grads32,
+                                                            grads64)}
+        print(f"spatial live step {head} {cfg.image_size}², float32 (TF32 "
+              f"off), batch {len(images)}, against the plain float64 step "
+              f"on the CPU: loss {loss_rel:.3e} (bound {LOSS_REL_TOL}), "
+              f"gradients worst {worst:.3e} ({key}), all {total:.3e} "
+              f"(bounds {GRAD_REL_TOL}, {ALL_GRADS_REL_TOL}), running "
+              f"statistics {stats_rel:.3e} (bound {ALL_GRADS_REL_TOL}); the "
+              f"plain float32 card step's gradients {out[head]['plain_f32_all_grads_rel_err']:.3e} "
+              f"from float64; spatial vs plain float32: "
+              f"{out[head]['vs_plain_f32']}; B5 {n_pool} launches")
+        check(n_pool == 5, f"B5 ran 5 times a spatial {head} step")
+        check(loss_rel <= LOSS_REL_TOL and worst <= GRAD_REL_TOL and
+              total <= ALL_GRADS_REL_TOL and stats_rel <= ALL_GRADS_REL_TOL,
+              f"the spatial {head} step equals the plain step")
+    return out
+
+
+def run_parallel_clis(dev) -> dict:
+    """``python -m torch.distributed.run --nproc-per-node 1 -m
+    tensorflow_yolo2_torch.entries.train_classifier --num-clones 1`` on a
+    ``make_flowers`` tree (exit 0, its snapshot), then ``train_classifier``
+    in this process under the world-1 group: a (1, 1) mesh, B5 5 times a
+    step."""
+    import shutil
+    import tempfile
+
+    from tensorflow_yolo2_torch.entries import train_classifier
+    from tensorflow_yolo2_torch.ops import cuda_pool
+    from tensorflow_yolo2_torch.train.checkpoint import CheckpointManager
+    from tensorflow_yolo2_torch.utils import cuda_build
+    from tests import synthetic
+
+    out = {}
+    argv = ["--num-clones", "1", "--iters", "2", "--batch-size",
+            str(SLIM_CLI_BATCH), "--save-every", "2", "--num-workers", "2",
+            "--log-every", "1", "--device", str(dev)]
+    with tempfile.TemporaryDirectory(dir=cuda_build.BUILD_DIR) as root:
+        synthetic.make_flowers(os.path.join(root, "data", "TF_flowers"),
+                               per_class=SLIM_FLOWERS_PER_CLASS)
+        env = {k: v for k, v in os.environ.items()
+               if k not in ("MASTER_ADDR", "MASTER_PORT", "WORLD_SIZE",
+                            "RANK", "LOCAL_RANK")}
+        env["TFY2_ROOT"] = root
+        t0 = time.perf_counter()
+        done = subprocess.run(
+            [sys.executable, "-m", "torch.distributed.run",
+             "--nproc-per-node", "1", "--master-addr", "127.0.0.1",
+             "--master-port", str(_free_port()), "-m",
+             "tensorflow_yolo2_torch.entries.train_classifier", *argv],
+            env=env, capture_output=True, text=True,
+            timeout=PAR_CLI_TIMEOUT)
+        out["torchrun_s"] = time.perf_counter() - t0
+        print(f"torchrun --nproc-per-node 1 train_classifier --num-clones 1 "
+              f"({out['torchrun_s']:.1f} s), exit {done.returncode}:\n  " +
+              "\n  ".join((done.stdout + done.stderr).strip()
+                          .splitlines()[-8:]))
+        check(done.returncode == 0, "train_classifier under torchrun "
+                                    "exits 0")
+        with mock.patch.dict(os.environ, {"TFY2_ROOT": root}):
+            mgr = CheckpointManager("darknet19", "tf_flowers")
+            check(mgr.all_steps() == [2], "the torchrun run saved its "
+                                          "snapshot")
+            shutil.rmtree(mgr.dir)
+            cuda_pool.reset_launch_counts()
+            run_cli(train_classifier.main, argv,
+                    "train_classifier under the world-1 group")
+            torch.cuda.synchronize()
+            out["in_process_launches"] = cuda_pool.MAX_POOL2_BWD_LAUNCHES
+            check(out["in_process_launches"] == 10,
+                  "B5 ran 5 times a step of train_classifier on the mesh")
+            check(mgr.all_steps() == [2], "the in-process run saved its "
+                                          "snapshot")
+    return out
+
+
+def check_parallel(dev, images, v2_images, dp_case, train_cases) -> dict:
+    """Section 15: data and spatial parallelism (``parallel/``) on the
+    card through a world-1 NCCL group; the launcher. ``dp_case`` is
+    (weights, images, labels) of the v1 DP check, ``train_cases`` the
+    spatial training cases (``check_spatial_training``)."""
+    t0 = time.perf_counter()
+    out = {}
+    with world1_group():
+        out["dp"] = check_dp(dev, *dp_case)
+        out["spatial_serving"] = check_spatial_serving(dev, images,
+                                                       v2_images)
+        out["spatial_train"] = check_spatial_training(dev, train_cases)
+        out["clis"] = run_parallel_clis(dev)
+    out["seconds"] = time.perf_counter() - t0
+    print(f"parallel: {out['seconds']:.1f} s")
+    return out
+
+
 def main(argv: list[str] | None = None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument(
@@ -4375,9 +4785,11 @@ def main(argv: list[str] | None = None) -> int:
     check(tstate.step == FALL_STEPS and all(
         bool(torch.isfinite(p).all()) for p in tstate.params.values()),
         "finite parameters after the steps")
+    v1_trained = {k: v.detach().cpu().clone()
+                  for k, v in tstate.model.state_dict().items()}
     train_check = check_train_step_against_cpu(
         functools.partial(make_trainer, tyolo), images24, labels24, dev,
-        {k: v.cpu() for k, v in tstate.model.state_dict().items()})
+        v1_trained)
 
     # 7. the v2p training path at full width: YOLOv2 at 416², bf16 ----------
     mark("section 7")
@@ -4481,8 +4893,21 @@ def main(argv: list[str] | None = None) -> int:
     tf_import = check_tf_import(dev)
     adversarial = check_adversarial(dev)
 
-    # 15. times --------------------------------------------------------------
+    # 15. parallelism: data-parallel and spatial steps, spatial serving,
+    # the launcher, over a world-1 NCCL group ------------------------------
     mark("section 15")
+    parallel = check_parallel(
+        dev, images, v2_images,
+        (v1_trained, images24, labels24),
+        (("v1", tyolo, v1_trained, images24[:PAR_TRAIN_BATCH],
+          labels24[:PAR_TRAIN_BATCH]),
+         ("v2p", vyolo, v2p_trained, vimages[:PAR_TRAIN_BATCH],
+          vlabels[:PAR_TRAIN_BATCH])))
+    for name, err in parallel["spatial_serving"]["errs"].items():
+        errs[name] = max(errs[name], err)
+
+    # 16. times --------------------------------------------------------------
+    mark("section 16")
     print(f"times on {card}:")
     v1_flops = conv_flops_per_image(448, yolo.cell_channels)
     tf32 = (f"TF32: cudnn.allow_tf32={torch.backends.cudnn.allow_tf32}, "
@@ -4526,6 +4951,7 @@ def main(argv: list[str] | None = None) -> int:
         "slim": slim,
         "tf_import": tf_import,
         "adversarial": adversarial,
+        "parallel": parallel,
         "tf32": {"cudnn": torch.backends.cudnn.allow_tf32,
                  "matmul": torch.backends.cuda.matmul.allow_tf32},
     }
@@ -4617,6 +5043,10 @@ def main(argv: list[str] | None = None) -> int:
             "call_ms": call_ms, "launches_int8": launches_int8[name]})
         if name in launches_tf_import:  # the detect CLI on a TF checkpoint
             kernels[-1]["launches_tf_import_cli"] = launches_tf_import[name]
+        if name in ("decode_nms", "decode_grid", "decode_nms_v2"):
+            serving = parallel["spatial_serving"]["launches"]
+            kernels[-1]["launches_spatial_serving"] = serving[
+                "v2p" if name == "decode_nms_v2" else "v1"][name]
         eval_runs = {  # the same kernel under evaluation (section 8)
             ev_name: {k: ev[k] for k in (
                 "threshold", "batch", "launches", "candidates_per_image",
@@ -4659,6 +5089,12 @@ def main(argv: list[str] | None = None) -> int:
             slim["data tier clis"]["darknet19_launches"],
         "launches_yolo1_pretrain_accum": slim["accumulation"]["launches"],
         "launches_adversarial_pair": adversarial["launches_adversarial_pair"],
+        "launches_dp_step": parallel["dp"]["launches"],
+        "launches_spatial_step": {
+            h: parallel["spatial_train"][h]["launches"] for h in ("v1",
+                                                                  "v2p")},
+        "launches_train_classifier_mesh":
+            parallel["clis"]["in_process_launches"],
         "launches_timed_steps": {k: v[b]["max_pool2_bwd_launches"]
                                  for k, v in slim["times"].items()
                                  for b in v},

@@ -261,19 +261,24 @@ class EpochShardedStream:
     ``example_fn(imdb, entry)`` maps an entry to (image, label). An
     epoch's remainder is a last, smaller batch, or is dropped with
     ``drop_remainder`` (fixed device shapes). ``epochs`` ends the stream
-    after that many; None streams on.
+    after that many; None streams on. ``shard=(index, count)`` folds a
+    data-parallel rank into the worker ids: worker w of shard i reads
+    slice ``i·num_workers + w`` of ``count·num_workers``, so that the
+    ranks' workers partition each epoch together.
     """
 
     def __init__(self, imdb_factory: Callable[[], Any], batch_size: int,
                  epochs: Optional[int] = None, seed: int = 0,
                  example_fn: Optional[Callable[[Any, Any], tuple]] = None,
-                 drop_remainder: bool = False):
+                 drop_remainder: bool = False,
+                 shard: tuple[int, int] = (0, 1)):
         self._imdb_factory = imdb_factory
         self._batch_size = batch_size
         self._epochs = epochs
         self._seed = seed
         self._example_fn = example_fn
         self._drop_remainder = drop_remainder
+        self._shard = shard
 
     def epoch_slice(self, epoch: int, worker_id: int, num_workers: int,
                     n: int) -> list[int]:
@@ -290,6 +295,9 @@ class EpochShardedStream:
         imdb = self._imdb_factory()
         example_fn = self._example_fn or _classification_example
         n = len(imdb.gt_labels)
+        index, count = self._shard
+        worker_id, num_workers = (index * num_workers + worker_id,
+                                  count * num_workers)
 
         def batches():
             epoch = 0

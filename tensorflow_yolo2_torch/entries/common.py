@@ -1,7 +1,10 @@
 """Shared wiring of the training entry points (port of
 tensorflow_yolo2_tpu/entries/common.py): the base CLI flags, the
-resume / warm-start bootstrap, and the train loop (dataset → prefetch
-threads → device copies → step → metrics → snapshots)."""
+resume / warm-start bootstrap, the train loop (dataset → prefetch
+threads → device copies → step → metrics → snapshots), and the data
+mesh of a run started by ``torchrun`` (``start_mesh``: each rank reads
+its own shard of the data, ``shard_dataset``; rank 0 alone writes
+snapshots, metrics and logs)."""
 
 from __future__ import annotations
 
@@ -11,6 +14,7 @@ import time
 from typing import Any, Callable, Mapping, Optional
 
 import torch
+import torch.distributed as dist
 
 from tensorflow_yolo2_torch.compat.tf_bundle import checkpoint_present
 from tensorflow_yolo2_torch.compat.tf_import import (
@@ -18,7 +22,12 @@ from tensorflow_yolo2_torch.compat.tf_import import (
     state_dict_for,
 )
 from tensorflow_yolo2_torch.convert import state_dict_from_flax
+from tensorflow_yolo2_torch.data.memory import InMemoryImdb
 from tensorflow_yolo2_torch.data.prefetch import PrefetchLoader, device_prefetch
+from tensorflow_yolo2_torch.parallel.mesh import (
+    make_mesh_for_batch,
+    maybe_initialize_distributed,
+)
 from tensorflow_yolo2_torch.train.checkpoint import (
     CheckpointManager,
     load_into,
@@ -56,6 +65,84 @@ def base_parser(description: str) -> argparse.ArgumentParser:
     p.add_argument("--device", default=None,
                    help="torch device (default: cuda)")
     return p
+
+
+def start_mesh(batch_size: int, device, model: int = 1):
+    """The run's (data, model) mesh: the process group from torchrun's
+    environment (``parallel.mesh.maybe_initialize_distributed``) and
+    ``make_mesh_for_batch(batch_size, model)``; None for a run without a
+    launcher, which stays one process."""
+    maybe_initialize_distributed(device)
+    return make_mesh_for_batch(batch_size, model)
+
+
+def data_shard(mesh) -> tuple[int, int]:
+    """(this rank's data index, the data axis's size): (0, 1) without a
+    mesh."""
+    if mesh is None:
+        return 0, 1
+    return mesh.get_coordinate()[0], mesh.size(0)
+
+
+def local_batch(batch_size: int, mesh) -> int:
+    """This rank's rows of a global batch of ``batch_size``."""
+    return batch_size // data_shard(mesh)[1]
+
+
+def shard_dataset(imdb, mesh):
+    """``imdb`` cut to this rank's shard, in place: every ``count``-th
+    entry of its seeded listing from its data index on (the ranks build
+    the listing with the same seed, so the shards partition it); each
+    rank then shuffles its shard anew each epoch. Lists of entries
+    (``gt_labels``; TF_flowers' ``train_list`` / ``val_list``) and the
+    in-memory datasets' arrays are cut; another dataset raises."""
+    index, count = data_shard(mesh)
+    if count == 1:
+        return imdb
+    if hasattr(imdb, "gt_labels"):
+        imdb.gt_labels = imdb.gt_labels[index::count]
+    elif hasattr(imdb, "train_list"):
+        imdb.train_list = imdb.train_list[index::count]
+        imdb.val_list = imdb.val_list[index::count]
+    elif isinstance(imdb, InMemoryImdb):
+        imdb._images = imdb._images[index::count]
+        imdb._labels = imdb._labels[index::count]
+        imdb._order = imdb._rng.permutation(len(imdb._labels))
+    else:
+        raise ValueError(f"cannot shard {type(imdb).__name__} over the "
+                         "data axis")
+    return imdb
+
+
+def sum_over_data(mesh, *values: float) -> list[float]:
+    """Counts summed over the data axis (the evaluators' hits and
+    totals); as they are without a mesh."""
+    if mesh is None:
+        return list(values)
+    t = torch.tensor(values, dtype=torch.float64,
+                     device="cuda" if dist.get_backend() == "nccl"
+                     else "cpu")
+    dist.all_reduce(t, group=mesh.get_group("data"))
+    return t.tolist()
+
+
+def _any_rank(trainer: Trainer, flag: bool) -> bool:
+    """Whether ``flag`` holds on any rank of the trainer's mesh, so that
+    every rank takes a wall-clock save together."""
+    t = torch.tensor([float(flag)], device=trainer.device)
+    for g in (trainer.data_group, trainer.model_group):
+        dist.all_reduce(t, op=dist.ReduceOp.MAX, group=g)
+    return bool(t.item())
+
+
+def save_snapshot(trainer: Trainer, mgr: CheckpointManager, step: int,
+                  state: TrainState) -> None:
+    """``mgr.save`` of the whole state (``Trainer.snapshot_state``) by
+    rank 0 alone, then a barrier over the mesh."""
+    whole = trainer.snapshot_state(state)
+    if trainer.is_chief:
+        mgr.save(step, whole)
+    trainer.barrier()
 
 
 def require_tf_checkpoint(parser: argparse.ArgumentParser, flag: str,
@@ -203,7 +290,8 @@ def run_train_loop(trainer: Trainer, state: TrainState,
 
     ``eval_fn(state, i)`` runs after every ``eval_every``-th iteration i
     (a validation batch, say). Snapshots are saved every ``save_every``
-    iterations, as step ``i // save_step_divisor`` (an epoch-interval
+    iterations (rank 0 alone writes them, metrics and logs under a
+    mesh), as step ``i // save_step_divisor`` (an epoch-interval
     manager names snapshots by epoch: the divisor is the iterations of an
     epoch), also whenever ``save_interval_secs`` (> 0) have passed on the
     wall clock since the last save or the start, and after the last
@@ -237,6 +325,8 @@ def run_train_loop(trainer: Trainer, state: TrainState,
             it, names, host, done = pending.pop(0)
             if done is not None:
                 done.synchronize()
+            if not trainer.is_chief:
+                continue
             vals = dict(zip(names, host.pop("scalars").tolist())) \
                 if names else {}
             writer.scalars(it, vals)
@@ -261,22 +351,28 @@ def run_train_loop(trainer: Trainer, state: TrainState,
                 eval_fn(state, i)
             due_timed = (save_interval_secs > 0 and time.monotonic() -
                          last_save >= save_interval_secs)
+            if save_interval_secs > 0 and trainer.mesh is not None:
+                due_timed = _any_rank(trainer, due_timed)
             if (save_every and i % save_every == 0) or due_timed:
                 step = i // save_step_divisor
-                mgr.save(step, state)
+                save_snapshot(trainer, mgr, step, state)
                 saved_steps.add(step)
                 last_saved_iter = i
                 last_save = time.monotonic()
-                print(f"Saved snapshot at iter {i} ({mgr.interval} {step})")
+                if trainer.is_chief:
+                    print(f"Saved snapshot at iter {i} ({mgr.interval} "
+                          f"{step})")
         flush(0)
     final = start_iter + num_iters
     if num_iters > 0 and last_saved_iter != final:
         tail = final // save_step_divisor
         if tail in saved_steps:
-            print(f"Skipping tail save at iter {final}: {mgr.interval} "
-                  f"{tail} already holds the epoch-boundary snapshot")
+            if trainer.is_chief:
+                print(f"Skipping tail save at iter {final}: {mgr.interval} "
+                      f"{tail} already holds the epoch-boundary snapshot")
         else:
-            mgr.save(tail, state)
-            print(f"Saved final snapshot at iter {final} "
-                  f"({mgr.interval} {tail})")
+            save_snapshot(trainer, mgr, tail, state)
+            if trainer.is_chief:
+                print(f"Saved final snapshot at iter {final} "
+                      f"({mgr.interval} {tail})")
     return state

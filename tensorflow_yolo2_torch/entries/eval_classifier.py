@@ -34,8 +34,8 @@ from tensorflow_yolo2_torch.entries.train_classifier import (
     build_model,
     import_tf_for,
     offset_labels,
-    refuse_unported,
 )
+from tensorflow_yolo2_torch.parallel.mesh import idle, in_mesh, release_idle
 from tensorflow_yolo2_torch.train.checkpoint import (
     CheckpointManager,
     merge_into_model,
@@ -60,20 +60,27 @@ def main(argv: list[str] | None = None) -> int:
     p.add_argument("--use-ema", action="store_true",
                    help="evaluate the EMA weights from the snapshot")
     args = p.parse_args(argv)
-    refuse_unported(p, args)
     common.require_tf_checkpoint(p, "--tf-checkpoint", args.tf_checkpoint)
 
     batch_size = args.batch_size or 64
+    mesh = common.start_mesh(batch_size, args.device)
+    if not in_mesh(mesh):
+        return idle(mesh)
     dtype = (torch.bfloat16 if args.compute_dtype == "bfloat16"
              else torch.float32)
     size_kw = {"image_size": args.image_size} if args.image_size else {}
     imdb = get_dataset(args.dataset_name, args.dataset_split_name,
-                       batch_size=batch_size, data_path=args.data_path,
+                       batch_size=common.local_batch(batch_size, mesh),
+                       data_path=args.data_path,
                        preprocessing_name=args.preprocessing_name, **size_kw)
     if not 0 <= args.labels_offset < imdb.num_class:
         p.error(f"--labels-offset {args.labels_offset} out of range for "
                 f"{imdb.num_class} classes")
     model = build_model(p, args, imdb, imdb.num_class - args.labels_offset)
+    val_list = getattr(imdb, "val_list", None)
+    split_batches = (max(1, len(val_list) // batch_size) if val_list
+                     else imdb.total_batch)
+    common.shard_dataset(imdb, mesh)  # its rows of each global batch
     # --use-ema: an EMA slot in the restore target, so that the
     # snapshot's EMA tensors are restored (the decay is never used)
     opt_cfg = OptimizerConfig(
@@ -112,9 +119,6 @@ def main(argv: list[str] | None = None) -> int:
               "falling back to the raw parameters")
         use_ema = False
 
-    val_list = getattr(imdb, "val_list", None)
-    split_batches = (max(1, len(val_list) // batch_size) if val_list
-                     else imdb.total_batch)
     n_batches = args.max_batches or split_batches
     c1 = c5 = total = 0
     for _ in range(n_batches):
@@ -124,9 +128,13 @@ def main(argv: list[str] | None = None) -> int:
         top5 = torch.topk(logits, min(5, logits.shape[-1]), dim=-1).indices
         c1 += int((torch.argmax(logits, -1) == labels).sum())
         c5 += int((top5 == labels[:, None]).any(-1).sum())
-        total += batch_size
-    print(f"eval at step {step}: accuracy {c1 / total:.4f}, "
-          f"recall@5 {c5 / total:.4f} over {total} images")
+        total += labels.shape[0]
+    c1, c5, total = (int(v) for v in common.sum_over_data(mesh, c1, c5,
+                                                          total))
+    if common.data_shard(mesh)[0] == 0:
+        print(f"eval at step {step}: accuracy {c1 / total:.4f}, "
+              f"recall@5 {c5 / total:.4f} over {total} images")
+    release_idle(mesh)
     return 0
 
 

@@ -24,6 +24,7 @@ from tensorflow_yolo2_torch.config import (
 from tensorflow_yolo2_torch.data.flowers import TFFlowers
 from tensorflow_yolo2_torch.entries import common
 from tensorflow_yolo2_torch.models.darknet import Darknet19Classifier
+from tensorflow_yolo2_torch.parallel.mesh import idle, in_mesh, release_idle
 from tensorflow_yolo2_torch.train.checkpoint import CheckpointManager
 from tensorflow_yolo2_torch.train.metrics import MetricsWriter
 from tensorflow_yolo2_torch.train.trainer import Trainer, softmax_task
@@ -37,20 +38,24 @@ def main(argv: list[str] | None = None) -> int:
     common.refuse_ignored_tf_checkpoint(p, args.tf_checkpoint)
 
     batch_size = args.batch_size or 16
+    mesh = common.start_mesh(batch_size, args.device)
+    if not in_mesh(mesh):
+        return idle(mesh)
     iters = args.iters or 1000
     lr = args.learning_rate or 1e-4
     dtype = (torch.bfloat16 if args.compute_dtype == "bfloat16"
              else torch.float32)
 
-    imdb = TFFlowers(batch_size=batch_size, image_size=args.image_size,
-                     val_split=args.val_split, data_path=args.data_path,
-                     seed=args.seed)
+    imdb = common.shard_dataset(TFFlowers(
+        batch_size=common.local_batch(batch_size, mesh),
+        image_size=args.image_size, val_split=args.val_split,
+        data_path=args.data_path, seed=args.seed), mesh)
     paths = Paths()
     trainer = Trainer(
         Darknet19Classifier(num_classes=imdb.num_class), softmax_task(),
         OptimizerConfig(name="adam",
                         schedule=LRScheduleConfig(learning_rate=lr)),
-        device=args.device, compute_dtype=dtype)
+        device=args.device, compute_dtype=dtype, mesh=mesh)
     mgr = CheckpointManager("darknet19", imdb.name, paths=paths)
     tb_train, tb_val = paths.tb_dirs("darknet19", imdb.name)
     writer, val_writer = MetricsWriter(tb_train), MetricsWriter(tb_val)
@@ -59,7 +64,9 @@ def main(argv: list[str] | None = None) -> int:
 
     def eval_fn(state, step):
         metrics = trainer.eval_step(state, *imdb.get_val())
-        val_writer.scalars(step, {k: float(v) for k, v in metrics.items()})
+        if trainer.is_chief:
+            val_writer.scalars(step, {k: float(v)
+                                      for k, v in metrics.items()})
 
     try:
         common.run_train_loop(
@@ -68,6 +75,7 @@ def main(argv: list[str] | None = None) -> int:
             save_every=args.save_every or iters,
             num_workers=args.num_workers, eval_fn=eval_fn,
             eval_every=args.eval_every, trace_dir=args.profile_dir)
+        release_idle(mesh)
     finally:
         writer.close()
         val_writer.close()

@@ -32,6 +32,7 @@ from tensorflow_yolo2_torch.entries.imagenet_train_darknet import (
 from tensorflow_yolo2_torch.models.darknet import Darknet19Classifier
 from tensorflow_yolo2_torch.models.fold import fold_params
 from tensorflow_yolo2_torch.ops import quant
+from tensorflow_yolo2_torch.parallel.mesh import idle, in_mesh, release_idle
 from tensorflow_yolo2_torch.train.checkpoint import CheckpointManager
 from tensorflow_yolo2_torch.train.trainer import Trainer, softmax_task
 from tensorflow_yolo2_torch.utils.device import device_normalize
@@ -62,9 +63,17 @@ def main(argv: list[str] | None = None) -> int:
     common.refuse_ignored_tf_checkpoint(p, args.tf_checkpoint)
 
     batch_size = args.batch_size or 64
+    mesh = common.start_mesh(batch_size, args.device)
+    if not in_mesh(mesh):
+        return idle(mesh)
+    chief = common.data_shard(mesh)[0] == 0
     dtype = (torch.bfloat16 if args.compute_dtype == "bfloat16"
              else torch.float32)
-    imdb = IlsvrcCls("val", batch_size=batch_size, data_path=args.data_path)
+    imdb = IlsvrcCls("val", batch_size=common.local_batch(batch_size, mesh),
+                     data_path=args.data_path)
+    n_batches = args.max_batches or max(1, len(imdb.gt_labels) //
+                                        batch_size)
+    common.shard_dataset(imdb, mesh)  # its rows of each global batch
     trainer = Trainer(Darknet19Classifier(num_classes=imdb.num_class),
                       softmax_task(), momentum_config(1e-3),
                       device=args.device, compute_dtype=dtype)
@@ -86,7 +95,6 @@ def main(argv: list[str] | None = None) -> int:
             return {"accuracy": torch.mean(
                 (torch.argmax(logits, -1) == labels).float())}
 
-    n_batches = args.max_batches or imdb.total_batch
     timer = Timer()
     correct = total = 0
     with PrefetchLoader(imdb.get, num_workers=args.num_workers) as loader:
@@ -96,14 +104,20 @@ def main(argv: list[str] | None = None) -> int:
             timer.tic()
             acc = float(eval_step(state, images, labels)["accuracy"])
             timer.toc()
-            correct += acc * batch_size
-            total += batch_size
-            if i % 10 == 0:
+            correct += acc * labels.shape[0]
+            total += labels.shape[0]
+            if chief and i % 10 == 0:
                 print(f"batch {i}/{n_batches}: acc {acc:.4f}, "
                       f"avg {timer.average_time:.4f}s/batch "
                       f"({batch_size / timer.average_time:.1f} img/s)")
-    print(f"top-1 accuracy: {correct / max(total, 1):.4f} over {total} images")
-    print(f"throughput: {batch_size / timer.average_time:.1f} images/sec")
+    correct, total = common.sum_over_data(mesh, correct, total)
+    total = int(total)
+    if chief:
+        print(f"top-1 accuracy: {correct / max(total, 1):.4f} over {total} "
+              "images")
+        print(f"throughput: {batch_size / timer.average_time:.1f} "
+              "images/sec")
+    release_idle(mesh)
     return 0
 
 

@@ -57,6 +57,7 @@ from tensorflow_yolo2_torch.entries import common
 from tensorflow_yolo2_torch.models.contrast import ContrastInputModel
 from tensorflow_yolo2_torch.models.darknet import init_params_
 from tensorflow_yolo2_torch.models.registry import get_network
+from tensorflow_yolo2_torch.parallel.mesh import idle, in_mesh, release_idle
 from tensorflow_yolo2_torch.train.adversarial import (
     adversarial_train_step_pair,
     make_attack,
@@ -142,21 +143,26 @@ def main(argv: list[str] | None = None) -> int:
                                  args.tf_attack_weights)
 
     batch_size = args.batch_size or 18
+    mesh = common.start_mesh(batch_size, args.device)
+    if not in_mesh(mesh):
+        return idle(mesh)
+    local = common.local_batch(batch_size, mesh)
     iters = args.iters or 10_000
     lr = args.learning_rate or 1e-3
     dtype = (torch.bfloat16 if args.compute_dtype == "bfloat16"
              else torch.float32)
 
     size_kw = {"image_size": args.image_size} if args.image_size else {}
-    imdb = IlsvrcCls("train", batch_size=batch_size, data_aug=True,
-                     random_noise=args.noise_aug, data_path=args.data_path,
-                     seed=args.seed, **size_kw)
+    imdb = common.shard_dataset(IlsvrcCls(
+        "train", batch_size=local, data_aug=True,
+        random_noise=args.noise_aug, data_path=args.data_path,
+        seed=args.seed, **size_kw), mesh)
     val_imdb = None
     if args.eval_every:
         try:
-            val_imdb = IlsvrcCls("val", batch_size=batch_size,
-                                 data_aug=False, data_path=args.data_path,
-                                 seed=args.seed, **size_kw)
+            val_imdb = common.shard_dataset(IlsvrcCls(
+                "val", batch_size=local, data_aug=False,
+                data_path=args.data_path, seed=args.seed, **size_kw), mesh)
         except (FileNotFoundError, OSError) as e:
             print(f"WARNING: no usable val split ({e}) — "
                   "training without validation streams")
@@ -168,7 +174,8 @@ def main(argv: list[str] | None = None) -> int:
         OptimizerConfig(name="momentum", momentum=0.9,
                         schedule=LRScheduleConfig(learning_rate=lr)),
         device=args.device, compute_dtype=dtype,
-        tx_factory=grouped_tx_factory(lr) if args.grouped_opt else None)
+        tx_factory=grouped_tx_factory(lr) if args.grouped_opt else None,
+        mesh=mesh)
     paths = Paths()
     name = f"{args.backbone}_adv"
     mgr = CheckpointManager(name, imdb.name, save_by_epoch=False,
@@ -232,7 +239,7 @@ def main(argv: list[str] | None = None) -> int:
                 state, clean_m, adv_m = adversarial_train_step_pair(
                     trainer, state, images, labels, epsilon=args.epsilon,
                     attack_fn=attack_fn)
-                if i % args.log_every == 0:
+                if trainer.is_chief and i % args.log_every == 0:
                     vals = scalars(clean_m, adv_m)
                     writer.scalars(i, vals)
                     print(f"iter {i}: " + ", ".join(
@@ -245,15 +252,18 @@ def main(argv: list[str] | None = None) -> int:
                     vm = trainer.eval_step(state, vx, vy)
                     vam = trainer.eval_step(state, attack_fn(vx, vy), vy)
                     vvals = scalars(vm, vam)
-                    val_writer.scalars(i, vvals)
-                    print(f"iter {i} [val]: " + ", ".join(
-                        f"{k}: {v:.4f}" for k, v in vvals.items()))
+                    if trainer.is_chief:
+                        val_writer.scalars(i, vvals)
+                        print(f"iter {i} [val]: " + ", ".join(
+                            f"{k}: {v:.4f}" for k, v in vvals.items()))
                 if i % save_every == 0:
-                    mgr.save(i, state)
+                    common.save_snapshot(trainer, mgr, i, state)
                     last_saved = i
         if iters > 0 and last_saved != start + iters:
-            mgr.save(start + iters, state)
-            print(f"Saved final snapshot at iter {start + iters}")
+            common.save_snapshot(trainer, mgr, start + iters, state)
+            if trainer.is_chief:
+                print(f"Saved final snapshot at iter {start + iters}")
+        release_idle(mesh)
     finally:
         writer.close()
         val_writer.close()

@@ -45,6 +45,7 @@ from tensorflow_yolo2_torch.data.prefetch import (
 )
 from tensorflow_yolo2_torch.entries import common
 from tensorflow_yolo2_torch.models.darknet import Darknet19Classifier
+from tensorflow_yolo2_torch.parallel.mesh import idle, in_mesh, release_idle
 from tensorflow_yolo2_torch.train.checkpoint import CheckpointManager
 from tensorflow_yolo2_torch.train.metrics import MetricsWriter
 from tensorflow_yolo2_torch.train.trainer import Trainer, softmax_task
@@ -78,20 +79,24 @@ def main(argv: list[str] | None = None) -> int:
     common.refuse_ignored_tf_checkpoint(p, args.tf_checkpoint)
 
     batch_size = args.batch_size or 48
+    mesh = common.start_mesh(batch_size, args.device)
+    if not in_mesh(mesh):
+        return idle(mesh)
+    local = common.local_batch(batch_size, mesh)
     epochs = args.epochs or 10
     lr = args.learning_rate or 1e-3
     dtype = (torch.bfloat16 if args.compute_dtype == "bfloat16"
              else torch.float32)
 
-    train_imdb = _train_imdb_factory(batch_size, args.data_path, args.seed,
-                                     args.uint8_transfer)
-    val_imdb = IlsvrcCls("val", batch_size=batch_size,
-                         data_path=args.data_path, seed=args.seed,
-                         uint8=args.uint8_transfer)
+    train_imdb = common.shard_dataset(_train_imdb_factory(
+        local, args.data_path, args.seed, args.uint8_transfer), mesh)
+    val_imdb = common.shard_dataset(IlsvrcCls(
+        "val", batch_size=local, data_path=args.data_path, seed=args.seed,
+        uint8=args.uint8_transfer), mesh)
     paths = Paths()
     trainer = Trainer(Darknet19Classifier(num_classes=train_imdb.num_class),
                       softmax_task(), momentum_config(lr),
-                      device=args.device, compute_dtype=dtype)
+                      device=args.device, compute_dtype=dtype, mesh=mesh)
     mgr = CheckpointManager(NET_NAME, train_imdb.name, save_by_epoch=True,
                             paths=paths)
     tb_train, tb_val = paths.tb_dirs(NET_NAME, train_imdb.name)
@@ -109,16 +114,18 @@ def main(argv: list[str] | None = None) -> int:
     try:
         def eval_fn(state, step):
             metrics = trainer.eval_step(state, *next(val_stream))
-            val_writer.scalars(step, {k: float(v)
-                                      for k, v in metrics.items()})
+            if trainer.is_chief:
+                val_writer.scalars(step, {k: float(v)
+                                          for k, v in metrics.items()})
 
         get_batch, num_workers = train_imdb.get, args.num_workers
         if args.process_workers:
             stream = EpochShardedStream(
-                functools.partial(_train_imdb_factory, batch_size,
+                functools.partial(_train_imdb_factory, local,
                                   args.data_path, args.seed,
                                   args.uint8_transfer),
-                batch_size=batch_size, seed=args.seed, drop_remainder=True)
+                batch_size=local, seed=args.seed, drop_remainder=True,
+                shard=common.data_shard(mesh))
             proc_loader = ProcessPrefetchLoader(
                 stream, num_workers=args.process_workers,
                 prefetch_size=2 * args.process_workers)
@@ -132,6 +139,7 @@ def main(argv: list[str] | None = None) -> int:
             num_workers=num_workers, eval_fn=eval_fn,
             eval_every=args.eval_every, save_step_divisor=total_batch,
             trace_dir=args.profile_dir)
+        release_idle(mesh)
     finally:
         if proc_loader is not None:
             proc_loader.close()

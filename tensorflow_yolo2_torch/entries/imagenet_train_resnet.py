@@ -34,6 +34,7 @@ from tensorflow_yolo2_torch.data.ilsvrc import IlsvrcCls
 from tensorflow_yolo2_torch.data.prefetch import PrefetchLoader
 from tensorflow_yolo2_torch.entries import common
 from tensorflow_yolo2_torch.models.resnet import ResNet50V1
+from tensorflow_yolo2_torch.parallel.mesh import idle, in_mesh, release_idle
 from tensorflow_yolo2_torch.train.checkpoint import CheckpointManager
 from tensorflow_yolo2_torch.train.metrics import MetricsWriter
 from tensorflow_yolo2_torch.train.trainer import Trainer, softmax_task
@@ -62,19 +63,25 @@ def main(argv: list[str] | None = None) -> int:
     trunk = common.resnet_tf_trunk(args.tf_checkpoint, paths.weights)
 
     batch_size = args.batch_size or 32
+    mesh = common.start_mesh(batch_size, args.device)
+    if not in_mesh(mesh):
+        return idle(mesh)
+    local = common.local_batch(batch_size, mesh)
     epochs = args.epochs or 10
     lr = args.learning_rate or 1e-3
     dtype = (torch.bfloat16 if args.compute_dtype == "bfloat16"
              else torch.float32)
 
-    train_imdb = IlsvrcCls("train", batch_size=batch_size, data_aug=True,
-                           data_path=args.data_path, seed=args.seed)
-    val_imdb = IlsvrcCls("val", batch_size=batch_size,
-                         data_path=args.data_path, seed=args.seed)
+    train_imdb = common.shard_dataset(IlsvrcCls(
+        "train", batch_size=local, data_aug=True, data_path=args.data_path,
+        seed=args.seed), mesh)
+    val_imdb = common.shard_dataset(IlsvrcCls(
+        "val", batch_size=local, data_path=args.data_path, seed=args.seed),
+        mesh)
     model = ResNet50V1(num_classes=train_imdb.num_class, global_pool=True)
     trainer = Trainer(model, softmax_task(),
                       fine_tune_config(lr, args.train_all),
-                      device=args.device, compute_dtype=dtype)
+                      device=args.device, compute_dtype=dtype, mesh=mesh)
     mgr = CheckpointManager(NET_NAME, train_imdb.name, save_by_epoch=True,
                             paths=paths)
     tb_train, tb_val = paths.tb_dirs(NET_NAME, train_imdb.name)
@@ -92,8 +99,9 @@ def main(argv: list[str] | None = None) -> int:
     try:
         def eval_fn(state, step):
             metrics = trainer.eval_step(state, *next(val_stream))
-            val_writer.scalars(step, {k: float(v)
-                                      for k, v in metrics.items()})
+            if trainer.is_chief:
+                val_writer.scalars(step, {k: float(v)
+                                          for k, v in metrics.items()})
 
         common.run_train_loop(
             trainer, state, train_imdb.get, mgr, writer,
@@ -102,6 +110,7 @@ def main(argv: list[str] | None = None) -> int:
             num_workers=args.num_workers, eval_fn=eval_fn,
             eval_every=args.eval_every, save_step_divisor=total_batch,
             trace_dir=args.profile_dir)
+        release_idle(mesh)
     finally:
         val_stream.close()
         writer.close()

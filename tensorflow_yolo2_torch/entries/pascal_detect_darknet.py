@@ -19,6 +19,12 @@ CUDA kernel, ``ops.cuda_stem.fused_stem`` (B4 for a bf16 detector, B4-f32
 for a float32 one), which keeps the conv1 activation out of device
 memory; the folded detector runs on from there.
 
+``--spatial N`` serves the folded chain H-sharded over N ranks, one
+process each (``torchrun --nproc-per-node N``; ``make_spatial_detect_fn``,
+``parallel.spatial``): rank 0 reads and draws, every rank computes its
+rows of every feature map, and rank 0 decodes the gathered grid as
+``make_detect_fn`` does.
+
 ``--int8`` serves the post-training-quantized chain (``ops.quant``: int8
 convs, calibrated on the input image; ``--int8-export NPZ`` also writes
 it), ``--int8-weights NPZ`` serves such an artifact, of this package or
@@ -281,6 +287,65 @@ def make_detect_fn(yolo: YoloConfig, params_or_state_dict, batch_stats=None,
     return detect
 
 
+def make_spatial_detect_fn(yolo: YoloConfig, params_or_state_dict,
+                           batch_stats=None, object_thresh: float = 0.5,
+                           use_nms: bool = False, nms_iou: float = 0.5,
+                           v2: bool = False, passthrough: bool = False,
+                           downsample: str = "pool", n_shards: int = 2,
+                           axis: str = "spatial",
+                           dtype: torch.dtype = torch.bfloat16,
+                           device=None):
+    """The H-sharded serving twin of ``make_detect_fn`` (``--spatial N``):
+    the BN-folded trunk and head run over the ``n_shards`` ranks of the
+    process group (exactly that many; ``parallel.spatial.spatial_mesh``)
+    with per-layer halo exchange (``parallel.spatial.
+    spatial_detector_fn``), in ``dtype``, and rank 0 decodes the gathered
+    grid with the serving decode (``decode``: B1 / B3, B2 for an anchor
+    head with NMS). Every head and trunk (v1, ``v2``, ``passthrough``,
+    ``downsample``). The returned function takes rank 0's NHWC batch
+    (the other ranks may pass None) and returns ``Detections`` on rank 0,
+    None on the others. Needs ``image_size`` % (32·n_shards) == 0 and
+    batch statistics to fold."""
+    from tensorflow_yolo2_torch.parallel.spatial import (
+        spatial_detector_fn,
+        spatial_mesh,
+    )
+
+    if v2 != yolo.per_slot_classes:
+        raise ValueError(
+            f"v2={v2} disagrees with yolo.per_slot_classes="
+            f"{yolo.per_slot_classes} (see make_detect_fn)")
+    if passthrough and not v2:
+        raise ValueError("passthrough is the YOLOv2 reorg head — it "
+                         "requires v2=True")
+    if yolo.image_size % (32 * n_shards):
+        raise ValueError(
+            f"--spatial {n_shards} needs --image-size divisible by "
+            f"{32 * n_shards} (5 stride-2 downsamples per shard); got "
+            f"{yolo.image_size}")
+    mesh = spatial_mesh(n_shards, axis)
+    state_dict = as_state_dict(params_or_state_dict, batch_stats)
+    if not any(k.endswith(".running_var") for k in state_dict):
+        raise ValueError("spatial serving folds BN into the convs; the "
+                         "restored snapshot has no batch statistics")
+    device = resolve_device(device)
+    folded = {k: v.float().to(device, dtype)
+              for k, v in fold_params(state_dict).items()}
+    forward = spatial_detector_fn(mesh, axis=axis, bn_on_output=not v2,
+                                  downsample=downsample,
+                                  head="v2p" if passthrough else "v1")
+    chief = torch.distributed.get_rank(mesh.get_group(axis)) == 0
+
+    @torch.inference_mode()
+    def detect(images) -> Detections | None:
+        grid = forward(folded, images if chief else None)
+        if not chief:
+            return None
+        return decode(grid, yolo, object_thresh, use_nms, nms_iou, v2)
+
+    return detect
+
+
 def decode(grid: torch.Tensor, yolo: YoloConfig, object_thresh: float,
            use_nms: bool, nms_iou: float, v2: bool) -> Detections:
     """The serving path's decode of a grid: with NMS the decode+NMS kernel
@@ -380,13 +445,23 @@ def main(argv: list[str] | None = None) -> int:
                    help="TF checkpoint prefix (V1 or V2) of the reference's "
                         "detector to import instead of --weights")
     p.add_argument("--spatial", type=int, default=0, metavar="N",
-                   help="not ported yet (ROADMAP.md, queue A, A8)")
+                   help="serve the folded chain with the H dimension "
+                        "sharded over N ranks (per-layer halo exchange, "
+                        "parallel.spatial); start one process a rank: "
+                        "torchrun --nproc-per-node N -m <this entry>; "
+                        "--image-size must divide by 32·N")
     p.add_argument("--device", default=None,
                    help="torch device (default: cuda)")
     args = p.parse_args(argv)
     int8 = args.int8 or args.int8_weights
-    if args.spatial:
-        p.error("--spatial is not ported yet (ROADMAP.md, queue A, A8)")
+    if args.spatial and args.spatial < 2:
+        p.error("--spatial N needs N >= 2 (1 shard is the normal path)")
+    if args.spatial and (int8 or args.int8_export or args.pallas_stem
+                         or args.no_fold_bn):
+        p.error("--spatial serves the folded f32/bf16 chain sharded "
+                "over devices; it composes with --nms/--v2/"
+                "--passthrough/--downsample but not with int8, "
+                "--pallas-stem or --no-fold-bn")
     if args.image_size % 32:
         p.error("--image-size must be a multiple of 32")
     if args.int8_export and not args.int8:
@@ -474,13 +549,27 @@ def main(argv: list[str] | None = None) -> int:
                                   "image_size": yolo.image_size})
             print(f"Exported int8 artifact to {args.int8_export}")
         detect = make_detect_fn_int8(yolo, qlayers, args.threshold, **kw)
+    elif args.spatial:
+        from tensorflow_yolo2_torch.parallel.mesh import (
+            maybe_initialize_distributed,
+        )
+
+        maybe_initialize_distributed(args.device)
+        try:
+            detect = make_spatial_detect_fn(
+                yolo, state_dict, None, args.threshold,
+                downsample=args.downsample, n_shards=args.spatial, **kw)
+        except ValueError as e:
+            p.error(str(e))
     else:
         detect = make_detect_fn(yolo, state_dict, None, args.threshold,
                                 fold_bn=not args.no_fold_bn,
                                 pallas_stem=args.pallas_stem,
                                 downsample=args.downsample, **kw)
-    boxes, scores, classes = (t[0].cpu().numpy()
-                              for t in detect(image[None]))
+    dets = detect(image[None])
+    if dets is None:  # a spatial rank other than 0: rank 0 draws
+        return 0
+    boxes, scores, classes = (t[0].cpu().numpy() for t in dets)
     if args.host_nms:
         native.require()  # raises with the compiler's output if not built
         keep = native.nms(boxes, scores, classes, iou_thresh=0.5,

@@ -26,12 +26,20 @@ device.
 ``--tf-checkpoint`` starts from the reference's detector checkpoint (TF
 V1 or V2, read in numpy alone: ``compat.tf_import``) in place of fresh
 weights; the classifier's snapshot, where there is one, still warm-starts
-the trunk over it, as in the JAX package. Spatial sharding
-(``--spatial``) is not ported yet and is refused.
+the trunk over it, as in the JAX package.
+
+``--spatial N`` trains with the H dimension sharded over N ranks, one
+process each (``torchrun --nproc-per-node N``): per-layer halo exchange
+and live BatchNorm on the ranks' summed statistics
+(``parallel.spatial``), Adam with ``--grad-clip``; any head and trunk.
+Rank 0 reads the batches and writes the snapshots, which keep the
+normal trainer's keys. Started under ``torchrun``, the normal path is
+data-parallel over the ranks (``entries.common.start_mesh``).
 """
 
 from __future__ import annotations
 
+import contextlib
 import os
 import random
 import threading
@@ -51,6 +59,7 @@ from tensorflow_yolo2_torch.data.anchors import (
     iou_kmeans,
     persist_anchors,
 )
+from tensorflow_yolo2_torch.data.prefetch import PrefetchLoader
 from tensorflow_yolo2_torch.data.voc import PascalVOC
 from tensorflow_yolo2_torch.entries import common
 from tensorflow_yolo2_torch.losses.yolo_v2 import yolo_v2_task
@@ -58,13 +67,17 @@ from tensorflow_yolo2_torch.models.darknet import (
     Darknet19Detector,
     Darknet19DetectorV2,
 )
+from tensorflow_yolo2_torch.parallel.mesh import (
+    in_mesh,
+    idle,
+    maybe_initialize_distributed,
+    rank,
+    release_idle,
+)
 from tensorflow_yolo2_torch.train.checkpoint import CheckpointManager
 from tensorflow_yolo2_torch.train.metrics import MetricsWriter
 from tensorflow_yolo2_torch.train.trainer import Trainer, yolo_task
 
-# flags of the JAX entry point that the port does not have yet, with the
-# value that means "not given" and the queue item that owns them
-_NOT_PORTED = {"spatial": (0, "A8")}
 MULTISCALE_HOP = 10  # batches between two multiscale size draws
 
 
@@ -87,6 +100,84 @@ def multiscale_batches(imdbs: dict, seed: int):
         return imdb.get()
 
     return get_batch
+
+
+def run_spatial_training(args, mesh, yolo, trainer: Trainer, get_batch,
+                         mgr, writer, warm: str | None, imported,
+                         iters: int, save_every: int) -> int:
+    """The H-sharded training loop (``--spatial N``): the detector runs
+    over the ranks of ``mesh`` (``parallel.spatial.spatial_mesh``;
+    ``parallel.spatial.spatial_yolo_train_fn`` / ``_v2_train_fn``) and
+    the trainer's optimizer (Adam, ``--grad-clip``) applies the summed
+    gradients, the same on every rank. The state comes from
+    ``common.bootstrap_state`` (a resume, a warm start, fresh weights)
+    and is saved with the trainer's keys, so detect / eval serve it and
+    a normal run resumes it. ``get_batch`` is rank 0's (None on the
+    others)."""
+    from tensorflow_yolo2_torch.parallel.spatial import (
+        spatial_yolo_train_fn,
+        spatial_yolo_v2_train_fn,
+    )
+    from tensorflow_yolo2_torch.train.optimizers import global_norm
+    from tensorflow_yolo2_torch.utils.timer import Timer
+
+    group = mesh.get_group("spatial")
+    chief = torch.distributed.get_rank(group) == 0
+    if args.v2:
+        # the ignore term's global GT pool rides one all-gather of the
+        # label boxes; --passthrough selects the reorg head
+        step_fn = spatial_yolo_v2_train_fn(
+            mesh, yolo, bn_momentum=args.bn_momentum,
+            downsample=args.downsample,
+            head="v2p" if args.passthrough else "v2")
+    else:
+        step_fn = spatial_yolo_train_fn(mesh, yolo, bn_on_output=True,
+                                        bn_momentum=args.bn_momentum,
+                                        downsample=args.downsample)
+    state, start = common.bootstrap_state(
+        trainer, mgr, torch.Generator().manual_seed(args.seed),
+        warm_start_dir=warm, state_dict=imported)
+    model = state.model
+    params = {k: p for k, p in model.named_parameters() if p.requires_grad}
+    stats = {k: v for k, v in model.state_dict().items()
+             if k.endswith(("running_mean", "running_var"))}
+    timer = Timer()
+    last_saved = start
+
+    def save(i: int) -> None:
+        if chief:
+            mgr.save(i, state)
+            print(f"Saved snapshot at iter {i} (iter {i})")
+        torch.distributed.barrier(group=group)
+
+    with PrefetchLoader(get_batch, num_workers=args.num_workers) \
+            if chief else contextlib.nullcontext() as loader:
+        stream = iter(loader) if chief else None
+        for i in range(start + 1, start + iters + 1):
+            images, labels = next(stream) if chief else (None, None)
+            timer.tic()
+            extra = (state.step,) if args.v2 else ()
+            loss, grads, new_stats = step_fn(params, stats, images, labels,
+                                             *extra)
+            trainer.optimizer.update_(grads, state.opt_state, params,
+                                      global_norm(grads.values()))
+            with torch.no_grad():
+                for k, v in new_stats.items():
+                    stats[k].copy_(v)
+            state.step += 1
+            timer.toc()
+            if chief and i % args.log_every == 0:
+                lv = float(loss)
+                writer.scalars(i, {"loss": lv})
+                print(f"iter {i}: loss: {lv:.4f}, "
+                      f"avg step {timer.average_time * 1000:.1f} ms")
+            if save_every and i % save_every == 0:
+                save(i)
+                last_saved = i
+    final = start + iters
+    if iters > 0 and last_saved != final:
+        save(final)
+    return 0
 
 
 def main(argv: list[str] | None = None) -> int:
@@ -130,16 +221,20 @@ def main(argv: list[str] | None = None) -> int:
                         "--lr-decay-factor every iters/4 steps); after a "
                         "resume it re-anchors at the resumed step")
     p.add_argument("--lr-decay-factor", type=float, default=0.5)
-    # not ported yet: refused below, never ignored
     p.add_argument("--spatial", type=int, default=0, metavar="N",
-                   help="not ported yet")
+                   help="train with the H dimension sharded over N ranks "
+                        "(per-layer halo exchange, live BatchNorm on the "
+                        "ranks' summed statistics: parallel.spatial); "
+                        "the v1 head, --v2, or --v2 --passthrough, with "
+                        "--downsample stride too; start one process a "
+                        "rank: torchrun --nproc-per-node N -m <this "
+                        "entry>")
     args = p.parse_args(argv)
-    given = [(name, item) for name, (unset, item) in _NOT_PORTED.items()
-             if getattr(args, name) != unset]
-    if given:
-        p.error("; ".join(f"--{n.replace('_', '-')} is not ported yet "
-                          f"(ROADMAP.md, queue A, {item})"
-                          for n, item in given))
+    if args.spatial and args.spatial < 2:
+        p.error("--spatial N needs N >= 2 (1 shard is the normal path)")
+    if args.spatial and (args.multiscale or args.uint8_transfer):
+        p.error("--spatial composes with --downsample/--grad-clip/"
+                "--lr-decay but not --multiscale/--uint8-transfer")
     common.require_tf_checkpoint(p, "--tf-checkpoint", args.tf_checkpoint)
     if args.tf_checkpoint and (args.v2 or args.downsample != "pool"):
         p.error("--tf-checkpoint imports the reference's v1 detector "
@@ -159,6 +254,19 @@ def main(argv: list[str] | None = None) -> int:
             p.error("--multiscale sizes must be multiples of 32")
 
     batch_size = args.batch_size or 24
+    if args.spatial:
+        from tensorflow_yolo2_torch.parallel.spatial import spatial_mesh
+
+        maybe_initialize_distributed(args.device)
+        try:
+            smesh = spatial_mesh(args.spatial)
+        except ValueError as e:
+            p.error(str(e))
+        mesh = None
+    else:
+        mesh = common.start_mesh(batch_size, args.device)
+        if not in_mesh(mesh):
+            return idle(mesh)
     iters = args.iters or 80_000
     lr = args.learning_rate or 1e-3
     save_every = args.save_every or 40_000
@@ -202,13 +310,17 @@ def main(argv: list[str] | None = None) -> int:
         net_name += "_sd"  # keep the non-reference variant apart
 
     def dataset(cfg: YoloConfig, seed: int) -> PascalVOC:
-        return PascalVOC(args.image_set, batch_size=batch_size, yolo=cfg,
-                         flipped=args.flipped, data_path=args.data_path,
-                         uint8=args.uint8_transfer,
-                         rng=np.random.default_rng(seed))
+        return common.shard_dataset(PascalVOC(
+            args.image_set, batch_size=common.local_batch(batch_size, mesh),
+            yolo=cfg, flipped=args.flipped, data_path=args.data_path,
+            uint8=args.uint8_transfer, rng=np.random.default_rng(seed)),
+            mesh)
 
-    imdb = dataset(yolo, args.seed)
-    get_batch = imdb.get
+    # a spatial run's batches are rank 0's: it alone reads the set
+    reads = not args.spatial or rank() == 0
+    imdb = dataset(yolo, args.seed) if reads else None
+    imdb_name = imdb.name if reads else "voc_2007"
+    get_batch = imdb.get if reads else None
     if sizes:
         # one dataset a size, each with its own grids (S = size/32); the
         # anchor task re-grids itself from the labels' S
@@ -217,7 +329,7 @@ def main(argv: list[str] | None = None) -> int:
                  for s in sizes}
         get_batch = multiscale_batches(imdbs, args.seed)
     paths = Paths()
-    mgr = CheckpointManager(net_name, imdb.name, paths=paths, yolo=yolo)
+    mgr = CheckpointManager(net_name, imdb_name, paths=paths, yolo=yolo)
     # a resumed run's optimizer count is cumulative: anchor a decaying
     # schedule at the resumed step so that it spans this run's --iters
     resume_step = mgr.latest_step() or 0
@@ -227,16 +339,16 @@ def main(argv: list[str] | None = None) -> int:
                         else iters // 4),
         decay_factor=args.lr_decay_factor,
         offset_steps=resume_step if args.lr_decay != "fixed" else 0)
-    if args.v2:
+    if args.v2 and rank() == 0:
         # detect and eval decode with the priors written here; refused if
         # the dir holds snapshots trained against other priors
         persist_anchors(mgr.dir, yolo.anchors, yolo.S,
                         has_snapshots=mgr.latest_path() is not None)
-    writer = MetricsWriter(paths.tb_dirs(net_name, imdb.name, val=False)[0])
+    writer = MetricsWriter(paths.tb_dirs(net_name, imdb_name, val=False)[0])
     trainer = Trainer(model, task,
                       OptimizerConfig(name="adam", schedule=sched,
                                       grad_clip_norm=args.grad_clip),
-                      device=args.device, compute_dtype=dtype)
+                      device=args.device, compute_dtype=dtype, mesh=mesh)
     # warm start from the newest ImageNet classifier snapshot, if any
     warm = CheckpointManager("darknet19", "ilsvrc_2017_cls",
                              save_by_epoch=True, paths=paths).latest_path()
@@ -248,15 +360,20 @@ def main(argv: list[str] | None = None) -> int:
         )
         imported = state_dict_for(import_darknet19_checkpoint(
             args.tf_checkpoint, detection=True))
-    state, start = common.bootstrap_state(
-        trainer, mgr, torch.Generator().manual_seed(args.seed),
-        warm_start_dir=warm, state_dict=imported)
     try:
+        if args.spatial:
+            return run_spatial_training(args, smesh, yolo, trainer,
+                                        get_batch, mgr, writer, warm,
+                                        imported, iters, save_every)
+        state, start = common.bootstrap_state(
+            trainer, mgr, torch.Generator().manual_seed(args.seed),
+            warm_start_dir=warm, state_dict=imported)
         common.run_train_loop(
             trainer, state, get_batch, mgr, writer, start_iter=start,
             num_iters=iters, log_every=args.log_every,
             save_every=save_every, num_workers=args.num_workers,
             trace_dir=args.profile_dir)
+        release_idle(mesh)
     finally:
         writer.close()
     return 0

@@ -34,6 +34,7 @@ from tensorflow_yolo2_torch.config import (
 from tensorflow_yolo2_torch.data.voc import PascalVOC
 from tensorflow_yolo2_torch.entries import common
 from tensorflow_yolo2_torch.models.resnet import ResNet50Detector
+from tensorflow_yolo2_torch.parallel.mesh import idle, in_mesh, release_idle
 from tensorflow_yolo2_torch.train.checkpoint import CheckpointManager
 from tensorflow_yolo2_torch.train.metrics import MetricsWriter
 from tensorflow_yolo2_torch.train.trainer import Trainer, yolo_task
@@ -52,6 +53,9 @@ def main(argv: list[str] | None = None) -> int:
                                    prefix="backbone")
 
     batch_size = args.batch_size or 4
+    mesh = common.start_mesh(batch_size, args.device)
+    if not in_mesh(mesh):
+        return idle(mesh)
     iters = args.iters or 200_000
     lr = args.learning_rate or 5e-4
     save_every = args.save_every or 40_000
@@ -59,15 +63,16 @@ def main(argv: list[str] | None = None) -> int:
              else torch.float32)
 
     yolo = YoloConfig()
-    imdb = PascalVOC(args.image_set, batch_size=batch_size, yolo=yolo,
-                     data_path=args.data_path,
-                     rng=np.random.default_rng(args.seed))
+    imdb = common.shard_dataset(PascalVOC(
+        args.image_set, batch_size=common.local_batch(batch_size, mesh),
+        yolo=yolo, data_path=args.data_path,
+        rng=np.random.default_rng(args.seed)), mesh)
     model = ResNet50Detector(output_channels=yolo.cell_channels, S=yolo.S,
                              image_size=yolo.image_size)
     trainer = Trainer(model, yolo_task(yolo, histograms=True),
                       OptimizerConfig(name="adam", schedule=LRScheduleConfig(
                           learning_rate=lr)),
-                      device=args.device, compute_dtype=dtype)
+                      device=args.device, compute_dtype=dtype, mesh=mesh)
     mgr = CheckpointManager(NET_NAME, imdb.name, paths=paths, yolo=yolo)
     writer = MetricsWriter(paths.tb_dirs(NET_NAME, imdb.name, val=False)[0])
     state, start = common.bootstrap_state(
@@ -80,6 +85,7 @@ def main(argv: list[str] | None = None) -> int:
             num_iters=iters, log_every=args.log_every,
             save_every=save_every, num_workers=args.num_workers,
             trace_dir=args.profile_dir)
+        release_idle(mesh)
     finally:
         writer.close()
     return 0

@@ -23,9 +23,16 @@ one. ``--checkpoint-path`` may also name a TF checkpoint prefix (V1 or
 V2; anything that is not a directory), imported for ``--model-name``
 (``compat.tf_import.import_checkpoint_for``, read in numpy alone) and
 merged by name and shape as slim's ``_get_init_fn`` does. Refused:
-``--num-clones`` or ``--model-parallel`` above 1 (not ported yet, A8) and
 ``--tf-checkpoint``, which the JAX entry ignores. Runs on ``cuda`` unless
 ``--device`` names another device.
+
+Started by ``torchrun`` (one process a rank: NCCL on cards, gloo on the
+CPU), the step is data-parallel over ``--num-clones`` ranks (default: the
+largest rank count that divides the batch, ``parallel.mesh.
+make_mesh_for_batch``) and tensor-parallel over ``--model-parallel``;
+each rank reads its own shard of the data, and rank 0 writes snapshots
+and metrics. Without a launcher both stay 1 (a larger value raises, as
+the JAX entry does on one device).
 
     python -m tensorflow_yolo2_torch.entries.train_classifier \\
         --model-name vgg_16 --dataset-name flowers --optimizer momentum \\
@@ -46,6 +53,15 @@ from tensorflow_yolo2_torch.config import (
 from tensorflow_yolo2_torch.entries import common
 from tensorflow_yolo2_torch.entries.datasets import get_dataset
 from tensorflow_yolo2_torch.models.registry import get_network
+from tensorflow_yolo2_torch.parallel.mesh import (
+    MeshConfig,
+    idle,
+    in_mesh,
+    make_mesh,
+    make_mesh_for_batch,
+    maybe_initialize_distributed,
+    release_idle,
+)
 from tensorflow_yolo2_torch.train.checkpoint import CheckpointManager
 from tensorflow_yolo2_torch.train.metrics import MetricsWriter
 from tensorflow_yolo2_torch.train.trainer import Trainer, softmax_task
@@ -76,8 +92,12 @@ def add_slim_flags(p) -> None:
     p.add_argument("--checkpoint-exclude-scopes", default=None)
     p.add_argument("--clip-gradient-norm", type=float, default=None)
     p.add_argument("--num-clones", type=int, default=None,
-                   help="data-parallel width (one device until A8)")
-    p.add_argument("--model-parallel", type=int, default=1)
+                   help="data-parallel width (default: the largest rank "
+                        "count that divides the batch); a run of more "
+                        "than one rank starts under torchrun")
+    p.add_argument("--model-parallel", type=int, default=1,
+                   help="tensor-parallel width: weights with >= 512 "
+                        "output channels are sharded over it")
     p.add_argument("--warmup-steps", type=int, default=0)
     p.add_argument("--save-interval-secs", type=float, default=0,
                    help="additionally snapshot on a wall-clock cadence")
@@ -104,13 +124,19 @@ def add_slim_flags(p) -> None:
                         "scalars in the metrics stream")
 
 
-def refuse_unported(p, args) -> None:
-    """The flags whose features are not ported yet, each refused naming
-    its queue item, never passed over."""
-    if (getattr(args, "num_clones", None) or 1) > 1 or \
-            getattr(args, "model_parallel", 1) > 1:
-        p.error("--num-clones / --model-parallel above 1: parallelism is "
-                "not ported yet (ROADMAP.md, queue A, A8)")
+def make_run_mesh(p, args, batch_size: int):
+    """The run's mesh (JAX's rule): ``--num-clones`` × ``--model-parallel``
+    where the clones are given, else the largest data axis that divides
+    the batch; None for one process. A mesh the ranks cannot hold is the
+    parser's error."""
+    maybe_initialize_distributed(args.device)
+    try:
+        if args.num_clones is not None:
+            return make_mesh(MeshConfig(data=args.num_clones,
+                                        model=args.model_parallel))
+        return make_mesh_for_batch(batch_size, model=args.model_parallel)
+    except ValueError as e:
+        p.error(str(e))
 
 
 def import_tf_for(p, model_name: str, path: str):
@@ -175,24 +201,33 @@ def main(argv: list[str] | None = None) -> int:
     p = common.base_parser(__doc__)
     add_slim_flags(p)
     args = p.parse_args(argv)
-    refuse_unported(p, args)
     common.refuse_ignored_tf_checkpoint(p, args.tf_checkpoint)
 
     batch_size = args.batch_size or 32
+    mesh = make_run_mesh(p, args, batch_size)
+    if not in_mesh(mesh):
+        return idle(mesh)
+    if mesh is not None and batch_size % mesh.size(0):
+        p.error(f"--batch-size {batch_size} does not split over "
+                f"--num-clones {mesh.size(0)}")
     iters = args.iters or 1000
     lr = args.learning_rate or 0.01
     dtype = (torch.bfloat16 if args.compute_dtype == "bfloat16"
              else torch.float32)
 
     size_kw = {"image_size": args.image_size} if args.image_size else {}
-    imdb = get_dataset(args.dataset_name, args.dataset_split_name,
-                       batch_size=batch_size, data_path=args.data_path,
-                       seed=args.seed,
-                       preprocessing_name=args.preprocessing_name, **size_kw)
+    imdb = common.shard_dataset(get_dataset(
+        args.dataset_name, args.dataset_split_name,
+        batch_size=common.local_batch(batch_size, mesh),
+        data_path=args.data_path, seed=args.seed,
+        preprocessing_name=args.preprocessing_name, **size_kw), mesh)
     if not 0 <= args.labels_offset < imdb.num_class:
         p.error(f"--labels-offset {args.labels_offset} out of range for "
                 f"{imdb.num_class} classes")
     model = build_model(p, args, imdb, imdb.num_class - args.labels_offset)
+    if args.model_parallel > 1 and args.optimizer == "lamb":
+        p.error("--model-parallel shards weights; lamb's per-tensor trust "
+                "ratio needs them whole")
 
     opt_cfg = OptimizerConfig(
         name=args.optimizer, momentum=args.momentum,
@@ -211,7 +246,7 @@ def main(argv: list[str] | None = None) -> int:
     trainer = Trainer(
         model, softmax_task(label_smoothing=args.label_smoothing), opt_cfg,
         device=args.device, compute_dtype=dtype,
-        activation_summaries=args.activation_summaries)
+        activation_summaries=args.activation_summaries, mesh=mesh)
     paths = Paths()
     mgr = CheckpointManager(args.model_name, imdb.name, paths=paths)
     writer = MetricsWriter(
@@ -236,6 +271,7 @@ def main(argv: list[str] | None = None) -> int:
             num_workers=args.num_workers,
             save_interval_secs=args.save_interval_secs,
             trace_dir=args.profile_dir)
+        release_idle(mesh)
     finally:
         writer.close()
     return 0

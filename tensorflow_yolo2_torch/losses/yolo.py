@@ -12,8 +12,9 @@ term is the batch mean of a sum over the grid.
 - Labels are the (S, S, 5+C) grid ``[responsible, cx, cy, w, h (pixels
   of the resized image), one-hot class]`` of ``data.voc.build_label_grid``.
 - The loss runs in float32 whatever the network's compute type.
-
-The spatially sharded path's ``offsets`` are not ported yet.
+- Every term is a sum of per-cell squares, so the loss over a
+  row-sharded grid is the sum of the shards' term sums
+  (``yolo_loss_term_sums`` with ``offsets``, parallel.spatial).
 """
 
 from __future__ import annotations
@@ -43,11 +44,14 @@ class YoloLossAux(NamedTuple):
 
 
 def yolo_loss_term_sums(net: torch.Tensor, labels: torch.Tensor,
-                        cfg: YoloConfig):
+                        cfg: YoloConfig, offsets=None):
     """Per-image λ-weighted sums over the grid of the four loss terms.
 
-    Returns ``(class_s, object_s, noobject_s, coord_s, ious,
-    object_mask)``, the four sums shaped (batch,).
+    ``offsets``, a ``(col_offset, row_offset)`` pair of (rows, S, B)
+    tensors with global row indices, replaces ``cfg.offset`` and its
+    transpose for a shard that owns ``rows`` grid rows. Returns
+    ``(class_s, object_s, noobject_s, coord_s, ious, object_mask)``, the
+    four sums shaped (batch,).
     """
     net = net.float()
     labels = labels.float()
@@ -63,15 +67,19 @@ def yolo_loss_term_sums(net: torch.Tensor, labels: torch.Tensor,
     gt_boxes = labels[..., 1:5][:, :, :, None, :]
     gt_boxes = gt_boxes.expand(gt_boxes.shape[:3] + (B, 4)) / \
         float(cfg.image_size)
-    ious = box_iou(grid_to_absolute(predict_boxes, cfg), gt_boxes)
+    ious = box_iou(grid_to_absolute(predict_boxes, cfg, offsets), gt_boxes)
 
     cell_max = torch.amax(ious, dim=3, keepdim=True)
     object_mask = (ious >= cell_max).float() * responsible
     noobject_mask = 1.0 - object_mask
 
-    offset = offset_tensor(cfg, net.device)  # (S, S, B)
+    if offsets is None:
+        offset = offset_tensor(cfg, net.device)  # (S, S, B)
+        offset_t = offset.permute(1, 0, 2)
+    else:
+        offset, offset_t = offsets
     gt_rel = torch.stack([gt_boxes[..., 0] * S - offset,
-                          gt_boxes[..., 1] * S - offset.permute(1, 0, 2),
+                          gt_boxes[..., 1] * S - offset_t,
                           torch.sqrt(gt_boxes[..., 2]),
                           torch.sqrt(gt_boxes[..., 3])], dim=-1)
     boxes_delta = object_mask[..., None] * (predict_boxes - gt_rel)

@@ -27,8 +27,10 @@ here) and the per-slot (batch, S, S, B, 5+C) grid
 (``data.voc.build_label_grid_v2``, each object already in its best free
 slot). The loss runs in float32 whatever the network's compute type.
 
-The spatially sharded path's hooks (``offsets``, ``ignore_gt``,
-``noobj_valid``) are not ported yet and raise ``NotImplementedError``.
+Every term but the ignore test is a per-cell sum, so the loss splits
+over grid rows; the keyword hooks of ``yolo_v2_loss`` give a shard its
+global row offsets, the whole image's ground-truth boxes for the ignore
+test, and a mask of its padding rows (parallel.spatial).
 """
 
 from __future__ import annotations
@@ -77,12 +79,20 @@ def yolo_v2_loss(net: torch.Tensor, labels: torch.Tensor, cfg: YoloConfig,
     """The YOLOv2 loss of a (batch, S, S, B·(5+C)) head output against
     (batch, S, S, 5+C) or (batch, S, S, B, 5+C) labels: (total,
     ``YoloV2LossAux``). ``step``, the optimizer's step count before this
-    update, switches the burn-in term on; None leaves it off."""
-    if offsets is not None or ignore_gt is not None or \
-            noobj_valid is not None:
-        raise NotImplementedError(
-            "the spatial hooks of yolo_v2_loss (offsets, ignore_gt, "
-            "noobj_valid) are not ported yet (ROADMAP.md, queue A, A8)")
+    update, switches the burn-in term on; None leaves it off.
+
+    The keyword hooks make the loss row-splittable (the spatially
+    sharded trainer, parallel.spatial):
+
+    - ``offsets``: ``(col_offset, row_offset)``, (rows, S, B) tensors
+      with global row indices, in place of ``cfg.offset`` and its
+      transpose, for a shard that owns ``rows`` grid rows;
+    - ``ignore_gt``: ``(gt_all, gt_valid)``, (batch, N, 4) and (batch, N):
+      the whole image's ground-truth boxes (fractions) and their
+      validity, in place of the shard's own in the ignore test;
+    - ``noobj_valid``: a mask broadcastable to (batch, rows, S, B) that
+      takes padding rows out of the no-object term (σ(0)² is not 0).
+    """
     if not (cfg.per_slot_classes and cfg.anchors):
         raise ValueError("yolo_v2_loss needs the per-slot head layout with "
                          "anchor priors (config.yolo_v2_config)")
@@ -90,8 +100,11 @@ def yolo_v2_loss(net: torch.Tensor, labels: torch.Tensor, cfg: YoloConfig,
     labels = labels.float()
     S, B = cfg.S, cfg.B
     anchors = anchor_tensor(cfg, net.device)   # (B, 2), cell units
-    offset = offset_tensor(cfg, net.device)    # (S, S, B), column index
-    offset_t = offset.permute(1, 0, 2)
+    if offsets is None:
+        offset = offset_tensor(cfg, net.device)  # (S, S, B), column index
+        offset_t = offset.permute(1, 0, 2)
+    else:
+        offset, offset_t = offsets
 
     cls_logits, conf, raw_boxes = split_grid_v2(net, cfg)
 
@@ -132,14 +145,19 @@ def yolo_v2_loss(net: torch.Tensor, labels: torch.Tensor, cfg: YoloConfig,
 
     # -- the decoded boxes' IoUs, which carry no gradient --
     noobj_mask = 1.0 - owner
+    if noobj_valid is not None:
+        noobj_mask = noobj_mask * noobj_valid
     with torch.no_grad():
-        decoded = grid_to_absolute_v2(raw_boxes, cfg)  # (b, S, S, B, 4)
+        decoded = grid_to_absolute_v2(raw_boxes, cfg, offsets)
         ious = box_iou(decoded, gt_slot)
         # a non-owner slot whose box overlaps any object of its image
         # above the threshold is not suppressed
         b = labels.shape[0]
-        gt_all = gt_slot.reshape(b, -1, 4)
-        gt_valid = owner.reshape(b, -1)
+        if ignore_gt is None:
+            gt_all = gt_slot.reshape(b, -1, 4)
+            gt_valid = owner.reshape(b, -1)
+        else:
+            gt_all, gt_valid = ignore_gt
         pair = box_iou(decoded.reshape(b, -1, 1, 4), gt_all[:, None])
         best_any = torch.amax(pair * gt_valid[:, None, :], dim=-1)
         noobj_mask = noobj_mask * (

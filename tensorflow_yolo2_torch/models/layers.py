@@ -19,6 +19,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from tensorflow_yolo2_torch.ops import cuda_pool
+from tensorflow_yolo2_torch.parallel.mesh import all_reduce_sum
 
 LEAKY_ALPHA = 0.1
 BN_EPSILON = 1e-3
@@ -146,6 +147,41 @@ def avg_pool_exclusive(x: torch.Tensor, window: int,
                         count_include_pad=False)
 
 
+def synced_batch_stats(x: torch.Tensor, group, count: float | None = None,
+                       mask: torch.Tensor | None = None
+                       ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The per-channel batch mean and biased variance of an NCHW tensor
+    over every rank of ``group``, in float32 (float64 for float64 x), as
+    ``nn.BatchNorm2d`` would take them over the ranks' joined batch: the
+    sum and then the squared deviations from the global mean are each
+    all-reduced (differentiably) with the element count. ``mask``
+    (broadcastable to x, 0 / 1) leaves elements out; ``count``, the valid
+    elements a channel over all ranks, then replaces the reduced count."""
+    xf = x if x.dtype == torch.float64 else x.float()
+    if mask is not None:
+        xf = xf * mask
+    c = x.shape[1]
+    local = torch.cat([xf.sum((0, 2, 3)),
+                       xf.new_full((1,), xf.numel() // c)])
+    total = all_reduce_sum(local, group)
+    n = total[c] if count is None else count
+    mean = total[:c] / n
+    dev = xf - mean.view(1, c, 1, 1)
+    if mask is not None:
+        dev = dev * mask
+    var = all_reduce_sum((dev * dev).sum((0, 2, 3)), group) / n
+    return mean, var
+
+
+def sync_batch_norm_(model: nn.Module, group) -> nn.Module:
+    """Every ``BatchNorm`` of ``model`` takes its training statistics over
+    ``group`` (None: this process's batch alone), in place."""
+    for m in model.modules():
+        if isinstance(m, BatchNorm):
+            m.process_group = group
+    return model
+
+
 class BatchNorm(nn.BatchNorm2d):
     """BatchNorm over NCHW with flax's running statistics.
 
@@ -163,7 +199,14 @@ class BatchNorm(nn.BatchNorm2d):
     or norm sees a scale. The kernel is given a constant unit scale
     instead, a buffer outside the state dict: CUDA's BatchNorm backward
     returns no bias gradient when it has no weight.
+
+    With a ``process_group`` (``sync_batch_norm_``; data parallelism) the
+    training statistics are the group's joined batch's
+    (``synced_batch_stats``), normalisation and update as above; the
+    output keeps x's type.
     """
+
+    process_group = None
 
     def __init__(self, num_features: int, eps: float = BN_EPSILON,
                  momentum: float = BN_MOMENTUM, use_scale: bool = True):
@@ -187,6 +230,8 @@ class BatchNorm(nn.BatchNorm2d):
             return F.batch_norm(x, self.running_mean, self.running_var,
                                 self._scale(), self.bias, False, 0.0,
                                 self.eps)
+        if self.process_group is not None:
+            return self._synced_forward(x)
         # the batch statistics come out of the fused kernel: with
         # momentum 1 it writes the batch mean and unbiased variance into
         # zeroed buffers (it refuses a single value per channel)
@@ -203,6 +248,19 @@ class BatchNorm(nn.BatchNorm2d):
             # var itself is saved for the backward: not in place
             self.running_var.mul_(m).add_(var * ((n - 1) / n),
                                           alpha=1.0 - m)
+        return y
+
+    def _synced_forward(self, x: torch.Tensor) -> torch.Tensor:
+        mean, var = synced_batch_stats(x, self.process_group)
+        scale = self._scale() * torch.rsqrt(var + self.eps)
+        xf = x if x.dtype == torch.float64 else x.float()
+        y = ((xf - mean.view(1, -1, 1, 1)) * scale.view(1, -1, 1, 1) +
+             self.bias.view(1, -1, 1, 1)).to(x.dtype)
+        if not _FROZEN_STATS:
+            m = self.flax_momentum
+            with torch.no_grad():
+                self.running_mean.mul_(m).add_(mean.detach(), alpha=1.0 - m)
+                self.running_var.mul_(m).add_(var.detach(), alpha=1.0 - m)
         return y
 
 
@@ -227,14 +285,19 @@ class SameConv2d(nn.Conv2d):
                          bias=bias, groups=groups)
         self.symmetric = symmetric
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def pad_input(self, x: torch.Tensor) -> torch.Tensor:
+        """x with XLA's SAME padding where torch's ``padding`` cannot give
+        it (the unpadded conv follows)."""
         if not self.symmetric:
             (top, bottom), (left, right) = (
                 _same_pads(n, k, s) for n, k, s in
                 zip(x.shape[-2:], self.kernel_size, self.stride))
             if top or bottom or left or right:
                 x = F.pad(x, (left, right, top, bottom))
-        return super().forward(x)
+        return x
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return super().forward(self.pad_input(x))
 
 
 SLIM_BN_MOMENTUM = 0.9997  # slim's inception arg scope (epsilon 1e-3)

@@ -50,12 +50,17 @@ def split_grid(net: torch.Tensor, cfg: YoloConfig):
     return classes, conf, boxes
 
 
-def grid_to_absolute(raw_boxes: torch.Tensor, cfg: YoloConfig) -> torch.Tensor:
+def grid_to_absolute(raw_boxes: torch.Tensor, cfg: YoloConfig,
+                     offsets=None) -> torch.Tensor:
     """YOLOv1 box transform: raw (..., S, S, B, 4) → absolute cxcywh in [0,1].
 
     x_abs = (tx + col) / S, y_abs = (ty + row) / S, w = tw², h = th².
+
+    ``offsets`` overrides the (column, row) index grids: a ``(col_offset,
+    row_offset)`` pair of (rows, S, B) tensors with GLOBAL row indices,
+    for a shard that owns only ``rows`` grid rows (parallel.spatial).
     """
-    offset, offset_t, S = _grid_terms(raw_boxes, cfg)
+    offset, offset_t, S = _grid_terms(raw_boxes, cfg, offsets)
     xs = (raw_boxes[..., 0] + offset) / S
     ys = (raw_boxes[..., 1] + offset_t) / S
     ws = torch.square(raw_boxes[..., 2])
@@ -80,15 +85,18 @@ def offset_tensor(cfg: YoloConfig, device: torch.device,
     return _offset_on(cfg.S, cfg.B, torch.device(device), dtype)
 
 
-def _grid_terms(raw_boxes: torch.Tensor, cfg: YoloConfig):
-    """Column and row offsets (S, S, B) and S as a 0-d tensor, on the
-    device and in the dtype of ``raw_boxes``."""
+def _grid_terms(raw_boxes: torch.Tensor, cfg: YoloConfig, offsets=None):
+    """Column and row offsets (S, S, B), or the given ``offsets`` pair,
+    and S as a 0-d tensor, on the device and in the dtype of
+    ``raw_boxes``."""
+    S = torch.full((), float(cfg.S), dtype=raw_boxes.dtype,
+                   device=raw_boxes.device)
+    if offsets is not None:
+        return offsets[0], offsets[1], S
     offset = offset_tensor(cfg, raw_boxes.device, raw_boxes.dtype)
     # Divide by a tensor on the same device, not a Python number: on CUDA
     # PyTorch turns division by a CPU scalar into a multiplication by its
     # reciprocal, which is not the IEEE quotient the kernels compute.
-    S = torch.full((), float(cfg.S), dtype=raw_boxes.dtype,
-                   device=raw_boxes.device)
     return offset, offset.permute(1, 0, 2), S
 
 
@@ -123,15 +131,15 @@ def split_grid_v2(net: torch.Tensor, cfg: YoloConfig):
     return slots[..., 5:], slots[..., 4], slots[..., :4]
 
 
-def grid_to_absolute_v2(raw_boxes: torch.Tensor,
-                        cfg: YoloConfig) -> torch.Tensor:
+def grid_to_absolute_v2(raw_boxes: torch.Tensor, cfg: YoloConfig,
+                        offsets=None) -> torch.Tensor:
     """YOLOv2 anchor transform: raw (..., S, S, B, 4) → cxcywh in [0, 1].
 
     x = (σ(tx) + col)/S, y = (σ(ty) + row)/S, w = (anchor_w·exp(tw))/S,
     h likewise; tw, th are clipped to ±8 before the exp so that it stays
-    finite.
+    finite. ``offsets`` as in ``grid_to_absolute``.
     """
-    offset, offset_t, S = _grid_terms(raw_boxes, cfg)
+    offset, offset_t, S = _grid_terms(raw_boxes, cfg, offsets)
     anchors = anchor_tensor(cfg, raw_boxes.device).to(raw_boxes.dtype)
     xs = (sigmoid(raw_boxes[..., 0]) + offset) / S
     ys = (sigmoid(raw_boxes[..., 1]) + offset_t) / S

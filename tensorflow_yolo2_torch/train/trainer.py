@@ -63,6 +63,21 @@ the share of the child's float32 output that is ≤ 0, and
 4096 values; a 4-D output is flattened in NHWC order, as the JAX
 package's. Outputs that are not tensors are skipped. As in the JAX step,
 such a step does not rematerialize.
+
+With a ``mesh`` (``parallel.mesh.make_mesh``, one process a rank) the
+step is data- and tensor-parallel, as the JAX package's GSPMD step over
+its mesh: each rank passes its rows of the global batch (``put_batch``
+broadcasts them over the model axis, whose ranks compute on the same
+rows); BatchNorm takes its statistics over the data axis; every
+gradient is all-reduced (mean) over it before the global norm, the clip
+and the update; the weights ``parallel.mesh.param_spec`` shards are
+sliced over the model axis with their optimizer slots and EMA, and
+their layers compute column-parallel; the global norm adds each sharded
+slice's squares over the model axis once. The first step on a state
+distributes it (``distribute``), so that a state is restored or
+warm-started whole. The 0-d metrics are the data axis's means; the
+YOLOv2 task's burn-in counts the global batch. ``snapshot_state``
+gathers a state whole for a snapshot.
 """
 
 from __future__ import annotations
@@ -73,6 +88,7 @@ from dataclasses import dataclass
 from typing import Any, Callable, Mapping
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 import torch.utils.checkpoint
 from torch import nn
@@ -80,7 +96,16 @@ from torch import nn
 from tensorflow_yolo2_torch.config import OptimizerConfig, YoloConfig
 from tensorflow_yolo2_torch.losses.yolo import yolo_loss
 from tensorflow_yolo2_torch.models.darknet import init_params_
-from tensorflow_yolo2_torch.models.layers import frozen_running_stats
+from tensorflow_yolo2_torch.models.layers import (
+    frozen_running_stats,
+    sync_batch_norm_,
+)
+from tensorflow_yolo2_torch.parallel.mesh import (
+    all_gather_rows,
+    all_reduce_tensors,
+    apply_tensor_parallel,
+    group_barrier,
+)
 from tensorflow_yolo2_torch.train.optimizers import (
     OptState,
     global_norm,
@@ -116,6 +141,25 @@ class TrainState:
     def batch_stats(self) -> dict[str, torch.Tensor]:
         return {k: v for k, v in self.model.state_dict().items()
                 if k.endswith(("running_mean", "running_var"))}
+
+
+class _StateDict:
+    """A stand-in model that only gives a state dict (a gathered
+    snapshot's)."""
+
+    def __init__(self, state_dict: dict[str, torch.Tensor]):
+        self._state_dict = state_dict
+
+    def state_dict(self) -> dict[str, torch.Tensor]:
+        return self._state_dict
+
+
+def _slot_tables(opt: OptState):
+    """The optimizer state's per-parameter tables (each slot's, and the
+    accumulated gradients' under accumulation)."""
+    yield from opt.slots.values()
+    if opt.acc_grads is not None:
+        yield opt.acc_grads
 
 
 def yolo_task(yolo_cfg: YoloConfig, histograms: bool = False) -> Callable:
@@ -221,7 +265,8 @@ class Trainer:
     the parameters by name, builds the optimizer in place of ``opt_cfg``'s
     (``train.optimizers.make_grouped_optimizer``), on ``create_state``
     and on every ``resume_optimizer``; the parameters its state does not
-    train are frozen.
+    train are frozen. ``mesh`` makes the step data- and tensor-parallel
+    (module docstring).
     """
 
     def __init__(self, model: nn.Module, task: Callable,
@@ -230,7 +275,8 @@ class Trainer:
                  compute_dtype: torch.dtype = torch.bfloat16,
                  remat: bool = False, activation_summaries: bool = False,
                  eval_with_ema: bool = True,
-                 tx_factory: Callable[[dict], Any] | None = None):
+                 tx_factory: Callable[[dict], Any] | None = None,
+                 mesh: Any = None):
         if compute_dtype not in (torch.bfloat16, torch.float32):
             raise ValueError(f"compute_dtype must be bfloat16 or float32, "
                              f"got {compute_dtype}")
@@ -247,7 +293,26 @@ class Trainer:
         self.remat = remat
         self.activation_summaries = activation_summaries
         self.eval_with_ema = eval_with_ema
+        self.mesh = mesh
+        self.data_group = self.model_group = None
+        self.data_size = self.model_size = 1
+        if mesh is not None:
+            self.data_group = mesh.get_group("data")
+            self.model_group = mesh.get_group("model")
+            self.data_size, self.model_size = mesh.size(0), mesh.size(1)
+        self._distributed: nn.Module | None = None
+        self._sharded: dict[str, int] = {}  # name → full size of dim 0
 
+    @property
+    def is_chief(self) -> bool:
+        """Whether this process writes snapshots, metrics and logs: rank
+        0, or the only process."""
+        return self.mesh is None or dist.get_rank() == 0
+
+    def barrier(self) -> None:
+        """Wait for every rank of the mesh (nothing without one)."""
+        if self.mesh is not None:
+            group_barrier(self.data_group, self.model_group)
     # -- state --------------------------------------------------------------
 
     def create_state(self, generator: torch.Generator,
@@ -300,6 +365,92 @@ class Trainer:
         current parameters."""
         state.opt_state = self._init_optimizer(state.params)
         return state
+
+    # -- the mesh -------------------------------------------------------------
+
+    def distribute(self, state: TrainState) -> TrainState:
+        """Lay ``state`` out on the mesh, in place, once: BatchNorm synced
+        over the data axis; over the model axis the sharded weights
+        sliced (``parallel.mesh.apply_tensor_parallel``) with their
+        optimizer slots and EMA. Nothing without a mesh."""
+        if self.mesh is None or self._distributed is state.model:
+            return state
+        sync_batch_norm_(state.model, self.data_group)
+        if self.model_size > 1:
+            self._sharded = apply_tensor_parallel(state.model, self.mesh)
+            r = dist.get_rank(self.model_group)
+            tables = list(_slot_tables(state.opt_state))
+            if state.ema_params is not None:
+                tables.append(state.ema_params)
+            for table in tables:
+                for name, full in self._sharded.items():
+                    if name in table:
+                        size = full // self.model_size
+                        table[name] = table[name].narrow(
+                            0, r * size, size).clone()
+        self._distributed = state.model
+        return state
+
+    def snapshot_state(self, state: TrainState) -> TrainState:
+        """``state`` whole, for a snapshot: where weights are sharded over
+        the model axis, a state whose model, optimizer slots and EMA hold
+        them gathered (every rank of the model axis must call it);
+        otherwise ``state`` itself."""
+        if not self._sharded or self._distributed is not state.model:
+            return state
+
+        def whole(table: dict) -> dict:
+            return {k: all_gather_rows(v.detach(), self.model_group)
+                    if k in self._sharded else v for k, v in table.items()}
+
+        opt = state.opt_state
+        gathered = OptState(
+            opt.count, list(opt.names),
+            {s: whole(t) for s, t in opt.slots.items()},
+            whole(opt.acc_grads) if opt.acc_grads is not None else None,
+            opt.mini_step)
+        model_sd = whole(state.model.state_dict())
+        ema = whole(state.ema_params) if state.ema_params is not None \
+            else None
+        return TrainState(state.step, _StateDict(model_sd), gathered,
+                          state.rng, ema)
+
+    def put_batch(self, images: Any, labels: Any) -> tuple[Any, Any]:
+        """This rank's rows of the global batch on the device; over a
+        model axis, its first rank's rows on every rank of it (they
+        compute on the same rows, whatever order each rank's loader
+        read them in)."""
+        images = torch.as_tensor(images).to(self.device)
+        labels = torch.as_tensor(labels).to(self.device)
+        if self.model_size > 1:
+            src = dist.get_global_rank(self.model_group, 0)
+            for t in (images, labels):
+                dist.broadcast(t, src, group=self.model_group)
+        return images, labels
+
+    def _mean_over_data(self, metrics: Metrics) -> Metrics:
+        """The 0-d metrics averaged over the data axis (one all-reduce)."""
+        names = [k for k, v in metrics.items() if v.dim() == 0]
+        if not names:
+            return metrics
+        stacked = torch.stack([metrics[k].float() for k in names])
+        dist.all_reduce(stacked, group=self.data_group)
+        stacked /= self.data_size
+        return {**metrics, **dict(zip(names, stacked.unbind()))}
+
+    def _global_norm(self, grads: dict[str, torch.Tensor]) -> torch.Tensor:
+        """The global norm of the (data-averaged) gradients: the sharded
+        slices' squares summed over the model axis once, the replicated
+        gradients' once."""
+        if not self._sharded:
+            return global_norm(grads.values())
+        parts = [grads[k] for k in grads if k in self._sharded]
+        rest = [grads[k] for k in grads if k not in self._sharded]
+        zero = torch.zeros((), device=self.device)
+        sq_parts = global_norm(parts) ** 2 if parts else zero
+        dist.all_reduce(sq_parts, group=self.model_group)
+        sq_rest = global_norm(rest) ** 2 if rest else zero.to(sq_parts.dtype)
+        return torch.sqrt(sq_parts + sq_rest)
 
     # -- steps ----------------------------------------------------------------
 
@@ -357,11 +508,20 @@ class Trainer:
         """Forward in train mode (updating the BatchNorm running
         statistics, drawing the dropout mask from ``state.rng``) and
         backward: (metrics, gradients by name of the trained
-        parameters). The parameters are not changed."""
+        parameters). The parameters are not changed. With a mesh the
+        batch is this rank's rows, the gradients and the 0-d metrics are
+        the data axis's means (the global batch's), and the gradients of
+        sharded weights are this rank's slices."""
+        if self.mesh is not None:
+            self.distribute(state)
+            images, labels = self.put_batch(images, labels)
         state.model.train()
         params = {k: p for k, p in state.params.items() if p.requires_grad}
         labels = self._labels(labels)
-        kw = {"step": state.step} if self._task_takes_step else {}
+        # the burn-in counts step · batch samples; each data rank's loss
+        # sees 1/data_size of the global batch
+        kw = ({"step": state.step * self.data_size}
+              if self._task_takes_step else {})
         acts: Metrics = {}
         hooks = []
         if self.activation_summaries:
@@ -382,10 +542,15 @@ class Trainer:
             for h in hooks:
                 h.remove()
         loss, metrics = self.task(outputs, labels, **kw)
-        grads = torch.autograd.grad(loss, list(params.values()))
+        grads = dict(zip(params, torch.autograd.grad(
+            loss, list(params.values()))))
         metrics = {k: v.detach() for k, v in metrics.items()}
         metrics.update(acts)
-        return metrics, dict(zip(params, grads))
+        if self.mesh is not None:
+            grads = all_reduce_tensors(grads, self.data_group,
+                                       self.data_size)
+            metrics = self._mean_over_data(metrics)
+        return metrics, grads
 
     def train_step(self, state: TrainState, images: Any, labels: Any
                    ) -> tuple[TrainState, Metrics]:
@@ -396,9 +561,10 @@ class Trainer:
         the step's metrics, ``grad_norm`` (the global norm of the
         trained parameters' gradients of this batch, before clipping)
         among them; the metrics stay on the device. The EMA advances
-        only where an update was applied."""
+        only where an update was applied. With a mesh, ``images`` and
+        ``labels`` are this rank's rows of the global batch."""
         metrics, grads = self.loss_and_grads(state, images, labels)
-        norm = global_norm(grads.values())
+        norm = self._global_norm(grads)
         metrics["grad_norm"] = norm
         self.optimizer.update_(grads, state.opt_state, state.params, norm)
         if self._ema is not None and state.opt_state.mini_step == 0:
@@ -414,14 +580,21 @@ class Trainer:
         """The task's metrics in eval mode (running statistics), from the
         EMA parameters when the trainer tracks them and
         ``eval_with_ema``; a task that takes ``step`` gets None (no
-        burn-in at evaluation)."""
+        burn-in at evaluation). With a mesh, the batch is this rank's rows
+        and the 0-d metrics are the data axis's means."""
+        if self.mesh is not None:
+            self.distribute(state)
+            images, labels = self.put_batch(images, labels)
         state.model.eval()
         labels = self._labels(labels)
         kw = {"step": None} if self._task_takes_step else {}
         ema = self._ema is not None and self.eval_with_ema
         params = state.ema_params if ema else None
-        return self.task(self._forward(images, params=params), labels,
-                         **kw)[1]
+        metrics = self.task(self._forward(images, params=params), labels,
+                            **kw)[1]
+        if self.mesh is not None:
+            metrics = self._mean_over_data(metrics)
+        return metrics
 
     @torch.no_grad()
     def eval_outputs(self, state: TrainState, images: Any,

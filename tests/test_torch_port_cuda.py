@@ -45,7 +45,12 @@ dict does; the detect, ResNet train and ``verify_released_ckpts`` CLIs
 on TF checkpoints; B5 15 times a Darknet19 adversarial pair; a float32
 pair (TF32 off) against float64 on the CPU (losses 1e-4, the FGSM
 images where the float64 input gradient exceeds 1e-2 of its largest
-value); the adversarial CLI with ``--device cuda``.
+value); the adversarial CLI with ``--device cuda``. Parallelism over a
+world-1 NCCL group (``-k parallel``): the data-parallel step (B5 5 times,
+its float32 step against float64 on the CPU with the step bounds above),
+the live-BatchNorm spatial step (the same, and its running statistics at
+1e-2), the spatial serving path's decode launches (B1 and B3 once a v1
+call, B2 once a v2p call).
 """
 
 import ctypes
@@ -1365,3 +1370,99 @@ def test_adversarial_cli_on_the_card(card, tmp_path, monkeypatch):
     assert cuda_pool.MAX_POOL2_BWD_LAUNCHES == 2 * 15 + 5
     assert (tmp_path / "ckpts" / "darknet19_adv" / "ilsvrc_2017_cls" /
             "train_iter_2").is_dir()
+
+
+@pytest.fixture()
+def world1(card):
+    """A world-1 NCCL group in this process (chip_smoke.world1_group),
+    destroyed after the test."""
+    with chip_smoke.world1_group():
+        yield card
+
+
+def _trained_v1(card, n: int = 4, steps: int = 10):
+    """Seeded 224² batch and the v1 detector's weights after ``steps``
+    plain bf16 steps on it (fresh weights make the responsible boxes flip
+    under rounding, as chip_smoke's step checks note)."""
+    import numpy as np
+
+    yolo = YoloConfig()
+    images, labels = (torch.from_numpy(a).to(card)
+                      for a in chip_smoke.train_batch(
+                          np.random.RandomState(1), n, yolo))
+    trainer, state = chip_smoke.make_trainer(yolo, torch.bfloat16, card)
+    for _ in range(steps):
+        trainer.train_step(state, images, labels)
+    return yolo, images, labels, {k: v.detach().cpu().clone()
+                                  for k, v in state.model.state_dict().items()}
+
+
+def test_parallel_dp_step_world1_nccl(world1, no_tf32):
+    """The data-parallel Trainer step on a (1, 1) mesh over NCCL: B5 5
+    times a bf16 step, and its float32 step against the plain float64 step
+    on the CPU with chip_smoke's step bounds (chip_smoke.check_dp)."""
+    from tensorflow_yolo2_torch.parallel.mesh import MeshConfig, make_mesh
+    from tensorflow_yolo2_torch.train.trainer import Trainer, yolo_task
+
+    yolo, images, labels, weights = _trained_v1(world1)
+    mesh = make_mesh(MeshConfig(1, 1))
+
+    def build(dtype, where, state_dict=None):
+        on_card = torch.device(where).type == "cuda"
+        t = Trainer(Darknet19Detector(yolo.cell_channels), yolo_task(yolo),
+                    device=where, compute_dtype=dtype,
+                    mesh=mesh if on_card else None)
+        return t, t.create_state(torch.Generator().manual_seed(0),
+                                 state_dict)
+
+    trainer, state = build(torch.bfloat16, world1, weights)
+    cuda_pool.reset_launch_counts()
+    trainer.train_step(state, images, labels)
+    torch.cuda.synchronize()
+    assert cuda_pool.MAX_POOL2_BWD_LAUNCHES == 5
+    chip_smoke.check_train_step_against_cpu(build, images, labels, world1,
+                                            weights)
+
+
+def test_parallel_spatial_step_world1_nccl(world1, no_tf32):
+    """The live-BatchNorm spatial v1 step over the world-1 spatial mesh:
+    B5 5 times, the loss, gradients and running statistics against the
+    plain float64 step on the CPU (chip_smoke.check_spatial_training)."""
+    yolo, images, labels, weights = _trained_v1(world1)
+    out = chip_smoke.check_spatial_training(
+        world1, [("v1", yolo, weights, images, labels)])
+    assert out["v1"]["launches"] == 5
+
+
+def test_parallel_spatial_serving_launches(world1):
+    """make_spatial_detect_fn over the world-1 mesh: B1 and B3 once a v1
+    call (NMS on, off), B2 once a v2p call, the grid equal to the stock
+    path's within chip_smoke.GRID_REL_TOL."""
+    import numpy as np
+
+    from tensorflow_yolo2_torch.entries.pascal_detect_darknet import (
+        make_spatial_detect_fn,
+    )
+
+    rng = np.random.RandomState(2)
+    for v2 in (False, True):
+        cfg, state = (chip_smoke.v2_detector(True) if v2 else
+                      chip_smoke.v1_detector())
+        images = torch.from_numpy(rng.randint(
+            0, 256, (4, cfg.image_size, cfg.image_size, 3)).astype(np.uint8))
+        kw = {"v2": True, "passthrough": True} if v2 else {}
+        cuda_decode.reset_launch_counts()
+        kept = make_spatial_detect_fn(cfg, state, None, 0.5, use_nms=True,
+                                      n_shards=1, device=world1,
+                                      **kw)(images)
+        if not v2:
+            make_spatial_detect_fn(cfg, state, None, 0.5, use_nms=False,
+                                   n_shards=1, device=world1)(images)
+        torch.cuda.synchronize()
+        assert (cuda_decode.DECODE_NMS_V2_LAUNCHES,
+                cuda_decode.DECODE_NMS_LAUNCHES,
+                cuda_decode.DECODE_GRID_LAUNCHES) == \
+            ((1, 0, 0) if v2 else (0, 1, 1))
+        stock = make_detect_fn(cfg, state, object_thresh=0.5, use_nms=True,
+                               device=world1, **kw)(images)
+        assert kept.boxes.shape == stock.boxes.shape == (4, K, 4)

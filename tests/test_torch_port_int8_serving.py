@@ -164,7 +164,9 @@ def test_cli_int8_export_then_int8_weights(cli_files, monkeypatch, capsys):
      "stride variant"),
     (["--int8-weights", "a.npz", "--pallas-stem"], "not int8"),
     (["--weights", "w.npz", "--tf-checkpoint", "x"], "both name the weights"),
-    (["--weights", "w.npz", "--spatial", "2"], "A8"),
+    (["--weights", "w.npz", "--spatial", "1"], "needs N >= 2"),
+    (["--weights", "w.npz", "--spatial", "2", "--int8"],
+     "--spatial serves the folded f32/bf16 chain"),
 ])
 def test_cli_refuses(argv, match, capsys):
     with pytest.raises(SystemExit):

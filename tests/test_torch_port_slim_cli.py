@@ -109,8 +109,9 @@ def test_labels_offset(root):
 @pytest.mark.parametrize("argv, match", [
     (["--checkpoint-path", "model.ckpt"], "no TF checkpoint there"),
     (["--tf-checkpoint", "model.ckpt"], "reads no TF checkpoint"),
-    (["--num-clones", "2"], "A8"),
-    (["--model-parallel", "2"], "A8"),
+    (["--num-clones", "2"], "mesh 2x1 needs 2 devices, have 1 (start one "
+                            "process a device: torchrun --nproc-per-node 2"),
+    (["--model-parallel", "2"], "mesh 1x2 needs 2 devices, have 1"),
     (["--model-name", "inception_v2", "--aux-loss"],
      "inception_v2 has no auxiliary classifier head"),
     (["--aux-loss"], "no auxiliary classifier head"),

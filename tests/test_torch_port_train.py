@@ -589,7 +589,8 @@ def test_train_cli_snapshots_resumes_and_serves(tmp_root, capsys):
 
     with pytest.raises(SystemExit):
         pascal_train_darknet.main(["--spatial", "2"] + argv)
-    assert "not ported yet" in capsys.readouterr().err
+    assert "--spatial 2 runs one process a shard: start it with torchrun " \
+        "--nproc-per-node 2" in capsys.readouterr().err
 
 
 def _flax_tree(sd):

@@ -177,13 +177,17 @@ def test_profiling_helpers_match_jax(passthrough):
     (["--multiscale", "64,96"], "requires --v2"),
     (["--anchors", "kmeans"], "requires --v2"),
     (["--v2", "--multiscale", "64,100"], "multiples of 32"),
-    (["--spatial", "2"], "--spatial is not ported yet .*A8"),
+    (["--spatial", "2"], "--spatial 2 runs one process a shard: start it "
+                         "with torchrun --nproc-per-node 2"),
+    (["--spatial", "1"], "needs N >= 2"),
+    (["--spatial", "2", "--v2", "--multiscale", "64,96"],
+     "not --multiscale/--uint8-transfer"),
     (["--tf-checkpoint", "x.ckpt"], "--tf-checkpoint x.ckpt: no TF "
                                     "checkpoint there"),
 ])
 def test_train_cli_refuses(tmp_root, capsys, argv, match):
-    """The JAX package's flag errors, and the options that wait for a
-    later queue item: refused before any data is read."""
+    """The JAX package's flag errors, and a spatial run started without
+    its ranks: refused before any data is read."""
     from tensorflow_yolo2_torch.entries import pascal_train_darknet
 
     with pytest.raises(SystemExit):

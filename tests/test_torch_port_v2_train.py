@@ -188,12 +188,24 @@ def test_yolo_v2_loss_ignore_threshold_exempts_slots():
 
 
 def test_yolo_v2_loss_refuses_the_spatial_hooks():
+    """The spatial hooks are ported (held to JAX on row slices in
+    test_torch_port_parallel_mesh.py): given the whole grid's own
+    offsets, boxes and an all-ones mask they change nothing. The loss
+    still refuses a config without the per-slot anchor layout."""
     cfg = yolo_v2_config(64)
-    net = torch.zeros(1, 2, 2, cfg.cell_channels)
-    labels = torch.zeros(1, 2, 2, cfg.B, 25)
-    for hook in ("offsets", "ignore_gt", "noobj_valid"):
-        with pytest.raises(NotImplementedError, match="A8"):
-            yolo_v2_loss(net, labels, cfg, **{hook: (net, net)})
+    gen = torch.Generator().manual_seed(0)
+    net = torch.randn(2, 2, 2, cfg.cell_channels, generator=gen)
+    labels = torch.zeros(2, 2, 2, cfg.B, 25)
+    labels[:, 0, 1, 2, :5] = torch.tensor([1.0, 40.0, 12.0, 20.0, 30.0])
+    labels[:, 0, 1, 2, 7] = 1.0
+    off = torch.from_numpy(cfg.offset).float()
+    hooks = {"offsets": (off, off.permute(1, 0, 2)),
+             "ignore_gt": (labels[..., 1:5].reshape(2, -1, 4) / 64.0,
+                           labels[..., 0].reshape(2, -1)),
+             "noobj_valid": torch.ones(1, 2, 1, 1)}
+    want = yolo_v2_loss(net, labels, cfg, step=0)[0]
+    assert float(yolo_v2_loss(net, labels, cfg, step=0, **hooks)[0]) == \
+        pytest.approx(float(want), rel=1e-6)
     with pytest.raises(ValueError, match="per-slot"):
         yolo_v2_loss(net, labels, pt_config.YoloConfig(S=2, image_size=64))
 
