@@ -202,7 +202,19 @@
    step); images/s of the DP step against the plain one at batch 24 and
    64 and of spatial serving against ``make_detect_fn`` at 32 and 256,
    with the idle share.
-16. Times the v1, v1 ``--pallas-stem`` and v2p serving paths in bf16 and
+16. Runs the quality program small (``entries.quality_curve``,
+   ``entries.int8_quality``; ``--device cuda``, a run root of its own):
+   the hard synthetic VOC at 128 train / 32 val images, a 100-step
+   classifier pretrain, the v1 head with ``--stages 150`` and then
+   ``--stages 150,300`` (the second call trains only the 150-step delta
+   to a step-300 snapshot), ``--v2 --passthrough --anchors kmeans
+   --stages 300`` (its k-means priors in ``anchors.json``, decoded with),
+   and ``int8_quality`` on the v1 snapshot: every call exits 0 with its
+   mAPs finite in [0, 1]; B5 5 times a train step, B1 once a v1
+   evaluation batch (bf16 and int8), B2 once a v2p one; each head's
+   trained train-split mAP above that of the same detector with fresh
+   seeded weights (both printed).
+17. Times the v1, v1 ``--pallas-stem`` and v2p serving paths in bf16 and
    the v1 and v1 ``--pallas-stem`` paths in float32 with TF32 off
    (images/s at batch 32 and 256, with a profile), the v1 224² and v2p
    416² train steps (steps/s and images/s at batch 24 and 64, with a
@@ -220,7 +232,7 @@
    with a profile), and B1 and B3 on the ResNet grid at batch 256,
    threshold 0.2, as the entries ``decode_nms_resnet`` and
    ``decode_grid_resnet``.
-17. Ends with ``{"ok": true, "device": {...}}``.
+18. Ends with ``{"ok": true, "device": {...}}``.
 
     python3 chip_smoke.py --stem-ab [OTHER_STEM_CU ...]
 
@@ -4424,6 +4436,177 @@ def check_parallel(dev, images, v2_images, dp_case, train_cases) -> dict:
     return out
 
 
+# -- the quality program (section 16), small ------------------------------
+
+QUALITY_FIXTURE = (128, 32)  # hard VOC: train, val images
+QUALITY_PRETRAIN_ITERS = 100
+QUALITY_V1_STAGES = ("150", "150,300")  # two calls: the second trains 150
+QUALITY_V2P_STAGES = "300"
+
+
+def stage_rows(text: str) -> list[dict]:
+    """The ``STAGE`` rows a ``quality_curve`` call printed."""
+    return [json.loads(line[len("STAGE "):]) for line in text.splitlines()
+            if line.startswith("STAGE ")]
+
+
+def fresh_map(head: str, yolo, dev) -> float:
+    """Train-split mAP of the head's detector with fresh seeded weights
+    (flax's initializers, seed 0), scored as ``quality_curve`` scores a
+    trained one."""
+    from tensorflow_yolo2_torch.config import yolo_v2_config
+    from tensorflow_yolo2_torch.entries import quality_curve
+    from tensorflow_yolo2_torch.entries.pascal_detect_darknet import (
+        make_detect_fn,
+    )
+    from tensorflow_yolo2_torch.models.darknet import (
+        Darknet19Detector,
+        Darknet19DetectorV2,
+        init_params_,
+    )
+
+    model = (Darknet19DetectorV2(yolo.cell_channels) if head == "v2p"
+             else Darknet19Detector(yolo.cell_channels))
+    init_params_(model, torch.Generator().manual_seed(0))
+    detect = make_detect_fn(yolo, model.state_dict(),
+                            object_thresh=quality_curve.EVAL_THRESH,
+                            use_nms=True, device=dev, v2=head == "v2p",
+                            passthrough=head == "v2p")
+    gt = yolo if head == "v2p" else yolo_v2_config(yolo.image_size)
+    return quality_curve.score(detect, gt, "trainval")
+
+
+def check_quality_program(dev) -> dict:
+    """Section 16: the quality program (``entries.quality_curve``,
+    ``entries.int8_quality``) small, with ``--device cuda``, under a run
+    root of its own: the hard fixture at 128 train / 32 val, a 100-step
+    classifier pretrain, v1 with ``--stages 150`` then ``--stages
+    150,300`` (the second call trains only the delta to a step-300
+    snapshot), ``--v2 --passthrough --anchors kmeans --stages 300``, and
+    ``int8_quality`` on the v1 snapshot. Each call exits 0 with mAPs in
+    [0, 1]; B5 runs 5 times a train step, B1 once a v1 evaluation batch,
+    B2 once a v2p one; each head's trained train-split mAP is above that
+    of the same detector with fresh seeded weights."""
+    import tempfile
+
+    from tensorflow_yolo2_torch.config import (
+        Paths,
+        YoloConfig,
+        yolo_v2_config,
+    )
+    from tensorflow_yolo2_torch.data.anchors import load_anchors
+    from tensorflow_yolo2_torch.entries import int8_quality, quality_curve
+    from tensorflow_yolo2_torch.ops import cuda_decode, cuda_pool
+    from tensorflow_yolo2_torch.train.checkpoint import CheckpointManager
+    from tensorflow_yolo2_torch.utils import cuda_build
+
+    t0 = time.perf_counter()
+    n_train, n_val = QUALITY_FIXTURE
+    eval_batches = (math.ceil(n_train / quality_curve.EVAL_BATCH)
+                    + math.ceil(n_val / quality_curve.EVAL_BATCH))
+    fixture = ["--n-train", str(n_train), "--n-val", str(n_val),
+               "--grad-clip", "5", "--device", str(dev)]
+    out = {"launches": {}, "map": {}}
+
+    def call(main, argv: list[str], what: str) -> tuple[str, dict]:
+        cuda_pool.reset_launch_counts()
+        cuda_decode.reset_launch_counts()
+        text = run_cli(main, argv, what)
+        torch.cuda.synchronize()
+        counts = {"max_pool2_bwd": cuda_pool.MAX_POOL2_BWD_LAUNCHES,
+                  "decode_nms": cuda_decode.DECODE_NMS_LAUNCHES,
+                  "decode_nms_v2": cuda_decode.DECODE_NMS_V2_LAUNCHES,
+                  "decode_grid": cuda_decode.DECODE_GRID_LAUNCHES}
+        out["launches"][what] = counts
+        return text, counts
+
+    def check_rows(text: str, stages: list[int], what: str) -> list[dict]:
+        rows = stage_rows(text)
+        check([r["iters"] for r in rows] == stages,
+              f"{what} scored the stages {stages}")
+        check(all(math.isfinite(r[k]) and 0.0 <= r[k] <= 1.0
+                  for r in rows for k in ("map_train", "map_val")),
+              f"{what}: every mAP finite and in [0, 1]")
+        return rows
+
+    with tempfile.TemporaryDirectory(dir=cuda_build.BUILD_DIR) as root, \
+            mock.patch.dict(os.environ, {"TFY2_ROOT": root}):
+        what = "quality_curve v1 --stages 150 --pretrain-iters 100"
+        text, n = call(quality_curve.main,
+                       ["--stages", QUALITY_V1_STAGES[0], "--pretrain-iters",
+                        str(QUALITY_PRETRAIN_ITERS), *fixture], what)
+        steps = QUALITY_PRETRAIN_ITERS + 150
+        check(n["max_pool2_bwd"] == 5 * steps,
+              f"B5 ran 5 times a step of the pretrain and the stage "
+              f"({n['max_pool2_bwd']} for {steps} steps)")
+        check(n["decode_nms"] == eval_batches and n["decode_grid"] == 0,
+              "B1 ran once a v1 evaluation batch (and B3 never)")
+        check_rows(text, [150], what)
+        check("Warm-started" in text, "the v1 stage warm-started from the "
+                                      "pretrain's snapshot")
+
+        what = "quality_curve v1 --stages 150,300"
+        text, n = call(quality_curve.main,
+                       ["--stages", QUALITY_V1_STAGES[1], *fixture], what)
+        check(n["max_pool2_bwd"] == 5 * 150,
+              "the second v1 call trained only the delta (150 steps)")
+        check(n["decode_nms"] == eval_batches,
+              "B1 ran once a v1 evaluation batch")
+        v1_rows = check_rows(text, [300], what)
+        check(CheckpointManager("darknet19", "voc_2007").all_steps()
+              == [150, 300], "the v1 snapshots are at steps 150 and 300")
+
+        what = "quality_curve --v2 --passthrough --anchors kmeans --stages 300"
+        text, n = call(quality_curve.main,
+                       ["--stages", QUALITY_V2P_STAGES, "--v2",
+                        "--passthrough", "--anchors", "kmeans", *fixture],
+                       what)
+        check(n["max_pool2_bwd"] == 5 * 300,
+              "B5 ran 5 times a v2p train step")
+        check(n["decode_nms_v2"] == eval_batches and n["decode_nms"] == 0,
+              "B2 ran once a v2p evaluation batch")
+        v2p_rows = check_rows(text, [300], what)
+        v2p_yolo = quality_curve.snapshot_yolo(Paths(), "darknet19_v2p",
+                                               True)
+        check(load_anchors(CheckpointManager("darknet19_v2p", "voc_2007").dir,
+                           v2p_yolo.S) == v2p_yolo.anchors
+              != yolo_v2_config(v2p_yolo.image_size).anchors,
+              "the v2p run wrote its k-means priors to anchors.json and "
+              "the program decodes with them")
+
+        what = "int8_quality (v1)"
+        text, n = call(int8_quality.main, ["--device", str(dev)], what)
+        int8_batches = 2 * (math.ceil(n_train / int8_quality.BATCH)
+                            + math.ceil(n_val / int8_quality.BATCH))
+        check(n["decode_nms"] == int8_batches,
+              "B1 ran once an evaluation batch of the bf16 and int8 paths")
+        line = [ln for ln in text.splitlines()
+                if ln.startswith("INT8_QUALITY ")]
+        check(len(line) == 1, "int8_quality printed its result")
+        int8 = json.loads(line[0][len("INT8_QUALITY "):])
+        check(all(math.isfinite(int8[f"map_{s}_{m}"])
+                  and 0.0 <= int8[f"map_{s}_{m}"] <= 1.0
+                  for s in ("train", "val") for m in ("bf16", "int8")),
+              "int8_quality: every mAP finite and in [0, 1]")
+        out["int8"] = int8
+
+        fresh = {"v1": fresh_map("v1", YoloConfig(), dev),
+                 "v2p": fresh_map("v2p", v2p_yolo, dev)}
+    for head, rows in (("v1", v1_rows), ("v2p", v2p_rows)):
+        out["map"][head] = {"trained": rows[-1], "fresh_map_train":
+                            fresh[head]}
+        print(f"quality {head} @300: train mAP {rows[-1]['map_train']:.4f}, "
+              f"val {rows[-1]['map_val']:.4f}; fresh seeded weights: train "
+              f"mAP {fresh[head]:.4f}")
+        check(rows[-1]["map_train"] > fresh[head],
+              f"the trained {head} head scores above fresh weights on the "
+              "train split")
+    print(f"int8_quality v1 @300: {json.dumps(int8)}")
+    out["seconds"] = time.perf_counter() - t0
+    print(f"quality program: {out['seconds']:.1f} s")
+    return out
+
+
 def main(argv: list[str] | None = None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument(
@@ -4906,8 +5089,13 @@ def main(argv: list[str] | None = None) -> int:
     for name, err in parallel["spatial_serving"]["errs"].items():
         errs[name] = max(errs[name], err)
 
-    # 16. times --------------------------------------------------------------
+    # 16. the quality program, small: fixture, pretrain, v1 in two calls,
+    # v2p with k-means priors, int8 on the v1 snapshot
     mark("section 16")
+    quality = check_quality_program(dev)
+
+    # 17. times --------------------------------------------------------------
+    mark("section 17")
     print(f"times on {card}:")
     v1_flops = conv_flops_per_image(448, yolo.cell_channels)
     tf32 = (f"TF32: cudnn.allow_tf32={torch.backends.cudnn.allow_tf32}, "
@@ -5141,7 +5329,7 @@ def main(argv: list[str] | None = None) -> int:
           f"ms; 3xTF32 on the tensor cores {st['ops_bound_3xtf32_ms']:.3f} "
           f"ms); no single PyTorch call computes it")
     mark("done")
-    print(json.dumps({"path": path, "card": card}))
+    print(json.dumps({"path": path, "quality": quality, "card": card}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -224,14 +224,18 @@ def bootstrap_state(trainer: Trainer, mgr: CheckpointManager,
     if info is None:
         info = {}
     info["ema_restored"] = 0
-    state = trainer.create_state(generator, state_dict)
     last = mgr.latest_step()
     if last is not None:
+        # an exact restore overwrites every tensor: no fresh weights drawn
+        seed_state = generator.get_state()
         try:
-            state, step = mgr.restore(state)
+            state, step = mgr.restore(trainer.create_state(generator,
+                                                           init=False))
             if state.ema_params is not None:
                 info["ema_restored"] = -1
         except ValueError:
+            generator.set_state(seed_state)
+            state = trainer.create_state(generator, state_dict)
             raw = mgr.restore_raw()
             merged, _ = merge_pytrees(state.model.state_dict(), raw["model"])
             load_into(state.model, merged)
@@ -247,6 +251,7 @@ def bootstrap_state(trainer: Trainer, mgr: CheckpointManager,
                   "params/stats only, optimizer re-initialized")
         print(f"Restored snapshot at {mgr.interval} {step} from {mgr.dir}")
         return state, step
+    state = trainer.create_state(generator, state_dict)
     if warm_start_dir:
         params = {k: p.detach() for k, p in state.params.items()}
         params, n = warm_start_params(params, warm_start_dir,

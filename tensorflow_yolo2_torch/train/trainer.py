@@ -316,20 +316,22 @@ class Trainer:
     # -- state --------------------------------------------------------------
 
     def create_state(self, generator: torch.Generator,
-                     state_dict: Mapping[str, torch.Tensor] | None = None
-                     ) -> TrainState:
+                     state_dict: Mapping[str, torch.Tensor] | None = None,
+                     init: bool = True) -> TrainState:
         """Fresh seeded weights (``models.darknet.init_params_``, flax's
         defaults; ``generator`` is a CPU generator), or ``state_dict``'s,
         on the device, with a fresh optimizer state; the parameters
         outside ``trainable_scopes`` frozen (a ``ValueError`` when the
         scopes take none); the dropout generator on the device, seeded
         from ``generator`` after the weights; with EMA, its copies of
-        the parameters."""
+        the parameters. Without ``state_dict``, ``init=False`` leaves the
+        model's tensors as they are, for a state that a whole snapshot is
+        restored into."""
         self.model.to("cpu")
-        if state_dict is None:
-            init_params_(self.model, generator)
-        else:
+        if state_dict is not None:
             self.model.load_state_dict(state_dict)
+        elif init:
+            init_params_(self.model, generator)
         self.model.to(self.device, memory_format=torch.channels_last)
         params = dict(self.model.named_parameters())
         opt_state = self._init_optimizer(params)

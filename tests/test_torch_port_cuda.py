@@ -50,7 +50,9 @@ world-1 NCCL group (``-k parallel``): the data-parallel step (B5 5 times,
 its float32 step against float64 on the CPU with the step bounds above),
 the live-BatchNorm spatial step (the same, and its running statistics at
 1e-2), the spatial serving path's decode launches (B1 and B3 once a v1
-call, B2 once a v2p call).
+call, B2 once a v2p call). The quality program (``-k quality``):
+``int8_quality`` on a 2-stage ``quality_curve`` v1 snapshot, finite mAPs
+in [0, 1] and B1 once an evaluation batch.
 """
 
 import ctypes
@@ -1466,3 +1468,32 @@ def test_parallel_spatial_serving_launches(world1):
         stock = make_detect_fn(cfg, state, object_thresh=0.5, use_nms=True,
                                device=world1, **kw)(images)
         assert kept.boxes.shape == stock.boxes.shape == (4, K, 4)
+
+
+def test_quality_int8_on_a_two_stage_v1_snapshot(card, tmp_path, monkeypatch,
+                                                 capsys):
+    """``quality_curve --stages 1,2`` on a small hard fixture, then
+    ``int8_quality`` on its v1 snapshot with ``--device cuda``: finite
+    mAPs in [0, 1], B1 once an evaluation batch of each path (8 train and
+    4 val images at batch 8: 2 batches a path)."""
+    import json
+
+    from tensorflow_yolo2_torch.entries import int8_quality, quality_curve
+
+    monkeypatch.setenv("TFY2_ROOT", str(tmp_path))
+    assert quality_curve.main(
+        ["--stages", "1,2", "--batch", "4", "--n-train", "8", "--n-val",
+         "4", "--device", "cuda"]) == 0
+    capsys.readouterr()
+    cuda_decode.reset_launch_counts()
+    assert int8_quality.main(["--device", "cuda"]) == 0
+    torch.cuda.synchronize()
+    assert cuda_decode.DECODE_NMS_LAUNCHES == 2 * 2
+    line = [ln for ln in capsys.readouterr().out.splitlines()
+            if ln.startswith("INT8_QUALITY ")]
+    result = json.loads(line[0][len("INT8_QUALITY "):])
+    assert result["head"] == "v1"
+    for split in ("train", "val"):
+        for mode in ("bf16", "int8"):
+            assert 0.0 <= result[f"map_{split}_{mode}"] <= 1.0
+        assert math.isfinite(result[f"delta_{split}"])
