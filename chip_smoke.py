@@ -59,6 +59,22 @@
    times a step, that the loss fell and that the burn-in term was on;
    then one float32 step on the card against float64 on the CPU, on 4
    images of the batch.
+7b. Drives the plain v2 training path (``--v2``, ``Darknet19Detector``
+   with a linear output) the same way at the quality recipe's 224² (S=7,
+   B=5, C=20, k-means priors of seeded box shapes), with the recipe's
+   trainer (Adam at 1e-3, grad clip 5, BatchNorm momentum 0.9): 30 bf16
+   steps on a batch of 24 (B5 5 times a step, the loss falls, the burn-in
+   is on) and one float32 card step against float64 on the CPU on 4
+   images, at 7's bounds. Then 10 float32 steps on the card (TF32 off) of
+   the plain v2 head and of v2p, 64², batch 4, grad clip 1.5e4, the
+   burn-in ending after step 1, against the same chain in float64 on the
+   CPU, beside the CPU's own float32 chains (its default threads and 1):
+   the card's distance from float64 (each step's metrics, each parameter
+   tensor and BatchNorm statistic after the chain) within
+   ``V2_CHAIN_RATIO`` times the CPU's float32 chains' (Adam's steps flip
+   where a gradient is as small as float32's rounding, so float32 chains
+   part from float64 and from each other), the first step within
+   ``V2_CHAIN_FIRST_STEP``.
 8. Runs the evaluation, ``pascal_eval_map.run_eval`` through
    ``make_detect_fn`` at the eval CLI's threshold 0.005, NMS IoU 0.5 and
    K=32, on 256 seeded uint8 images at batch 32 (an in-memory image set:
@@ -207,13 +223,14 @@
    the hard synthetic VOC at 128 train / 32 val images, a 100-step
    classifier pretrain, the v1 head with ``--stages 150`` and then
    ``--stages 150,300`` (the second call trains only the 150-step delta
-   to a step-300 snapshot), ``--v2 --passthrough --anchors kmeans
-   --stages 300`` (its k-means priors in ``anchors.json``, decoded with),
-   and ``int8_quality`` on the v1 snapshot: every call exits 0 with its
-   mAPs finite in [0, 1]; B5 5 times a train step, B1 once a v1
-   evaluation batch (bf16 and int8), B2 once a v2p one; each head's
-   trained train-split mAP above that of the same detector with fresh
-   seeded weights (both printed).
+   to a step-300 snapshot), ``--v2 --anchors kmeans --stages 300`` and
+   ``--v2 --passthrough --anchors kmeans --stages 300`` (their k-means
+   priors in ``anchors.json``, decoded with), and ``int8_quality`` on
+   the v1 snapshot: every call exits 0 with its mAPs finite in [0, 1];
+   B5 5 times a train step, B1 once a v1 evaluation batch (bf16 and
+   int8), B2 once an anchor head's one; each head's trained train-split
+   mAP above that of the same detector with fresh seeded weights (both
+   printed).
 17. Times the v1, v1 ``--pallas-stem`` and v2p serving paths in bf16 and
    the v1 and v1 ``--pallas-stem`` paths in float32 with TF32 off
    (images/s at batch 32 and 256, with a profile), the v1 224² and v2p
@@ -253,6 +270,18 @@ the real v1 448² grid, and times them in turns at thresholds 0.5 and
 0.05, batches 1, 32 and 256, B1 and B2 at K=32 and K=1 (``decode_ab``);
 an older source is written out with ``git show
 <commit>:tensorflow_yolo2_torch/csrc/decode.cu``.
+
+    python3 chip_smoke.py --quality-draws ROOT
+
+runs no smoke: it writes the quality program's fixture (the hard
+synthetic VOC, 1024 train / 128 val images) and its 1500-step classifier
+pretrain under the run root ROOT, then trains and scores the draws of
+``DRAW_PLAN`` (head, compute dtype, seed) to the cumulative stages
+``DRAW_STAGES``, each in a clean root holding copies of them: a bf16
+draw through ``quality_curve``, a float32 one through the same stage's
+``pascal_train_darknet`` arguments with ``--compute-dtype float32`` and
+``quality_curve.score`` (``quality_draws``); one ``DRAW`` JSON line a
+stage.
 
 Each path is driven with the launch counts set to 0 just before it and
 read just after; the ``launches`` of a kernel are those of its path.
@@ -1155,6 +1184,264 @@ def check_train_step_against_cpu(build, images, labels, dev,
             "cpu_f32_grad_rel_err": cpu_worst,
             "cpu_f32_all_grads_rel_err": cpu_total,
             "bf16_loss_rel_err": bf16_err, "controls": controls}
+
+
+# -- the plain v2 head's training (section 7b) ----------------------------
+
+V2_TRAIN_SIZE = 224  # the quality recipe's: S=7, B=5, C=20
+RECIPE_CLIP = 5.0  # --grad-clip 5
+RECIPE_BN_MOMENTUM = 0.9  # --bn-momentum 0.9
+# the float32 card chain against the float64 CPU chain, at the size, batch
+# and priors of tests/test_torch_port_v2_chain.py (64², S=2, batch 4),
+# the burn-in on in the first 2 steps and the clip binding on them
+V2_CHAIN_STEPS = 10
+V2_CHAIN_SIZE = 64
+V2_CHAIN_BATCH = 4
+V2_CHAIN_CLIP = 1.5e4
+V2_CHAIN_BURNIN = 8
+V2_CHAIN_ANCHORS = ((0.31, 0.45), (0.62, 0.98), (1.05, 0.66), (1.21, 1.43),
+                    (1.78, 1.83))
+# Float32 and float64 chains of Adam steps part: where a gradient is as
+# small as float32's rounding, Adam's step flips sign, and the flips move
+# every later step, so that after 10 steps from these weights two float32
+# chains of the CPU (other thread counts) are as far from each other as
+# from float64. The card's float32 chain is held to the CPU's: within
+# V2_CHAIN_RATIO times the farther of the CPU's two float32 chains (its
+# default threads and 1 thread) from float64, in each measure, and
+# within V2_CHAIN_FIRST_STEP on the first step, before any flip.
+V2_CHAIN_RATIO = 3.0
+V2_CHAIN_FIRST_STEP = 1e-3
+
+def make_v2_trainer(yolo, dtype: torch.dtype, device, state_dict=None,
+                    passthrough: bool = False, clip: float = RECIPE_CLIP):
+    """The trainer of the quality recipe's anchor heads
+    (``pascal_train_darknet --v2 [--passthrough] --bn-momentum 0.9
+    --grad-clip 5``: Adam at 1e-3 behind the global-norm clip, BatchNorm
+    momentum 0.9 in every layer) and its state on ``device``, fresh
+    weights from seed 0 or ``state_dict``'s; the plain v2 head
+    (``Darknet19Detector``, linear output) unless ``passthrough``."""
+    from tensorflow_yolo2_torch.config import LRScheduleConfig, OptimizerConfig
+    from tensorflow_yolo2_torch.losses.yolo_v2 import yolo_v2_task
+    from tensorflow_yolo2_torch.models.darknet import (
+        Darknet19Detector,
+        Darknet19DetectorV2,
+    )
+    from tensorflow_yolo2_torch.train.trainer import Trainer
+
+    if passthrough:
+        model = Darknet19DetectorV2(yolo.cell_channels,
+                                    bn_momentum=RECIPE_BN_MOMENTUM)
+    else:
+        model = Darknet19Detector(yolo.cell_channels, bn_on_output=False,
+                                  bn_momentum=RECIPE_BN_MOMENTUM)
+    if dtype == torch.float64:  # parameters and slots in float64
+        model.double()
+    trainer = Trainer(model, yolo_v2_task(yolo), OptimizerConfig(
+        name="adam", schedule=LRScheduleConfig(learning_rate=1e-3),
+        grad_clip_norm=clip), device=device,
+        compute_dtype=torch.float32 if dtype == torch.float64 else dtype)
+    return trainer, trainer.create_state(torch.Generator().manual_seed(0),
+                                         state_dict)
+
+
+def v2_chain_batches(yolo, n: int, seed: int = 5) -> list:
+    """``n`` batches of the chain: images in [-1, 1] (float64) and
+    per-slot labels of 1-4 seeded boxes an image."""
+    from tensorflow_yolo2_torch.data.voc import build_label_grid_v2
+
+    rng = np.random.RandomState(seed)
+    size = yolo.image_size
+    out = []
+    for _ in range(n):
+        images = rng.uniform(-1, 1, (V2_CHAIN_BATCH, size, size, 3))
+        labels = []
+        for _ in range(V2_CHAIN_BATCH):
+            k = rng.randint(1, 5)
+            xy = rng.uniform(0, size * 0.75, (k, 2))
+            wh = rng.uniform(size * 0.1, size * 0.6, (k, 2))
+            corners = np.concatenate([xy, np.minimum(xy + wh, size - 1)],
+                                     1).astype(np.float32)
+            labels.append(build_label_grid_v2(
+                corners, rng.randint(0, yolo.num_class, k), yolo.S, yolo.B,
+                yolo.anchors, yolo.num_class, float(size)))
+        out.append((images, np.stack(labels).astype(np.float32)))
+    return out
+
+
+def v2_chain(yolo, passthrough: bool, dtype: torch.dtype, where,
+             state_dict: dict, batches: list) -> dict:
+    """The chain's train steps in ``dtype`` on ``where`` (the float32
+    loss on every side; float64 parameters and Adam slots in float64):
+    each step's 0-d metrics, the state dict after the last step (float64
+    on the CPU) and the seconds it took."""
+    trainer, state = make_v2_trainer(yolo, dtype, where, state_dict,
+                                     passthrough, V2_CHAIN_CLIP)
+    metrics = []
+    t0 = time.perf_counter()
+    for images, labels in batches:
+        state, m = trainer.train_step(
+            state, torch.as_tensor(images, dtype=dtype), labels)
+        metrics.append({k: v for k, v in m.items() if v.dim() == 0})
+    metrics = [{k: float(v) for k, v in m.items()} for m in metrics]
+    return {"metrics": metrics, "seconds": time.perf_counter() - t0,
+            "model": {k: v.detach().double().cpu() for k, v in
+                      state.model.state_dict().items()
+                      if not k.endswith("num_batches_tracked")}}
+
+
+def v2_chain_gaps(got: dict, want: dict) -> dict:
+    """The chain's measures of ``got`` against ``want``: the largest
+    relative difference of a step's metric, and the largest relative norm
+    of a parameter tensor (the conv biases in front of BatchNorm, whose
+    true gradient is 0, left out) and of a BatchNorm statistic."""
+    sd = want["model"]
+    pre_bn = {k for k in sd if k.endswith("conv.bias") and
+              k[:-len("conv.bias")] + "bn.weight" in sd}
+    return {
+        "metrics": max(abs(g[k] - w[k]) / max(abs(w[k]), 1e-30)
+                       for g, w in zip(got["metrics"], want["metrics"])
+                       for k in w),
+        "params": max(rel_norm(got["model"][k], v) for k, v in sd.items()
+                      if "running" not in k and k not in pre_bn),
+        "stats": max(rel_norm(got["model"][k], v) for k, v in sd.items()
+                     if "running" in k)}
+
+
+def check_v2_chains(dev) -> dict:
+    """``V2_CHAIN_STEPS`` train steps of the plain v2 head, and of the
+    passthrough head as its yardstick, in float32 on the card (TF32 off)
+    against float64 on the CPU, from one seeded state (He-normal kernels,
+    BatchNorm terms and statistics away from the identity:
+    ``models.darknet.randomize_``), beside the CPU's own float32 chains
+    with its default threads and with 1. Both heads are held to the same
+    bounds (``V2_CHAIN_RATIO``, ``V2_CHAIN_FIRST_STEP``); the burn-in ends
+    and the clip binds inside the chain."""
+    import dataclasses
+
+    from tensorflow_yolo2_torch.config import yolo_v2_config
+    from tensorflow_yolo2_torch.models.darknet import (
+        Darknet19Detector,
+        Darknet19DetectorV2,
+        randomize_,
+    )
+
+    yolo = dataclasses.replace(
+        yolo_v2_config(V2_CHAIN_SIZE, anchors=V2_CHAIN_ANCHORS),
+        v2_burnin_samples=V2_CHAIN_BURNIN)
+    batches = v2_chain_batches(yolo, V2_CHAIN_STEPS)
+    cpu = torch.device("cpu")
+    threads = torch.get_num_threads()
+    out = {}
+    for head in ("v2", "v2p"):
+        passthrough = head == "v2p"
+        model = (Darknet19DetectorV2(yolo.cell_channels) if passthrough
+                 else Darknet19Detector(yolo.cell_channels,
+                                        bn_on_output=False))
+        weights = randomize_(model, torch.Generator().manual_seed(3))
+        state_dict = weights.state_dict()
+        runs = {}
+        for name, dtype, where, n in (
+                ("card_f32", torch.float32, dev, threads),
+                ("cpu_f64", torch.float64, cpu, threads),
+                ("cpu_f32", torch.float32, cpu, threads),
+                ("cpu_f32_1thread", torch.float32, cpu, 1)):
+            torch.set_num_threads(n)
+            try:
+                runs[name] = v2_chain(yolo, passthrough, dtype, where,
+                                      state_dict, batches)
+            finally:
+                torch.set_num_threads(threads)
+        want = runs.pop("cpu_f64")
+        burn = [m["burnin_loss"] > 0 for m in want["metrics"]]
+        clipped = [m["grad_norm"] > V2_CHAIN_CLIP for m in want["metrics"]]
+        gaps = {name: {**v2_chain_gaps(r, want), "first_step": max(
+            abs(r["metrics"][0][k] - w) / max(abs(w), 1e-30)
+            for k, w in want["metrics"][0].items())}
+            for name, r in runs.items()}
+        card = gaps["card_f32"]
+        cpu_worst = {k: max(gaps[n][k] for n in gaps if n != "card_f32")
+                     for k in card}
+        ratios = {k: card[k] / max(cpu_worst[k], 1e-30)
+                  for k in ("metrics", "params", "stats")}
+        out[head] = {"gaps": gaps, "ratios": ratios, "burn_in": burn,
+                     "clipped": clipped, "losses": [
+                         m["loss"] for m in want["metrics"]],
+                     "seconds": {k: r["seconds"] for k, r in runs.items()}}
+        print(f"{head} chain, {V2_CHAIN_STEPS} steps at {V2_CHAIN_SIZE}², "
+              f"batch {V2_CHAIN_BATCH}, against float64 on the CPU: " +
+              "; ".join(f"{name} " + ", ".join(
+                  f"{k} {v:.2e}" for k, v in g.items())
+                  for name, g in gaps.items()) +
+              "; card / the CPU's farther float32: " +
+              ", ".join(f"{k} {v:.2f}" for k, v in ratios.items()) +
+              f" (bounds {V2_CHAIN_RATIO}, first step "
+              f"{V2_CHAIN_FIRST_STEP}); burn-in on {burn}, clip binds "
+              f"{clipped}; float64 loss " + ", ".join(
+                  f"{v:.3f}" for v in out[head]["losses"]))
+        check(any(burn) and not all(burn) and any(clipped)
+              and not all(clipped),
+              f"the {head} chain crosses the end of the burn-in and the "
+              "clip binds on some of its steps and not on others")
+        check(card["first_step"] <= V2_CHAIN_FIRST_STEP and all(
+            r <= V2_CHAIN_RATIO for r in ratios.values()),
+            f"the float32 {head} chain on the card is as close to float64 "
+            "as the CPU's float32 chains")
+    return out
+
+
+def check_v2_plain_training(dev) -> dict:
+    """Section 7b: the plain v2 training path (``--v2``, linear output) at
+    the quality recipe's 224² (S=7, B=5, C=20, k-means priors of seeded
+    box shapes), fresh seeded weights, bf16, Adam at 1e-3, grad clip 5,
+    BatchNorm momentum 0.9: 30 steps on one seeded uint8 batch of 24
+    (B5 5 times a step, the loss falls, the burn-in is on); one float32
+    card step from the weights they reached against float64 on the CPU
+    on 4 images (section 7's bounds); and ``check_v2_chains``."""
+    from tensorflow_yolo2_torch.config import yolo_v2_config
+    from tensorflow_yolo2_torch.data.anchors import iou_kmeans
+    from tensorflow_yolo2_torch.ops import cuda_pool
+
+    rng = np.random.RandomState(6)
+    # the shapes train_batch draws, in cells of the 7×7 grid
+    priors, _ = iou_kmeans(rng.uniform(16, 160, (200, 2)) / 32.0, 5)
+    yolo = yolo_v2_config(V2_TRAIN_SIZE, anchors=priors)
+    images, labels = (torch.from_numpy(a).to(dev) for a in
+                      train_batch(rng, TRAIN_BATCHES[0], yolo))
+    trainer, state = make_v2_trainer(yolo, torch.bfloat16, dev)
+    metrics = []
+    cuda_pool.reset_launch_counts()
+    for _ in range(FALL_STEPS):
+        state, m = trainer.train_step(state, images, labels)
+        metrics.append(torch.stack([m["loss"], m["burnin_loss"],
+                                    m["grad_norm"]]))
+    torch.cuda.synchronize()
+    pool_launches = cuda_pool.MAX_POOL2_BWD_LAUNCHES
+    losses, burnin, norms = torch.stack(metrics).T.tolist()
+    print(f"train path v2 {V2_TRAIN_SIZE}² (priors "
+          f"{[tuple(round(float(x), 2) for x in p) for p in priors]}): "
+          f"max_pool2_bwd {pool_launches} in {FALL_STEPS} steps; loss on "
+          f"one batch of {TRAIN_BATCHES[0]}: " +
+          ", ".join(f"{v:.3f}" for v in losses) + "; burnin_loss: " +
+          ", ".join(f"{v:.4f}" for v in burnin) + "; grad_norm: " +
+          ", ".join(f"{v:.1f}" for v in norms))
+    check(pool_launches == 5 * FALL_STEPS, "B5 ran 5 times a v2 train step")
+    check(all(math.isfinite(v) for v in losses + burnin),
+          "finite v2 train losses")
+    check(sum(losses[-5:]) / 5 < 0.5 * losses[0],
+          "the v2 loss fell on a fixed batch (mean of the last 5 steps "
+          "under half the first)")
+    check(all(v > 0 for v in burnin), "the v2 burn-in term is on")
+    check(state.step == FALL_STEPS and all(
+        bool(torch.isfinite(p).all()) for p in state.params.values()),
+        "finite v2 parameters after the steps")
+    trained = {k: v.detach().cpu().clone()
+               for k, v in state.model.state_dict().items()}
+    step_check = check_train_step_against_cpu(
+        functools.partial(make_v2_trainer, yolo), images[:V2P_CHECK_IMAGES],
+        labels[:V2P_CHECK_IMAGES], dev, trained)
+    return {"losses": losses, "burnin_losses": burnin, "grad_norms": norms,
+            "max_pool2_bwd_launches": pool_launches, "checks": step_check,
+            "chains": check_v2_chains(dev)}
 
 
 def graph_ms(fn, reps: int = 100) -> float:
@@ -4441,7 +4728,7 @@ def check_parallel(dev, images, v2_images, dp_case, train_cases) -> dict:
 QUALITY_FIXTURE = (128, 32)  # hard VOC: train, val images
 QUALITY_PRETRAIN_ITERS = 100
 QUALITY_V1_STAGES = ("150", "150,300")  # two calls: the second trains 150
-QUALITY_V2P_STAGES = "300"
+QUALITY_V2_STAGES = "300"  # the plain v2 and v2p heads
 
 
 def stage_rows(text: str) -> list[dict]:
@@ -4465,14 +4752,15 @@ def fresh_map(head: str, yolo, dev) -> float:
         init_params_,
     )
 
+    v2 = head != "v1"
     model = (Darknet19DetectorV2(yolo.cell_channels) if head == "v2p"
-             else Darknet19Detector(yolo.cell_channels))
+             else Darknet19Detector(yolo.cell_channels, bn_on_output=not v2))
     init_params_(model, torch.Generator().manual_seed(0))
     detect = make_detect_fn(yolo, model.state_dict(),
                             object_thresh=quality_curve.EVAL_THRESH,
-                            use_nms=True, device=dev, v2=head == "v2p",
+                            use_nms=True, device=dev, v2=v2,
                             passthrough=head == "v2p")
-    gt = yolo if head == "v2p" else yolo_v2_config(yolo.image_size)
+    gt = yolo if v2 else yolo_v2_config(yolo.image_size)
     return quality_curve.score(detect, gt, "trainval")
 
 
@@ -4482,11 +4770,12 @@ def check_quality_program(dev) -> dict:
     root of its own: the hard fixture at 128 train / 32 val, a 100-step
     classifier pretrain, v1 with ``--stages 150`` then ``--stages
     150,300`` (the second call trains only the delta to a step-300
-    snapshot), ``--v2 --passthrough --anchors kmeans --stages 300``, and
-    ``int8_quality`` on the v1 snapshot. Each call exits 0 with mAPs in
-    [0, 1]; B5 runs 5 times a train step, B1 once a v1 evaluation batch,
-    B2 once a v2p one; each head's trained train-split mAP is above that
-    of the same detector with fresh seeded weights."""
+    snapshot), ``--v2 --anchors kmeans --stages 300`` and ``--v2
+    --passthrough --anchors kmeans --stages 300``, and ``int8_quality``
+    on the v1 snapshot. Each call exits 0 with mAPs in [0, 1]; B5 runs 5
+    times a train step, B1 once a v1 evaluation batch, B2 once an anchor
+    head's one; each head's trained train-split mAP is above that of the
+    same detector with fresh seeded weights."""
     import tempfile
 
     from tensorflow_yolo2_torch.config import (
@@ -4556,23 +4845,27 @@ def check_quality_program(dev) -> dict:
         check(CheckpointManager("darknet19", "voc_2007").all_steps()
               == [150, 300], "the v1 snapshots are at steps 150 and 300")
 
-        what = "quality_curve --v2 --passthrough --anchors kmeans --stages 300"
-        text, n = call(quality_curve.main,
-                       ["--stages", QUALITY_V2P_STAGES, "--v2",
-                        "--passthrough", "--anchors", "kmeans", *fixture],
-                       what)
-        check(n["max_pool2_bwd"] == 5 * 300,
-              "B5 ran 5 times a v2p train step")
-        check(n["decode_nms_v2"] == eval_batches and n["decode_nms"] == 0,
-              "B2 ran once a v2p evaluation batch")
-        v2p_rows = check_rows(text, [300], what)
-        v2p_yolo = quality_curve.snapshot_yolo(Paths(), "darknet19_v2p",
-                                               True)
-        check(load_anchors(CheckpointManager("darknet19_v2p", "voc_2007").dir,
-                           v2p_yolo.S) == v2p_yolo.anchors
-              != yolo_v2_config(v2p_yolo.image_size).anchors,
-              "the v2p run wrote its k-means priors to anchors.json and "
-              "the program decodes with them")
+        anchor_rows, anchor_yolo = {}, {}
+        for head, flags in (("v2", []), ("v2p", ["--passthrough"])):
+            what = (f"quality_curve --v2 {' '.join(flags)} --anchors kmeans "
+                    f"--stages {QUALITY_V2_STAGES}")
+            text, n = call(quality_curve.main,
+                           ["--stages", QUALITY_V2_STAGES, "--v2", *flags,
+                            "--anchors", "kmeans", *fixture], what)
+            check(n["max_pool2_bwd"] == 5 * 300,
+                  f"B5 ran 5 times a {head} train step")
+            check(n["decode_nms_v2"] == eval_batches
+                  and n["decode_nms"] == 0,
+                  f"B2 ran once a {head} evaluation batch")
+            anchor_rows[head] = check_rows(text, [300], what)
+            net = quality_curve.curve_net(True, head == "v2p")
+            anchor_yolo[head] = quality_curve.snapshot_yolo(Paths(), net,
+                                                            True)
+            check(load_anchors(CheckpointManager(net, "voc_2007").dir,
+                               anchor_yolo[head].S) == anchor_yolo[head]
+                  .anchors != yolo_v2_config(anchor_yolo[head].image_size)
+                  .anchors, f"the {head} run wrote its k-means priors to "
+                  "anchors.json and the program decodes with them")
 
         what = "int8_quality (v1)"
         text, n = call(int8_quality.main, ["--device", str(dev)], what)
@@ -4591,8 +4884,9 @@ def check_quality_program(dev) -> dict:
         out["int8"] = int8
 
         fresh = {"v1": fresh_map("v1", YoloConfig(), dev),
-                 "v2p": fresh_map("v2p", v2p_yolo, dev)}
-    for head, rows in (("v1", v1_rows), ("v2p", v2p_rows)):
+                 **{head: fresh_map(head, y, dev)
+                    for head, y in anchor_yolo.items()}}
+    for head, rows in (("v1", v1_rows), *anchor_rows.items()):
         out["map"][head] = {"trained": rows[-1], "fresh_map_train":
                             fresh[head]}
         print(f"quality {head} @300: train mAP {rows[-1]['map_train']:.4f}, "
@@ -4607,6 +4901,104 @@ def check_quality_program(dev) -> dict:
     return out
 
 
+# -- draws of the quality program's stages (--quality-draws) ---------------
+
+DRAW_FIXTURE = ("--n-train", "1024", "--n-val", "128", "--bn-momentum",
+                "0.9", "--grad-clip", "5")  # quality_program.sh's
+DRAW_PRETRAIN_ITERS = 1500
+DRAW_HEAD_FLAGS = {"v1": (), "v2": ("--v2", "--anchors", "kmeans"),
+                   "v2p": ("--v2", "--passthrough", "--anchors", "kmeans")}
+DRAW_STAGES = "600"  # each draw's cumulative stages
+# (head, compute dtype, seed) of each draw, in order
+DRAW_PLAN = (("v2", "bfloat16", 0), ("v2", "bfloat16", 1),
+             ("v2", "bfloat16", 2), ("v2", "float32", 0),
+             ("v2", "float32", 1), ("v2", "float32", 2),
+             ("v2p", "bfloat16", 0), ("v1", "bfloat16", 0))
+
+
+def float32_stages(head: str, seed: int, stages: list[int]) -> list[dict]:
+    """``quality_curve``'s stage loop in float32: each stage's own
+    ``pascal_train_darknet`` arguments (``quality_curve.train_argv``, the
+    seed of the stage's first step) with ``--compute-dtype float32``,
+    then the snapshot scored on both splits by ``quality_curve.score``,
+    as ``quality_curve.main`` scores it."""
+    from tensorflow_yolo2_torch.config import Paths, yolo_v2_config
+    from tensorflow_yolo2_torch.entries import (
+        pascal_train_darknet,
+        quality_curve,
+    )
+
+    v2, passthrough = head != "v1", head == "v2p"
+    program = argparse.Namespace(
+        batch=24, bn_momentum=0.9, v2=v2, passthrough=passthrough,
+        anchors="kmeans", multiscale=None, grad_clip=5.0, lr_decay=None,
+        device="cuda")
+    net = quality_curve.curve_net(v2, passthrough)
+    rows, done = [], 0
+    for stage in stages:
+        run_cli(pascal_train_darknet.main,
+                quality_curve.train_argv(program, stage - done,
+                                         seed + done + 1)
+                + ["--compute-dtype", "float32"], f"{head} float32 {stage}")
+        done = stage
+        yolo = quality_curve.snapshot_yolo(Paths(), net, v2)
+        gt = yolo if v2 else yolo_v2_config(yolo.image_size)
+        detect = quality_curve.build_detect(yolo, net, v2, passthrough,
+                                            "cuda")
+        rows.append({"iters": stage, **{
+            f"map_{split}": round(quality_curve.score(detect, gt, name), 4)
+            for split, name in (("train", "trainval"), ("val", "test"))}})
+    return rows
+
+
+def quality_draws(root: str, card: str) -> int:
+    """The quality program's stages, ``DRAW_PLAN``'s draws, on one
+    fixture and one pretrain (``quality_program.sh``'s: the hard
+    synthetic VOC at 1024 / 128 images, a 1500-step classifier pretrain),
+    each draw in a clean run root holding copies of them: a bf16 draw is
+    ``quality_curve --stages DRAW_STAGES --seed SEED``, a float32 one
+    ``float32_stages``. Prints a ``DRAW`` JSON line a stage; each draw's
+    root is removed after it (its snapshots are ~0.6 GB each)."""
+    import shutil
+
+    from tensorflow_yolo2_torch.entries import quality_curve
+
+    stage_list = [int(s) for s in DRAW_STAGES.split(",")]
+    base = os.path.join(root, "base")
+    with mock.patch.dict(os.environ, {"TFY2_ROOT": base}):
+        run_cli(quality_curve.main,
+                ["--stages", "0", "--pretrain-iters",
+                 str(DRAW_PRETRAIN_ITERS), *DRAW_FIXTURE, "--device",
+                 "cuda"],
+                "fixture and pretrain")
+    shared = [os.path.join("data", "VOCdevkit"), os.path.join("data", "ILSVRC"),
+              "cache", os.path.join("ckpts", "darknet19", "ilsvrc_2017_cls")]
+    for head, dtype, seed in DRAW_PLAN:
+        draw = os.path.join(root, f"{head}_{dtype}_seed{seed}")
+        for rel in shared:
+            shutil.copytree(os.path.join(base, rel), os.path.join(draw, rel))
+        t0 = time.perf_counter()
+        with mock.patch.dict(os.environ, {"TFY2_ROOT": draw}):
+            if dtype == "bfloat16":
+                rows = stage_rows(run_cli(
+                    quality_curve.main,
+                    ["--stages", DRAW_STAGES, *DRAW_FIXTURE,
+                     *DRAW_HEAD_FLAGS[head], "--seed", str(seed),
+                     "--device", "cuda"], f"{head} bf16 seed {seed}"))
+            else:
+                rows = float32_stages(head, seed, stage_list)
+        check([r["iters"] for r in rows] == stage_list,
+              f"the {head} {dtype} seed {seed} draw scored every stage")
+        for r in rows:
+            print("DRAW " + json.dumps({
+                "head": head, "dtype": dtype, "seed": seed, **r,
+                "seconds": round(time.perf_counter() - t0, 1),
+                "card": card}), flush=True)
+        shutil.rmtree(draw)
+    shutil.rmtree(base)
+    return 0
+
+
 def main(argv: list[str] | None = None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument(
@@ -4618,6 +5010,11 @@ def main(argv: list[str] | None = None) -> int:
         help="instead of the smoke run, check and time B1 and B2 of "
         "csrc/decode.cu and these other decode sources side by side "
         "(decode_ab)")
+    parser.add_argument(
+        "--quality-draws", metavar="ROOT",
+        help="instead of the smoke run, train and score the quality "
+        "program's draws of DRAW_PLAN under the run root ROOT "
+        "(quality_draws)")
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
@@ -4658,6 +5055,8 @@ def main(argv: list[str] | None = None) -> int:
     if args.decode_ab is not None:
         return decode_ab([cuda_build.source_path("decode"), *args.decode_ab],
                          card)
+    if args.quality_draws is not None:
+        return quality_draws(args.quality_draws, card)
     t0 = time.perf_counter()
     logs = cuda_build.build()
     print(f"build: {time.perf_counter() - t0:.1f} s for "
@@ -5013,6 +5412,11 @@ def main(argv: list[str] | None = None) -> int:
         functools.partial(make_trainer, vyolo), vimages[:V2P_CHECK_IMAGES],
         vlabels[:V2P_CHECK_IMAGES], dev, v2p_trained)
 
+    # 7b. the plain v2 training path at the recipe's 224², bf16, and its
+    # float32 chain on the card against float64 on the CPU ---------------
+    mark("section 7b")
+    v2_train = check_v2_plain_training(dev)
+
     # 8. evaluation on the card: run_eval at threshold 0.005, v2p and v1 ----
     # With the serving weights of 4 and 3 every slot of the v2p grid and
     # most of the v1 grid pass the threshold: B2 and B1 meet their most
@@ -5123,6 +5527,7 @@ def main(argv: list[str] | None = None) -> int:
             "losses": vlosses, "burnin_losses": vburnin,
             "max_pool2_bwd_launches": v2p_pool_launches,
             "checks": v2p_train_check},
+        "train_v2_224": v2_train,
         **evals,
         "train_cls_224": cls_train,
         "int8_cls_224": cls_int8,

@@ -52,7 +52,12 @@ the live-BatchNorm spatial step (the same, and its running statistics at
 1e-2), the spatial serving path's decode launches (B1 and B3 once a v1
 call, B2 once a v2p call). The quality program (``-k quality``):
 ``int8_quality`` on a 2-stage ``quality_curve`` v1 snapshot, finite mAPs
-in [0, 1] and B1 once an evaluation batch.
+in [0, 1] and B1 once an evaluation batch. The plain v2 head's training
+(``-k v2_plain``): the quality recipe's bf16 steps at 224² (B5 5 times a
+step), a float32 step against float64 on the CPU with the step bounds
+above, and the float32 chain of chip_smoke.check_v2_chains against the
+float64 one (within chip_smoke.V2_CHAIN_RATIO of the CPU's own float32
+chains, both heads).
 """
 
 import ctypes
@@ -674,6 +679,38 @@ def test_train_step_matches_cpu(card, no_tf32):
         functools.partial(chip_smoke.make_trainer, yolo), images, labels,
         card,
         {k: v.cpu() for k, v in state.model.state_dict().items()})
+
+
+def test_v2_plain_train_step_matches_cpu(card, no_tf32):
+    """20 bf16 steps of the plain v2 head (``--v2``, linear output) at
+    224², batch 4, with the quality recipe's trainer (grad clip 5,
+    BatchNorm momentum 0.9): B5 5 times a step, the burn-in on; then a
+    float32 step on the card against float64 on the CPU from the weights
+    they reached, with chip_smoke's step bounds."""
+    import numpy as np
+
+    yolo = yolo_v2_config(224)
+    images, labels = (torch.from_numpy(a).to(card)
+                      for a in chip_smoke.train_batch(
+                          np.random.RandomState(0), 4, yolo))
+    trainer, state = chip_smoke.make_v2_trainer(yolo, torch.bfloat16, card)
+    cuda_pool.reset_launch_counts()
+    metrics = [trainer.train_step(state, images, labels)[1]
+               for _ in range(20)]
+    assert cuda_pool.MAX_POOL2_BWD_LAUNCHES == 5 * 20
+    assert all(m["burnin_loss"].item() > 0 for m in metrics)
+    assert all(math.isfinite(m["loss"].item()) for m in metrics)
+    chip_smoke.check_train_step_against_cpu(
+        functools.partial(chip_smoke.make_v2_trainer, yolo), images, labels,
+        card, {k: v.cpu() for k, v in state.model.state_dict().items()})
+
+
+def test_v2_plain_chain_matches_cpu(card, no_tf32):
+    """chip_smoke.check_v2_chains: the float32 chains of the plain v2 and
+    v2p heads on the card against float64 on the CPU, across the end of
+    the burn-in and the clip."""
+    out = chip_smoke.check_v2_chains(card)
+    assert set(out) == {"v2", "v2p"}
 
 
 def test_train_loop_on_the_card(card, tmp_path):

@@ -1,7 +1,7 @@
 """The port's quality program (``entries.quality_curve``,
 ``entries.int8_quality``, ``data.synthetic``) on the CPU: its fixture
 against the repository's, the stage program's contract, and its v1
-scoring against the JAX package's.
+and plain v2 scoring against the JAX package's.
 
 Tolerances: the fixtures are byte-identical (the same seeds, draws and
 cv2 writes). The v1 eval row: the port's float32 detector and JAX's
@@ -9,8 +9,10 @@ from the same seeded weights (``convert.py`` carries them across), each
 package's ``run_eval`` over the same 3 val images against the per-slot
 ground truth, mAP within 1e-6 (the detections are held to JAX's
 elsewhere: kept scores rtol 1e-4, ``test_torch_port_detect.py``; the
-ranking only changes if two scores within 1e-4 swap). JAX runs at S=7,
-where its tests run the interpreted decode+NMS on the CPU.
+ranking only changes if two scores within 1e-4 swap). The plain v2 row
+likewise, with the priors of an ``anchors.json`` that both packages
+read. JAX runs at S=7, where its tests run the interpreted decode+NMS on
+the CPU.
 """
 
 import argparse
@@ -240,6 +242,71 @@ def test_v1_eval_row_matches_jax(tmp_root, monkeypatch):
         jx_detect.make_detect_fn(jx_config.YoloConfig(), params, stats,
                                  qc.EVAL_THRESH, use_nms=True,
                                  dtype=jnp.float32), imdb, gt)
+    assert abs(ours - float(theirs)) <= 1e-6
+    assert sorted(aps) == [6, 11, 14]  # the val images' classes
+    assert ours > 0  # some boxes match
+
+
+# the plain v2 output conv for the scoring check: the seeded kernel
+# scaled down so that each slot's box stays near its cell centre and its
+# prior's size, confidences ~0.5, and cars, dogs and persons (the
+# fixture's classes 6, 11, 14) ahead of the other classes
+V2_KERNEL_SCALE = 0.05
+V2_CLASS_BIAS = {6: 3.0, 11: 3.0, 14: 3.0}
+
+
+def v2_weights():
+    """Seeded float32 weights of the plain v2 detector (``--v2``, linear
+    output, B=5, C=20) with the output conv of ``V2_*``."""
+    v = random_variables(Darknet19Detector(output_channels=125,
+                                           bn_on_output=False),
+                         (1, 224, 224, 3), seed=37)
+    out = v["params"]["detection"]["output"]["conv"]
+    out["kernel"] *= V2_KERNEL_SCALE
+    out["bias"][:] = 0.0
+    for b in range(5):
+        for c, bias in V2_CLASS_BIAS.items():
+            out["bias"][b * 25 + 5 + c] = bias
+    return v["params"], v["batch_stats"]
+
+
+def test_v2_eval_row_matches_jax(tmp_root, monkeypatch):
+    """The port's plain v2 scoring as ``quality_curve`` does it (priors
+    from the snapshot dir's ``anchors.json``, written by
+    ``persist_anchors``: JAX's k-means of the fixture; ``snapshot_yolo``;
+    ``score`` against the per-slot ground truth of those priors) equals
+    JAX's ``run_eval`` of JAX's v2 detect function with the priors JAX's
+    ``v2_config_for_snapshot`` reads from the same file."""
+    from tensorflow_yolo2_torch.data.anchors import persist_anchors
+    from tensorflow_yolo2_tpu.data import anchors as jx_anchors
+
+    voc = pt_synthetic.make_voc_hard(str(tmp_root / "data" / "VOCdevkit"),
+                                     n_train=6, n_val=3)
+    priors, _ = jx_anchors.iou_kmeans(
+        jx_anchors.collect_voc_wh_cells(voc, "trainval", 7, 224), 5)
+    paths = pt_config.Paths()
+    net = qc.curve_net(True, False)
+    assert persist_anchors(os.path.join(paths.ckpts, net, "voc_2007"),
+                           priors, 7, has_snapshots=False) is not None
+    yolo = qc.snapshot_yolo(paths, net, True)
+    params, stats = v2_weights()
+    monkeypatch.setattr(qc, "EVAL_BATCH", 3)
+    ours = qc.score(
+        pt_detect.make_detect_fn(yolo, params, stats, qc.EVAL_THRESH,
+                                 use_nms=True, dtype=torch.float32,
+                                 device="cpu", v2=True), yolo, "test")
+    jyolo = jx_anchors.v2_config_for_snapshot(
+        net, "voc_2007", 224, paths=jx_config.Paths(root=str(tmp_root)))
+    assert jyolo.anchors == yolo.anchors != \
+        pt_config.yolo_v2_config(224).anchors
+    imdb = JxPascalVOC(  # its own label cache
+        "test", batch_size=3, yolo=jyolo,
+        data_path=str(tmp_root / "data" / "VOCdevkit" / "VOC2007"),
+        paths=jx_config.Paths(root=str(tmp_root / "jax")))
+    theirs, aps = jx_eval.run_eval(
+        jx_detect.make_detect_fn(jyolo, params, stats, qc.EVAL_THRESH,
+                                 use_nms=True, dtype=jnp.float32, v2=True),
+        imdb, jyolo)
     assert abs(ours - float(theirs)) <= 1e-6
     assert sorted(aps) == [6, 11, 14]  # the val images' classes
     assert ours > 0  # some boxes match
